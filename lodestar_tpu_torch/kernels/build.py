@@ -1,0 +1,159 @@
+"""Build and load the CUDA kernels (the port's counterpart of
+`lodestar_tpu/kernels/launch.py`).
+
+Each kernel source `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into
+a shared library with a plain C interface and loaded with `ctypes`; no
+source includes PyTorch's headers, so a build takes seconds.  All sources
+are compiled at once, one `nvcc` process each, at the first launch of any
+kernel.  Libraries are cached in `lodestar_tpu_torch/_build/` under a
+hash of every file in `csrc/` and the flags, so an edit to any header
+rebuilds everything and an unchanged tree reuses the libraries.
+
+`ptxas -v` output (registers, spills, stack frame) is kept beside each
+library as `<name>-<hash>.ptxas.txt`.
+
+`build_host` compiles the same sources with the host C++ compiler
+instead (every PTX carry instruction emulated); the tests use it to hold
+the CUDA engine's arithmetic against the plain torch engine on a machine
+without a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("mont", "subgroup", "miller", "final")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-w"]
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def source_hash(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a CUDA host")
+    return path
+
+
+def _compile_all(cmd_for, out_for) -> None:
+    """Start one compiler process per source, all together; wait for all;
+    raise with the compiler's output if any failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        if out_for(name).exists():
+            continue
+        tmp = out_for(name).with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (
+            subprocess.Popen(
+                cmd_for(name, tmp),
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp,
+        )
+    errors = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+            continue
+        out = out_for(name)
+        out.with_suffix(".ptxas.txt").write_text(log)
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel source for sm_90a (cached by source hash)."""
+    digest = source_hash(NVCC_FLAGS)
+    out_for = lambda name: BUILD_DIR / f"{name}-{digest}.so"  # noqa: E731
+    cc = nvcc()
+    _compile_all(
+        lambda name, tmp: [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        out_for,
+    )
+    return {name: out_for(name) for name in SOURCES}
+
+
+def build_host() -> Dict[str, Path]:
+    """Compile every kernel source with the host C++ compiler (tests)."""
+    digest = source_hash(HOST_FLAGS)
+    out_for = lambda name: BUILD_DIR / f"host-{name}-{digest}.so"  # noqa: E731
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler")
+    _compile_all(
+        lambda name, tmp: [cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        out_for,
+    )
+    return {name: out_for(name) for name in SOURCES}
+
+
+def ptxas_report() -> Dict[str, str]:
+    """`ptxas -v` lines of the current build, per source."""
+    digest = source_hash(NVCC_FLAGS)
+    out = {}
+    for name in SOURCES:
+        p = BUILD_DIR / f"{name}-{digest}.ptxas.txt"
+        out[name] = p.read_text() if p.exists() else ""
+    return out
+
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "lt_mont_convert": [_VP, _VP, _INT, _INT, _VP],
+    "lt_g2_subgroup_check": [_VP, _VP, _VP, _INT, _VP],
+    "lt_miller_loop": [_VP, _VP, _VP, _INT, _VP],
+    "lt_each_final": [_VP, _VP, _VP, _VP, _INT, _VP],
+}
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    for sym, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, sym, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The CUDA library of `csrc/<name>.cu`, built (all sources) on first use."""
+    with _LOCK:
+        if not _LIBS:
+            for n, path in build_all().items():
+                _LIBS[n] = _bind(ctypes.CDLL(str(path)))
+        return _LIBS[name]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    lib = _bind(ctypes.CDLL(str(build_host()[name])))
+    lib.lt_host_fp_muls.argtypes = []
+    lib.lt_host_fp_muls.restype = ctypes.c_uint64
+    return lib

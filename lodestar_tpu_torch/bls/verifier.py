@@ -1,25 +1,40 @@
-"""TorchBlsVerifier: per-set BLS verification on the port's CUDA kernels.
+"""TorchBlsVerifier: BLS signature-set verification on the port's CUDA
+kernels.
 
-Counterpart of the per-set subset of `lodestar_tpu/bls/verifier.py`
-`TpuBlsVerifier`: the path it takes under `LODESTAR_TPU_BLS_RLC=0`, for
-non-batchable jobs, for `verify_signature_sets_individually` and for the
-breaker canary (`kernels/verify.py verify_each_device`).  Semantics kept:
+Counterpart of `lodestar_tpu/bls/verifier.py` `TpuBlsVerifier` for
+decoded single-pubkey sets.  Semantics kept:
 
   - `verify_signature_sets(sets, opts)` is True iff EVERY set verifies;
     jobs are chunked to `max_job_sets` (MAX_JOB_SETS = 512) and padded to
-    the N buckets; all chunks are dispatched before any is synced.
-  - `verify_on_main_thread` verifies on the host CPU ground truth.
-  - `can_accept_work()` is the 512-pending-job backpressure bound.
+    the N buckets; every chunk is dispatched (`begin_job`) before any is
+    synced (`finish_job`).
+  - A job is verified as ONE random-linear-combination batch
+    (`kernels/verify.py verify_batch_device`) iff it is batchable, has at
+    least 2 sets, every signature is decodable and `LODESTAR_TPU_BLS_RLC`
+    is not 0 (the escape hatch); otherwise it gets per-set verdicts
+    (`verify_each_device`).  A batchable job that holds an undecodable
+    signature counts one batch retry.
+  - A failed batch bisects: both halves are dispatched as smaller RLC
+    batches before either is synced, a passing half clears its sets, a
+    failing one recurses, and a half of at most `bisect_leaf` sets
+    (default one 128-lane tile) gets per-set verdicts.  A job at or under
+    the leaf retries per set on its own planes.  `_DeviceJob` counts
+    `batch_retries` and `batch_sigs_success` as the JAX job does.
+  - Randomizers are odd 128-bit scalars from the OS CSPRNG
+    (`bls/rand.py`); a seeded `rng` is for tests.
+  - `verify_on_main_thread` verifies on the host CPU ground truth;
+    `can_accept_work()` is the 512-pending-job backpressure bound.
 
-Not in this slice: the RLC batch and its bisection, message grouping,
-wire (compressed) sets, the export cache and the DeviceSupervisor
-breaker; a device fault propagates as an exception.  Aggregate sets
-(K > 1) raise ValueError: they need the `_k_agg_pk` kernel of a later
-slice, and are not quietly sent to the host.
+Not in this slice: the metrics registry and trace spans, the
+DeviceSupervisor breaker (a device fault propagates as an exception),
+the export cache, wire (compressed) sets, message grouping and
+aggregate sets: K > 1 raises ValueError, since it needs the `_k_agg_pk`
+kernel of a later slice, and is not quietly sent to the host.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -31,6 +46,7 @@ from ..crypto import pairing as CP
 from ..kernels import layout as LY
 from ..kernels import verify as KV
 from .pubkey_table import PubkeyTable
+from .rand import make_rand_words
 from .signature_set import SignatureSet
 
 MAX_JOB_SETS = 512
@@ -41,12 +57,33 @@ N_BUCKETS = (128, 256, 512, 1024, 2048)
 
 
 class VerifyOptions:
-    """`verify_on_main_thread`: verify on the host CPU ground truth (the
-    latency path for block proposer signatures).  RLC batching, which the
-    JAX package's `batchable` selects, comes with a later slice."""
+    """`batchable`: the job may be verified as one RLC batch (>= 2 sets).
+    `verify_on_main_thread`: verify on the host CPU ground truth (the
+    latency path for block proposer signatures)."""
 
-    def __init__(self, verify_on_main_thread: bool = False):
+    def __init__(self, batchable: bool = False, verify_on_main_thread: bool = False):
+        self.batchable = batchable
         self.verify_on_main_thread = verify_on_main_thread
+
+
+class _DeviceJob:
+    """An in-flight job: lazy device results and the host context."""
+
+    __slots__ = (
+        "sets", "args", "decodable", "batch_ok", "per_set", "verdicts",
+        "batch_retries", "batch_sigs_success", "bisect_depth",
+    )
+
+    def __init__(self, sets):
+        self.sets = sets
+        self.args = None  # prepared device operands (planes, idx, sig_inf, valid)
+        self.decodable = None
+        self.batch_ok = None  # lazy device scalar: the RLC batch verdict
+        self.per_set = None  # lazy device vector: per-set verdicts
+        self.verdicts = None  # host per-set bools after a per-set or bisected resolve
+        self.batch_retries = 0
+        self.batch_sigs_success = 0
+        self.bisect_depth = 0  # 0: no bisection ran
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,11 +106,28 @@ def _bucket(n: int) -> int:
 class TorchBlsVerifier:
     """The device-backed verifier over one pubkey table."""
 
-    def __init__(self, table: PubkeyTable, device=None, max_job_sets: int = MAX_JOB_SETS):
+    def __init__(
+        self,
+        table: PubkeyTable,
+        device=None,
+        max_job_sets: int = MAX_JOB_SETS,
+        rng: Optional[np.random.Generator] = None,
+        bisect_leaf: Optional[int] = None,
+    ):
         self.table = table
         self.device = resolve_device(device)
         self.max_job_sets = min(max_job_sets, N_BUCKETS[-1])
         self._pending_jobs = 0
+        # None: OS CSPRNG randomizers; a seeded generator for tests
+        self.rng = rng
+        # LODESTAR_TPU_BLS_RLC=0 forces per-set verdicts for every job:
+        # the batch's soundness rests on the randomizers, so operators get
+        # a switch.  Default on.
+        rlc = os.environ.get("LODESTAR_TPU_BLS_RLC", "1").strip().lower()
+        self._use_rlc = rlc not in ("0", "false", "no", "off")
+        # below one 128-lane tile every sub-job pads to the same bucket,
+        # so bisection stops there and the leaf runs per-set verdicts
+        self.bisect_leaf = KV.BT if bisect_leaf is None else bisect_leaf
 
     def can_accept_work(self) -> bool:
         return self._pending_jobs < MAX_PENDING_JOBS
@@ -91,20 +145,27 @@ class TorchBlsVerifier:
             if opts.verify_on_main_thread:
                 return all(self._verify_set_cpu(s) for s in sets)
             step = self.max_job_sets
-            pending = [self._dispatch(list(sets[i : i + step])) for i in range(0, len(sets), step)]
-            return all(bool(v.all()) for v in (self._collect(*p) for p in pending))
+            jobs = [
+                self.begin_job(list(sets[i : i + step]), opts.batchable)
+                for i in range(0, len(sets), step)
+            ]
+            ok = True
+            for job in jobs:
+                ok &= self.finish_job(job)
+            return ok
         finally:
             self._pending_jobs -= 1
 
     def verify_signature_sets_individually(self, sets: Sequence[SignatureSet]) -> List[bool]:
         """Per-set verdicts, in submission order."""
-        pending = [
-            self._dispatch(list(sets[i : i + MAX_JOB_SETS]))
+        jobs = [
+            self.begin_job(list(sets[i : i + MAX_JOB_SETS]), batchable=False)
             for i in range(0, len(sets), MAX_JOB_SETS)
         ]
         out: List[bool] = []
-        for p in pending:
-            out.extend(bool(v) for v in self._collect(*p))
+        for job in jobs:
+            self.finish_job(job)
+            out.extend(bool(v) for v in job.verdicts)
         return out
 
     # -- job execution --------------------------------------------------------
@@ -144,13 +205,46 @@ class TorchBlsVerifier:
             torch.from_numpy(valid).to(dev),
         )
 
-    def _dispatch(self, sets: List[SignatureSet]):
-        """Launch one job without syncing; returns what `_collect` needs."""
-        planes, idx, sig_inf, valid = self._prepare(sets)
+    def _each(self, args) -> torch.Tensor:
+        """Launch the per-set path on prepared operands (no sync)."""
+        planes, idx, sig_inf, valid = args
         tx, ty = self.table.device_planes(self.device)
-        per_set = KV.verify_each_device(tx, ty, idx, planes, sig_inf, valid)
-        decodable = np.array([s.signature is not None for s in sets])
-        return per_set, decodable
+        return KV.verify_each_device(tx, ty, idx, planes, sig_inf, valid)
+
+    def begin_job(self, sets: List[SignatureSet], batchable: bool) -> _DeviceJob:
+        """Dispatch one job (<= max_job_sets sets) without syncing;
+        `finish_job` syncs it.  Routing as `_begin_job` of the JAX package
+        (`lodestar_tpu/bls/verifier.py:643`)."""
+        job = _DeviceJob(sets)
+        if not sets:
+            return job
+        job.args = self._prepare(sets)
+        job.decodable = np.array([s.signature is not None for s in sets])
+        batchable_job = batchable and len(sets) >= 2
+        if batchable_job and self._use_rlc and job.decodable.all():
+            job.batch_ok = self._dispatch_rlc_batch(job.args)
+        else:
+            if batchable_job and self._use_rlc:
+                # an undecodable signature voids the batch: count a retry
+                # and go straight to per-set verdicts
+                job.batch_retries += 1
+            job.per_set = self._each(job.args)
+        return job
+
+    def finish_job(self, job: _DeviceJob) -> bool:
+        """Sync a begun job; True iff every set verified.  Per-set verdicts
+        land in `job.verdicts` unless the batch accepted every set."""
+        sets = job.sets
+        if not sets:
+            return True
+        if job.batch_ok is not None:
+            per_set = self._resolve_rlc_batch(job)
+            if per_set is None:
+                return True
+        else:
+            per_set = self._collect(job.per_set, job.decodable)
+        job.verdicts = per_set
+        return bool(per_set.all())
 
     @staticmethod
     def _collect(per_set: torch.Tensor, decodable: np.ndarray) -> np.ndarray:
@@ -158,6 +252,68 @@ class TorchBlsVerifier:
         if v.shape != (per_set.shape[0],) or v.dtype != np.bool_:
             raise RuntimeError(f"malformed verdict plane {v.dtype} {v.shape}")
         return v[: len(decodable)] & decodable
+
+    # -- RLC batch resolution and bisection -----------------------------------
+
+    def _resolve_rlc_batch(self, job: _DeviceJob):
+        """Sync a dispatched batch verdict: None when the batch accepted
+        every set, else the per-set verdicts (job.sets order) by bisection,
+        or by a per-set retry when the job is at or under the leaf."""
+        sets = job.sets
+        if self._batch_verdict(job.batch_ok):
+            job.batch_sigs_success += len(sets)
+            return None
+        job.batch_retries += 1
+        if len(sets) > self.bisect_leaf:
+            per_set, job.bisect_depth = self._bisect(sets, 1, job)
+            return per_set
+        job.per_set = self._each(job.args)
+        return self._collect(job.per_set, job.decodable)
+
+    def _bisect(self, sets, depth: int, job: Optional[_DeviceJob] = None):
+        """Verdicts of a failed batch by recursive halving ->
+        (bool ndarray in `sets` order, deepest recursion level)."""
+        if len(sets) <= self.bisect_leaf or len(sets) < 2:
+            return self._per_set_verdicts(sets), depth
+        mid = (len(sets) + 1) // 2
+        halves = [sets[:mid], sets[mid:]]
+        handles = [self._dispatch_batch(h) for h in halves]
+        parts: List[np.ndarray] = []
+        max_depth = depth
+        for half, handle in zip(halves, handles):
+            if self._batch_verdict(handle):
+                if job is not None:
+                    job.batch_sigs_success += len(half)
+                parts.append(np.ones(len(half), bool))
+            else:
+                v, d = self._bisect(half, depth + 1, job)
+                parts.append(v)
+                max_depth = max(max_depth, d)
+        return np.concatenate(parts), max_depth
+
+    def _dispatch_rlc_batch(self, args) -> torch.Tensor:
+        """ONE RLC multi-pairing dispatch with fresh randomizers (no sync);
+        shared by the job path and the bisection."""
+        planes, idx, sig_inf, valid = args
+        rwords = torch.from_numpy(make_rand_words(valid.shape[0], self.rng)).to(self.device)
+        tx, ty = self.table.device_planes(self.device)
+        batch_ok, _sub_ok = KV.verify_batch_device(tx, ty, idx, planes, sig_inf, rwords, valid)
+        return batch_ok
+
+    def _dispatch_batch(self, sets) -> torch.Tensor:
+        """Dispatch one sub-batch of the bisection (no sync)."""
+        return self._dispatch_rlc_batch(self._prepare(sets))
+
+    def _batch_verdict(self, handle) -> bool:
+        """Sync one batch handle to a host bool."""
+        return bool(handle)
+
+    def _per_set_verdicts(self, sets) -> np.ndarray:
+        """Independent per-set verdicts (the bisection leaf)."""
+        decodable = np.array([s.signature is not None for s in sets])
+        return self._collect(self._each(self._prepare(sets)), decodable)
+
+    # -- host paths -------------------------------------------------------------
 
     def _verify_set_cpu(self, s: SignatureSet) -> bool:
         """Ground-truth verification of one set on the host CPU (pubkeys
@@ -177,5 +333,5 @@ class TorchBlsVerifier:
     def _device_canary(self) -> bool:
         """One minimal device job (a signature at infinity in the smallest
         bucket); passes iff the verdict plane is well formed and False."""
-        per_set, decodable = self._dispatch([SignatureSet.single(0, C.G2_GEN, None)])
-        return not bool(self._collect(per_set, decodable)[0])
+        job = self.begin_job([SignatureSet.single(0, C.G2_GEN, None)], batchable=False)
+        return not self.finish_job(job)

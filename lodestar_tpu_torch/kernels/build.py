@@ -31,7 +31,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("mont", "subgroup", "miller", "final")
+SOURCES = ("mont", "subgroup", "miller", "final", "randmul", "reduce", "tail")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -131,6 +131,12 @@ _ARGTYPES = {
     "lt_g2_subgroup_check": [_VP, _VP, _VP, _INT, _VP],
     "lt_miller_loop": [_VP, _VP, _VP, _INT, _VP],
     "lt_each_final": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_g1_rpk": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_g2_rsig_sub": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_sum_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_prod12": [_VP, _VP, _VP, _INT, _VP],
+    "lt_affine_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_final_one": [_VP, _VP, _VP, _VP, _INT, _VP],
 }
 
 

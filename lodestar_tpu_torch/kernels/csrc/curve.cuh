@@ -116,11 +116,12 @@ LT_NOINL void jac_add_mixed(jac<F> &r, const jac<F> &p, const aff<F> &q) {
   r = o;
 }
 
-// P + Q with infinity masks: P = O and Q = O through the masks, P == Q by
-// an exact zero test dispatching to doubling, P == -Q giving infinity
+// P + Q, both Jacobian, with no equal or infinity dispatch: 12M + 4S.
+// h_zero and r_zero report H == 0 and R == 0 for the callers that
+// dispatch (jac_add_full).
 template <typename F>
-LT_NOINL void jac_add_full(jac<F> &r, bool &r_inf, const jac<F> &p, bool p_inf,
-                           const jac<F> &q, bool q_inf) {
+LT_NOINL void jac_add_core(jac<F> &r, bool &h_zero, bool &r_zero, const jac<F> &p,
+                           const jac<F> &q) {
   F Z1Z1, Z2Z2, U1, U2, S1, S2, H, R, HH, HHH, V, t;
   f_sqr(Z1Z1, p.z);
   f_sqr(Z2Z2, q.z);
@@ -132,12 +133,12 @@ LT_NOINL void jac_add_full(jac<F> &r, bool &r_inf, const jac<F> &p, bool p_inf,
   f_mul(S2, S2, Z1Z1);
   f_sub(H, U2, U1);
   f_sub(R, S2, S1);
-  const bool h_zero = f_is_zero(H);
-  const bool r_zero = f_is_zero(R);
+  h_zero = f_is_zero(H);
+  r_zero = f_is_zero(R);
   f_sqr(HH, H);
   f_mul(HHH, H, HH);
   f_mul(V, U1, HH);
-  jac<F> o, d;
+  jac<F> o;
   f_sqr(t, R);
   f_sub(t, t, HHH);
   f_dbl(U2, V);
@@ -148,6 +149,25 @@ LT_NOINL void jac_add_full(jac<F> &r, bool &r_inf, const jac<F> &p, bool p_inf,
   f_sub(o.y, t, U2);
   f_mul(t, p.z, q.z);
   f_mul(o.z, t, H);
+  r = o;
+}
+
+// P + Q inside the windowed scalar multiplication, where the callers rule
+// out P == +-Q and infinity (lodestar_tpu/kernels/curve.py:305)
+template <typename F>
+LT_DEV void jac_add_mixed_or_full(jac<F> &r, const jac<F> &p, const jac<F> &q) {
+  bool h_zero, r_zero;
+  jac_add_core(r, h_zero, r_zero, p, q);
+}
+
+// P + Q with infinity masks: P = O and Q = O through the masks, P == Q by
+// an exact zero test dispatching to doubling, P == -Q giving infinity
+template <typename F>
+LT_NOINL void jac_add_full(jac<F> &r, bool &r_inf, const jac<F> &p, bool p_inf,
+                           const jac<F> &q, bool q_inf) {
+  jac<F> o, d;
+  bool h_zero, r_zero;
+  jac_add_core(o, h_zero, r_zero, p, q);
   jac_dbl(d, p);
   jac_select(o, h_zero && r_zero, d, o);
   jac_select(o, q_inf, p, o);
@@ -218,4 +238,59 @@ LT_DEV bool g2_subgroup_check(const aff<fp2> &q, bool q_inf) {
   g2_psi(lhs, qj);
   jac_neg(zq, zq);
   return jac_eq(lhs, q_inf, zq, q_inf) || q_inf;
+}
+
+// ---------------------------------------------------------------------------
+// Randomized scalar multiplication of the RLC batch
+// ---------------------------------------------------------------------------
+
+#define LT_RAND_BITS 128
+#define LT_RAND_WORDS (LT_RAND_BITS / 32)
+#define LT_WINDOW 4  // divides 32: a digit never straddles two words
+
+// window digit t (MSB-first) of the scalar of `lane`, packed as
+// LT_RAND_WORDS big-endian word planes [4, n] (row 0 most significant);
+// the twin of kernels/verify.py _word_digit
+LT_DEV uint32_t word_digit(const int32_t *rwords, int n, int lane, int t) {
+  const int pos = LT_RAND_BITS - LT_WINDOW - LT_WINDOW * t;  // LSB offset of the digit
+  const uint32_t word = (uint32_t)rwords[(LT_RAND_WORDS - 1 - (pos >> 5)) * n + lane];
+  return (word >> (pos & 31)) & ((1u << LT_WINDOW) - 1);
+}
+
+// k Q for the lane's 128-bit scalar k, by 4-bit windows MSB-first: a table
+// {Q .. 15 Q} (even entries double the half entry, odd ones add Q), then
+// per window four doublings and one addition of the digit's entry, always
+// computed and kept where the digit is nonzero.  The accumulator is
+// infinity until the first nonzero digit, which assigns the entry
+// directly.  The recurrence of lodestar_tpu/kernels/curve.py:238
+// (scalar_mul_window_jac), so the Jacobian output equals the JAX kernel's;
+// the table is indexed by the digit instead of a select chain.
+//
+// Not inlined: forced inline into the kernel body, nvcc 12.8 for sm_90a
+// produced wrong coordinates on the card (at ptxas -O0 too) while the
+// host build and the same function called from a larger body were right.
+template <typename F>
+LT_NOINL void scalar_mul_window(jac<F> &r, bool &r_inf, const jac<F> &q, bool q_inf,
+                                const int32_t *rwords, int n, int lane) {
+  jac<F> tbl[(1 << LT_WINDOW) - 1];
+  tbl[0] = q;
+  for (int m = 2; m < (1 << LT_WINDOW); m++) {
+    if (m % 2 == 0)
+      jac_dbl(tbl[m - 1], tbl[m / 2 - 1]);
+    else
+      jac_add_mixed_or_full(tbl[m - 1], tbl[m - 2], q);
+  }
+  jac<F> T = q, cand;  // T is a placeholder while t_inf
+  bool t_inf = true;
+  for (int t = 0; t < LT_RAND_BITS / LT_WINDOW; t++) {
+    for (int k = 0; k < LT_WINDOW; k++) jac_dbl(T, T);
+    const uint32_t d = word_digit(rwords, n, lane, t);
+    const jac<F> &add = tbl[d == 0 ? 0 : d - 1];
+    jac_add_mixed_or_full(cand, T, add);
+    jac_select(cand, t_inf, add, cand);
+    jac_select(T, d != 0, cand, T);
+    t_inf = t_inf && d == 0;
+  }
+  r = T;
+  r_inf = t_inf || q_inf;  // k O = O; k = 0 stays infinity
 }

@@ -2,12 +2,14 @@
 engine and its CUDA twin.
 
 Counterpart of the subset of `lodestar_tpu/kernels/curve.py` that the
-per-set verification path needs; the CUDA device functions are in
+per-set and RLC batch paths need; the CUDA device functions are in
 `csrc/curve.cuh`.  Points are (X, Y, Z) tuples of field tensors; the
 point at infinity travels as an explicit boolean lane mask beside the
 point (`curve.py:102` and `:461` of the JAX package), so the hot loops
 carry no exact zero tests.  The formulas are the JAX package's, so the
-Jacobian coordinates (not only the points) agree.
+Jacobian coordinates (not only the points) agree; the lane sum keeps
+the port's own order of additions (`sum_points_lanes`), so there only
+the points agree.
 """
 
 from __future__ import annotations
@@ -91,9 +93,9 @@ def jac_dbl(fo: FieldOps, p):
     return (X3, Y3, Z3)
 
 
-def jac_add_full(fo: FieldOps, p, p_inf, q, q_inf):
-    """(P + Q, inf mask): P = O and Q = O through the masks, P == Q by an
-    exact zero test dispatching to doubling, P == -Q giving infinity."""
+def _add_core(fo: FieldOps, p, q):
+    """P + Q for Jacobian P and Q, 12M + 4S, and the H and R of the
+    formula (H == R == 0 means P == Q, H == 0 alone P == -Q)."""
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
     Z1Z1 = fo.sqr(Z1)
@@ -104,15 +106,29 @@ def jac_add_full(fo: FieldOps, p, p_inf, q, q_inf):
     S2 = fo.mul(fo.mul(Y2, Z1), Z1Z1)
     H = fo.sub(U2, U1)
     R = fo.sub(S2, S1)
-    h_zero = fo.is_zero(H)
-    r_zero = fo.is_zero(R)
     HH = fo.sqr(H)
     HHH = fo.mul(H, HH)
     V = fo.mul(U1, HH)
     X3 = fo.sub(fo.sub(fo.sqr(R), HHH), fo.double(V))
     Y3 = fo.sub(fo.mul(R, fo.sub(V, X3)), fo.mul(S1, HHH))
     Z3 = fo.mul(fo.mul(Z1, Z2), H)
-    out = select_pt(h_zero & r_zero, jac_dbl(fo, p), (X3, Y3, Z3))
+    return (X3, Y3, Z3), H, R
+
+
+def jac_add_mixed_or_full(fo: FieldOps, p, q):
+    """P + Q inside the windowed scalar multiplication: the generic
+    Jacobian addition without the equal/infinity dispatch (callers rule
+    those out).  `lodestar_tpu/kernels/curve.py:305`."""
+    return _add_core(fo, p, q)[0]
+
+
+def jac_add_full(fo: FieldOps, p, p_inf, q, q_inf):
+    """(P + Q, inf mask): P = O and Q = O through the masks, P == Q by an
+    exact zero test dispatching to doubling, P == -Q giving infinity."""
+    s, H, R = _add_core(fo, p, q)
+    h_zero = fo.is_zero(H)
+    r_zero = fo.is_zero(R)
+    out = select_pt(h_zero & r_zero, jac_dbl(fo, p), s)
     out = select_pt(q_inf, p, out)
     out = select_pt(p_inf, q, out)
     out_inf = (p_inf & q_inf) | (h_zero & ~r_zero & ~p_inf & ~q_inf)
@@ -166,6 +182,83 @@ def scalar_mul_static(fo: FieldOps, q_aff, k: int):
         if bit == "1":
             T = jac_add_mixed(fo, T, q_aff)
     return T
+
+
+def scalar_mul_window_jac(fo: FieldOps, q, q_inf, get_digit, nbits: int, w: int = 4):
+    """(k Q, inf mask) for per-lane scalars k read as MSB-first w-bit
+    window digits: `get_digit(t)` -> int [N] digit of window t.
+
+    The recurrence of `lodestar_tpu/kernels/curve.py:238`, so the Jacobian
+    coordinates (not only the points) equal the JAX function's: a table
+    {Q .. (2^w - 1) Q} whose even entries double the half entry and odd
+    entries add Q; then per window w doublings and one addition of the
+    digit's entry, always computed and kept where the digit is nonzero.
+    Until the first nonzero digit the accumulator is infinity (T is a
+    placeholder) and the entry is assigned directly.  q: Jacobian
+    (X, Y, Z); q_inf: bool [N]."""
+    assert nbits % w == 0 and w >= 1, (nbits, w)
+    tbl = [q]
+    for m in range(2, 1 << w):
+        if m % 2 == 0:
+            tbl.append(jac_dbl(fo, tbl[m // 2 - 1]))
+        else:
+            tbl.append(jac_add_mixed_or_full(fo, tbl[m - 2], q))
+    # the table as one tensor per coordinate: [2^w - 1, ..., N]
+    stacked = [torch.stack([e[c] for e in tbl]) for c in range(3)]
+    T = q
+    t_inf = torch.ones_like(q_inf, dtype=torch.bool)
+    for t in range(nbits // w):
+        for _ in range(w):
+            T = jac_dbl(fo, T)
+        d = get_digit(t).to(torch.int64)
+        pick = (d - 1).clamp(min=0)  # digit 0 reads entry 1 and is discarded
+        add = tuple(_take_lanes(s, pick) for s in stacked)
+        cand = select_pt(t_inf, add, jac_add_mixed_or_full(fo, T, add))
+        nz = d != 0
+        T = select_pt(nz, cand, T)
+        t_inf = t_inf & ~nz
+    return T, t_inf | q_inf
+
+
+def _take_lanes(table, idx):
+    """Per lane n, entry idx[n] of a table [E, ..., N]."""
+    shape = (1,) + tuple(table.shape[1:-1]) + (idx.shape[-1],)
+    i = idx.reshape((1,) + (1,) * (table.dim() - 2) + (-1,)).expand(shape)
+    return torch.gather(table, 0, i)[0]
+
+
+def sum_points_lanes(fo: FieldOps, pts, inf, width: int = 128):
+    """(sum of the lanes not flagged infinity, its inf flag) -> [..., 1].
+
+    The port's order of additions (csrc/reduce.cu): `width` slots, slot j
+    folding lanes j, j + width, ... in sequence, then slots j and j + s
+    combined for s = width / 2, .., 1.  Slots beyond N start as infinity
+    with zero coordinates.  Jacobian coordinates depend on the order, so
+    this is the order the kernel keeps; the point equals any order's."""
+    n = inf.shape[-1]
+    tiles = max(1, -(-n // width))
+    pad = tiles * width - n
+    real = torch.arange(tiles * width, device=inf.device) < n
+    pts = tuple(torch.nn.functional.pad(c, (0, pad)) for c in pts)
+    inf = torch.cat([inf, torch.ones(pad, dtype=torch.bool, device=inf.device)])
+
+    def tile(x, t):
+        return x[..., t * width : (t + 1) * width]
+
+    acc, acc_inf = tuple(tile(c, 0) for c in pts), tile(inf, 0)
+    for t in range(1, tiles):
+        s, s_inf = jac_add_full(fo, acc, acc_inf, tuple(tile(c, t) for c in pts), tile(inf, t))
+        keep = tile(real, t)
+        acc, acc_inf = select_pt(keep, s, acc), torch.where(keep, s_inf, acc_inf)
+    s = width // 2
+    while s >= 1:
+        lo = tuple(c[..., :s] for c in acc)
+        hi = tuple(c[..., s : 2 * s] for c in acc)
+        r, r_inf = jac_add_full(fo, lo, acc_inf[..., :s], hi, acc_inf[..., s : 2 * s])
+        acc = tuple(torch.cat([a, c[..., s:]], -1) for a, c in zip(r, acc))
+        acc_inf = torch.cat([r_inf, acc_inf[..., s:]], -1)
+        s //= 2
+    return tuple(c[..., :1] for c in acc), acc_inf[..., :1]
 
 
 # ---------------------------------------------------------------------------

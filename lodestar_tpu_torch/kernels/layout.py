@@ -188,6 +188,7 @@ def cuda_constants() -> str:
     needs, in Montgomery form, generated from this module and the host
     ground truth so the two cannot drift (tests compare the committed
     file with this text)."""
+    from ..crypto import curves as CU
     from ..crypto import fields as F
 
     x_abs = -F.X_PARAM
@@ -215,6 +216,8 @@ def cuda_constants() -> str:
         f"LT_CONST uint32_t LT_P_MINUS_2[12] = {_fp_words(P - 2)};",
         f"LT_CONST uint32_t LT_PSI_CX[2][12] = {_fp2_words(cx)};",
         f"LT_CONST uint32_t LT_PSI_CY[2][12] = {_fp2_words(cy)};",
+        f"LT_CONST uint32_t LT_G2X[2][12] = {_fp2_words(mont2(CU.G2_GEN[0]))};",
+        f"LT_CONST uint32_t LT_G2Y[2][12] = {_fp2_words(mont2(CU.G2_GEN[1]))};",
     ]
     for n in (1, 2, 3):
         body = ", ".join(_fp2_words(g) for g in frob[n])

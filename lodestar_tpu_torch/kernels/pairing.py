@@ -11,6 +11,8 @@ miller_loop`'s as canonical Fp12 integers.
 
 The final exponentiation keeps the JAX package's cube:
 f^(3 (p^12 - 1) / r), through the (x-1)^2 (x+p) (x^2+p^2-1) + 3 chain.
+The RLC batch adds the lane product `product12_lanes` and the one
+inversion of the path, `to_affine_g2`.
 """
 
 from __future__ import annotations
@@ -113,6 +115,37 @@ def miller_loop(p_jac, q_aff):
             line, T = _add_step(T, q_aff, pw)
             f = _mul12_sparse(f, line)
     return TW.conj12(f)
+
+
+def product12_lanes(f, valid, width: int = 128):
+    """Product of the valid lanes of f [2, 3, 2, ND, N] -> [..., 1].
+
+    The order of csrc/reduce.cu (`width` slots folding lanes j, j + width,
+    ..., then a tree); Fp12 values are canonical, so every order gives
+    these integers and the JAX package's `product12_lanes` too."""
+    n = f.shape[-1]
+    f = TW.select(valid, f, TW.one12(n, f.device))
+    tiles = max(1, -(-n // width))
+    f = torch.cat([f, TW.one12(tiles * width - n, f.device)], -1)
+    acc = f[..., :width]
+    for t in range(1, tiles):
+        acc = TW.mul12(acc, f[..., t * width : (t + 1) * width])
+    s = width // 2
+    while s >= 1:
+        acc = torch.cat([TW.mul12(acc[..., :s], acc[..., s : 2 * s]), acc[..., s:]], -1)
+        s //= 2
+    return acc[..., :1]
+
+
+def to_affine_g2(pt_jac):
+    """Jacobian -> affine on the twist by one Fp2 inversion.  Returns
+    ((x, y), inf mask: Z == 0); an infinity lane's (x, y) is garbage for
+    the caller to replace (`lodestar_tpu/kernels/pairing.py:235`)."""
+    X, Y, Z = pt_jac
+    inf = F2.is_zero2(Z)
+    zi = TW.inv2(Z)
+    zi2 = F2.sqr2(zi)
+    return (F2.mul2(X, zi2), F2.mul2(Y, F2.mul2(zi2, zi))), inf
 
 
 def final_exponentiation(f):

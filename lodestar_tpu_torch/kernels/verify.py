@@ -1,9 +1,9 @@
-"""Per-set BLS verification on the device: the four kernels and the path
-that drives them.
+"""BLS verification on the device: the kernels and the two paths that
+drive them.
 
-Counterpart of the per-set half of `lodestar_tpu/kernels/verify.py`:
-`verify_each_device` (`:922`) and `_each_core` (`:1092`).  One job of N
-padded single-pubkey sets runs
+Counterpart of the decoded-set half of `lodestar_tpu/kernels/verify.py`.
+The per-set path, `verify_each_device` (`:922`, `_each_core` `:1092`):
+one job of N padded single-pubkey sets runs
 
     mont_convert       8 planes of plain limbs -> Montgomery   (_k_mont8)
     [gather]           pubkey rows by index: torch.index_select (_gather_pk)
@@ -12,6 +12,22 @@ padded single-pubkey sets runs
     miller_loop x 2    (pk, H(m)) and (-G1, sig) per lane      (_k_miller)
     each_final         f1 f2 -> final exp -> is-one per lane   (_k_each_final)
 
+The RLC batch path, `verify_batch_device` (`:383`, `_batch_core` `:615`):
+one multi-pairing check prod_i e(r_i pk_i, H_i) e(-G1, sum_i r_i sig_i)
+== 1 with random odd 128-bit r_i, N + 1 Miller lanes and one final
+exponentiation:
+
+    mont_convert, [gather], [substitute]     as above
+    g1_rpk             r_i pk_i per lane                      (_k_g1_rpk)
+    g2_rsig_sub        r_i sig_i and the subgroup check       (_k_g2_rsig_sub)
+    sum_g2             sum of the live r_i sig_i -> A         (_k_sum_g2 + _j_sum_lanes)
+    miller_loop        (r_i pk_i, H_i), N lanes               (_k_miller)
+    prod12             product of the live lanes              (_k_prod + _j_product12)
+    affine_g2          A -> affine, O -> generator            (_k_affine_g2)
+    miller_loop        (-G1, A), ONE lane                     (_k_miller)
+    final_one          prod f_A -> final exp -> is-one        (_k_final_one)
+    [verdict]          torch ops                              (_j_batch_verdict)
+
 Each kernel wrapper checks its operands, then runs the hand-written CUDA
 kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
 for CPU tensors; any other device raises.  There is no fallback from one
@@ -19,9 +35,11 @@ to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches.
 
 Planes are int32 ``[..., 12, N]`` (`kernels/layout.py`), the batch on the
 last axis; an Fp2 value is ``[2, 12, N]``, an affine G2 point
-``[2, 2, 12, N]`` (x, y), a Jacobian G1 point ``[3, 12, N]`` and an Fp12
-value ``[12, 12, N]`` in the JAX package's leaf order.  Lane flags are
-int32 ``[1, N]`` rows, as in the JAX kernels.
+``[2, 2, 12, N]`` (x, y), a Jacobian G1 point ``[3, 12, N]``, a Jacobian
+G2 point ``[3, 2, 12, N]`` and an Fp12 value ``[12, 12, N]`` in the JAX
+package's leaf order.  Lane flags are int32 ``[1, N]`` rows, as in the
+JAX kernels.  Randomizers are int32 ``[4, N]`` big-endian words
+(`bls/rand.py make_rand_words`).
 """
 
 from __future__ import annotations
@@ -41,23 +59,41 @@ from . import tower as TW
 
 NL = LY.NL
 ND = LY.ND
+RAND_BITS = 128  # RLC randomizer width (bls/rand.py)
+RAND_WORDS = RAND_BITS // 32
+WINDOW = 4  # scalar-multiplication window; divides 32
+BT = 128  # slots of the lane reductions (csrc/reduce.cu), the JAX lane tile
 
 LAUNCHES: Dict[str, int] = {
     "mont_convert": 0,
     "g2_subgroup_check": 0,
     "miller_loop": 0,
     "each_final": 0,
+    "g1_rpk": 0,
+    "g2_rsig_sub": 0,
+    "sum_g2": 0,
+    "prod12": 0,
+    "affine_g2": 0,
+    "final_one": 0,
 }
 
-# Fp multiplications per lane (per element for mont_convert) of each
-# kernel, from the structure of csrc/*.cuh; tests/test_torch_csrc_host.py
-# checks them against a count taken by the host build.  A 12-limb CIOS
-# Montgomery product issues 12 rows x (4 x 12 multiply-adds + 1 multiply).
+# Fp multiplications per lane (per element for mont_convert, per combine
+# for the reductions sum_g2 and prod12, which make max(N, 128) - 1 of
+# them) of each kernel, from the structure of csrc/*.cuh;
+# tests/test_torch_csrc_host.py checks them against a count taken by the
+# host build.  A 12-limb CIOS Montgomery product issues 12 rows x
+# (4 x 12 multiply-adds + 1 multiply).
 FP_MULS_PER_LANE = {
     "mont_convert": 1,
     "g2_subgroup_check": 1181,
     "miller_loop": 7834,
     "each_final": 8337,
+    "g1_rpk": 1569,
+    "g2_rsig_sub": 5057,
+    "sum_g2": 60,
+    "prod12": 54,
+    "affine_g2": 623,
+    "final_one": 8337,
 }
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 
@@ -211,6 +247,192 @@ def each_final(live: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor) -> torch.
 
 
 # ---------------------------------------------------------------------------
+# K5, K6: randomized scalar multiplications (_k_g1_rpk, _k_g2_rsig_sub)
+# ---------------------------------------------------------------------------
+
+
+def _word_digit(rwords: torch.Tensor, t: int) -> torch.Tensor:
+    """Window digit t (MSB-first) of each lane's scalar, from the packed
+    big-endian words int32 [RAND_WORDS, N] -> int64 [N].  WINDOW divides
+    32, so a digit never straddles two words (`csrc/curve.cuh
+    word_digit`, JAX `_word_digit` `:130`)."""
+    pos = RAND_BITS - WINDOW - WINDOW * t  # LSB offset of the digit
+    word = rwords[RAND_WORDS - 1 - (pos >> 5)].to(torch.int64) & 0xFFFFFFFF
+    return (word >> (pos & 31)) & ((1 << WINDOW) - 1)
+
+
+def _scalar_mul(fo, q, q_inf, rwords):
+    return CV.scalar_mul_window_jac(
+        fo, q, q_inf[0] != 0, lambda t: _word_digit(rwords, t), RAND_BITS, WINDOW
+    )
+
+
+def g1_rpk_plain(p, p_inf, rwords):
+    d = LY.planes_to_digits(p)
+    pt, inf = _scalar_mul(CV.FP_OPS, (d[0], d[1], d[2]), p_inf, rwords)
+    return LY.digits_to_planes(torch.stack(pt)), inf.to(torch.int32)[None, :]
+
+
+def g1_rpk(p: torch.Tensor, p_inf: torch.Tensor, rwords: torch.Tensor):
+    """Jacobian G1 [3, 12, N], infinity flags [1, N], randomizer words
+    [4, N] -> (r_i P_i as Jacobian [3, 12, N], infinity flags [1, N])."""
+    n = p.shape[-1]
+    _shape(p, (3, NL, n), "g1_rpk p")
+    _shape(p_inf, (1, n), "g1_rpk p_inf")
+    _shape(rwords, (RAND_WORDS, n), "g1_rpk rwords")
+    if _on_cpu(p, p_inf, rwords):
+        return g1_rpk_plain(p, p_inf, rwords)
+    out = torch.empty_like(p)
+    out_inf = torch.empty_like(p_inf)
+    _launch(
+        "g1_rpk", "randmul", "lt_g1_rpk",
+        p.data_ptr(), p_inf.data_ptr(), rwords.data_ptr(), out.data_ptr(), out_inf.data_ptr(), n,
+    )
+    return out, out_inf
+
+
+def g2_rsig_sub_plain(q, q_inf, rwords):
+    d = LY.planes_to_digits(q)
+    n = q.shape[-1]
+    q_jac = (d[0], d[1], CV.FP2_OPS.one(n, q.device))
+    pt, inf = _scalar_mul(CV.FP2_OPS, q_jac, q_inf, rwords)
+    sub = CV.g2_subgroup_check((d[0], d[1]), q_inf[0] != 0)
+    return (
+        LY.digits_to_planes(torch.stack(pt)),
+        inf.to(torch.int32)[None, :],
+        sub.to(torch.int32)[None, :],
+    )
+
+
+def g2_rsig_sub(q: torch.Tensor, q_inf: torch.Tensor, rwords: torch.Tensor):
+    """Affine G2 [2, 2, 12, N], infinity flags [1, N], randomizer words
+    [4, N] -> (r_i Q_i as Jacobian [3, 2, 12, N], its infinity flags
+    [1, N], subgroup flags [1, N]: 1 where Q_i is in G2 or infinity)."""
+    n = q.shape[-1]
+    _shape(q, (2, 2, NL, n), "g2_rsig_sub q")
+    _shape(q_inf, (1, n), "g2_rsig_sub q_inf")
+    _shape(rwords, (RAND_WORDS, n), "g2_rsig_sub rwords")
+    if _on_cpu(q, q_inf, rwords):
+        return g2_rsig_sub_plain(q, q_inf, rwords)
+    out = torch.empty((3, 2, NL, n), dtype=torch.int32, device=q.device)
+    out_inf = torch.empty_like(q_inf)
+    sub = torch.empty_like(q_inf)
+    _launch(
+        "g2_rsig_sub", "randmul", "lt_g2_rsig_sub",
+        q.data_ptr(), q_inf.data_ptr(), rwords.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+        sub.data_ptr(), n,
+    )
+    return out, out_inf, sub
+
+
+# ---------------------------------------------------------------------------
+# K7, K8: lane reductions (_k_sum_g2 + _j_sum_lanes, _k_prod + _j_product12)
+# ---------------------------------------------------------------------------
+
+
+def sum_g2_plain(pts, excl):
+    d = LY.planes_to_digits(pts)
+    s, s_inf = CV.sum_points_lanes(CV.FP2_OPS, (d[0], d[1], d[2]), excl[0] != 0, BT)
+    return LY.digits_to_planes(torch.stack(s)), s_inf.to(torch.int32)[None, :]
+
+
+def sum_g2(pts: torch.Tensor, excl: torch.Tensor):
+    """Jacobian G2 [3, 2, 12, N], exclusion flags [1, N] -> (the sum of
+    the lanes not excluded as Jacobian [3, 2, 12, 1], its infinity flag
+    [1, 1]), in the order of `curve.sum_points_lanes`."""
+    n = pts.shape[-1]
+    _shape(pts, (3, 2, NL, n), "sum_g2 pts")
+    _shape(excl, (1, n), "sum_g2 excl")
+    if _on_cpu(pts, excl):
+        return sum_g2_plain(pts, excl)
+    scr = torch.empty((3, 2, NL, BT), dtype=torch.int32, device=pts.device)
+    scr_inf = torch.empty((1, BT), dtype=torch.int32, device=pts.device)
+    _launch(
+        "sum_g2", "reduce", "lt_sum_g2",
+        pts.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n,
+    )
+    return scr[..., :1].contiguous(), scr_inf[:, :1].contiguous()
+
+
+def prod12_plain(live, f):
+    n = f.shape[-1]
+    a = LY.planes_to_digits(f).reshape(2, 3, 2, ND, n)
+    prod = KP.product12_lanes(a, live[0] != 0, BT)
+    return LY.digits_to_planes(prod.reshape(12, ND, 1))
+
+
+def prod12(live: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Live flags [1, N], Fp12 [12, 12, N] -> the product of the live
+    lanes, Fp12 [12, 12, 1]."""
+    n = f.shape[-1]
+    _shape(live, (1, n), "prod12 live")
+    _shape(f, (12, NL, n), "prod12 f")
+    if _on_cpu(live, f):
+        return prod12_plain(live, f)
+    scr = torch.empty((12, NL, BT), dtype=torch.int32, device=f.device)
+    _launch("prod12", "reduce", "lt_prod12", live.data_ptr(), f.data_ptr(), scr.data_ptr(), n)
+    return scr[..., :1].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K9, K10: the batch tail (_k_affine_g2, _k_final_one)
+# ---------------------------------------------------------------------------
+
+
+def affine_g2_plain(p, p_inf):
+    d = LY.planes_to_digits(p)
+    (x, y), z_inf = KP.to_affine_g2((d[0], d[1], d[2]))
+    inf = (p_inf[0] != 0) | z_inf
+    g2 = LY.planes_to_digits(_const_planes(p.device)["g2"])
+    aff = TW.select(inf, g2, torch.stack([x, y]))
+    return LY.digits_to_planes(aff), inf.to(torch.int32)[None, :]
+
+
+def affine_g2(p: torch.Tensor, p_inf: torch.Tensor):
+    """Jacobian G2 [3, 2, 12, N], infinity flags [1, N] -> (affine
+    [2, 2, 12, N], flags [1, N]); infinity (flagged or Z = 0) gives the
+    generator and flag 1."""
+    n = p.shape[-1]
+    _shape(p, (3, 2, NL, n), "affine_g2 p")
+    _shape(p_inf, (1, n), "affine_g2 p_inf")
+    if _on_cpu(p, p_inf):
+        return affine_g2_plain(p, p_inf)
+    a = torch.empty((2, 2, NL, n), dtype=torch.int32, device=p.device)
+    a_inf = torch.empty_like(p_inf)
+    _launch(
+        "affine_g2", "tail", "lt_affine_g2",
+        p.data_ptr(), p_inf.data_ptr(), a.data_ptr(), a_inf.data_ptr(), n,
+    )
+    return a, a_inf
+
+
+def final_one_plain(a_inf, prod, fa):
+    n = prod.shape[-1]
+    a = LY.planes_to_digits(prod).reshape(2, 3, 2, ND, n)
+    b = LY.planes_to_digits(fa).reshape(2, 3, 2, ND, n)
+    b = TW.select(a_inf[0] != 0, TW.one12(n, b.device), b)
+    f = TW.mul12(a, b)
+    return TW.is_one12(KP.final_exponentiation(f)).to(torch.int32)[None, :]
+
+
+def final_one(a_inf: torch.Tensor, prod: torch.Tensor, fa: torch.Tensor) -> torch.Tensor:
+    """Per lane: prod * (a_inf ? 1 : fA), final exponentiation, is-one ->
+    int32 [1, N]."""
+    n = prod.shape[-1]
+    _shape(a_inf, (1, n), "final_one a_inf")
+    _shape(prod, (12, NL, n), "final_one prod")
+    _shape(fa, (12, NL, n), "final_one fa")
+    if _on_cpu(a_inf, prod, fa):
+        return final_one_plain(a_inf, prod, fa)
+    ok = torch.empty((1, n), dtype=torch.int32, device=prod.device)
+    _launch(
+        "final_one", "tail", "lt_final_one",
+        a_inf.data_ptr(), prod.data_ptr(), fa.data_ptr(), ok.data_ptr(), n,
+    )
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # The per-set path
 # ---------------------------------------------------------------------------
 
@@ -266,21 +488,32 @@ def _substitute(live, pk, sig):
     return torch.where(live, pk, g1), torch.where(live, sig, c["g2"])
 
 
+def _live_lanes(table_x, table_y, idx, sig, sig_bad, valid):
+    """Gather the pubkeys, mark the live lanes (valid, pubkey and
+    signature not infinity) and substitute generators into the dead ones
+    -> (live, pk_inf, pk [3, 12, N], sig [2, 2, 12, N])."""
+    pk, pk_inf = _gather_pk(table_x, table_y, idx)
+    live = (valid != 0) & ~pk_inf & ~sig_bad
+    pk, sig = _substitute(live, pk, sig)
+    return live, pk_inf, pk.contiguous(), sig.contiguous()
+
+
+def _neg_g1(device, n: int) -> torch.Tensor:
+    c = _const_planes(device)
+    return torch.stack([c["g1x"], c["neg_g1y"], c["one"]]).expand(3, NL, n).contiguous()
+
+
 def each_operands(table_x, table_y, idx, msg, sig, sig_bad, valid) -> dict:
     """The kernel operands of one per-set job, from Montgomery message and
     signature points [2, 2, 12, N]: gather the pubkeys, substitute
     generators into dead lanes, and lay out the four kernel launches."""
     n = valid.shape[0]
-    pk, pk_inf = _gather_pk(table_x, table_y, idx)
-    live = (valid != 0) & ~pk_inf & ~sig_bad
-    pk, sig = _substitute(live, pk, sig)
-    c = _const_planes(pk.device)
-    neg_g1 = torch.stack([c["g1x"], c["neg_g1y"], c["one"]]).expand(3, NL, n)
+    live, _, pk, sig = _live_lanes(table_x, table_y, idx, sig, sig_bad, valid)
     return {
         "live": live,
-        "sub": (sig.contiguous(), torch.zeros((1, n), dtype=torch.int32, device=pk.device)),
-        "miller_pk": (pk.contiguous(), msg.contiguous()),
-        "miller_sig": (neg_g1.contiguous(), sig.contiguous()),
+        "sub": (sig, torch.zeros((1, n), dtype=torch.int32, device=pk.device)),
+        "miller_pk": (pk, msg.contiguous()),
+        "miller_sig": (_neg_g1(pk.device, n), sig),
         "live_row": live[None, :].to(torch.int32),
     }
 
@@ -311,3 +544,74 @@ def verify_each_device(table_x, table_y, idx, planes, sig_inf, valid):
     msg = m[:4].reshape(2, 2, NL, n)
     sig = m[4:].reshape(2, 2, NL, n)
     return _each_core(table_x, table_y, idx, msg, sig, sig_inf != 0, valid)
+
+
+# ---------------------------------------------------------------------------
+# The RLC batch path
+# ---------------------------------------------------------------------------
+
+
+def batch_operands(table_x, table_y, idx, msg, sig, sig_bad, valid, rwords) -> dict:
+    """The kernel operands of one RLC batch job (`_batch_local` `:510`):
+    the per-set path's gather and substitution, then the two randomized
+    scalar multiplications' inputs (no lane flagged infinity: dead lanes
+    hold generators)."""
+    n = valid.shape[0]
+    live, pk_inf, pk, sig = _live_lanes(table_x, table_y, idx, sig, sig_bad, valid)
+    zero = torch.zeros((1, n), dtype=torch.int32, device=pk.device)
+    return {
+        "live": live,
+        "pk_inf": pk_inf,
+        "live_row": live[None, :].to(torch.int32),
+        "g1_rpk": (pk, zero, rwords),
+        "g2_rsig_sub": (sig, zero, rwords),
+        "msg": msg.contiguous(),
+    }
+
+
+def _batch_tail(fprod, jsum, jsum_inf):
+    """One lane (`_batch_tail` `:576`): A -> affine, the Miller loop of
+    (-G1, A) and the final exponentiation of prod f_A -> ok [1, 1]."""
+    a, a_inf = affine_g2(jsum, jsum_inf)
+    fa = miller_loop(_neg_g1(a.device, 1), a)
+    return final_one(a_inf, fprod, fa)
+
+
+def _batch_verdict(ok, sub, live, pk_inf, sig_bad, valid):
+    """`_j_batch_verdict` (`:499`): a set whose pubkey or signature is
+    infinity fails the batch; dead lanes pass the subgroup row."""
+    valid = valid != 0
+    sub_ok = (sub[0] != 0) | ~live
+    batch_ok = (ok[0, 0] != 0) & sub_ok.all() & ~(pk_inf & valid).any() & ~(sig_bad & valid).any()
+    return batch_ok, sub_ok
+
+
+def _batch_core(table_x, table_y, idx, msg, sig, sig_bad, rwords, valid):
+    ops = batch_operands(table_x, table_y, idx, msg, sig, sig_bad, valid, rwords)
+    rpk, _ = g1_rpk(*ops["g1_rpk"])
+    rsig, rsig_inf, sub = g2_rsig_sub(*ops["g2_rsig_sub"])
+    # the aggregate signature point: dead lanes excluded from the sum
+    excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
+    jsum, jsum_inf = sum_g2(rsig, excl)
+    fprod = prod12(ops["live_row"], miller_loop(rpk, ops["msg"]))
+    ok = _batch_tail(fprod, jsum, jsum_inf)
+    return _batch_verdict(ok, sub, ops["live"], ops["pk_inf"], sig_bad, valid)
+
+
+def verify_batch_device(table_x, table_y, idx, planes, sig_inf, rwords, valid):
+    """RLC batch verification of N padded sets: one multi-pairing check
+    prod_i e(r_i pk_i, H_i) e(-G1, sum_i r_i sig_i) == 1.
+
+    Operands as `verify_each_device`, plus rwords: int32 [4, N] the
+    randomizers' big-endian words (`bls/rand.py make_rand_words`).
+    Returns (batch_ok: bool [], sub_ok: bool [N]) as the JAX package's
+    `verify_batch_device`: padding lanes are excluded, and a set whose
+    signature is infinity fails the batch."""
+    n = valid.shape[0]
+    _shape(planes, (8, NL, n), "verify_batch_device planes")
+    _shape(rwords, (RAND_WORDS, n), "verify_batch_device rwords")
+    _check_single(idx)
+    m = mont_convert(planes)
+    msg = m[:4].reshape(2, 2, NL, n)
+    sig = m[4:].reshape(2, 2, NL, n)
+    return _batch_core(table_x, table_y, idx, msg, sig, sig_inf != 0, rwords, valid)

@@ -118,3 +118,105 @@ def test_miller_and_each_final_host_build_equal_plain(libs):
     assert torch.equal(ok, KV.each_final_plain(live, f1, f2))
     assert fin.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["each_final"]
     assert GB.verify(pk, b"csrc-host-message", sig)
+
+
+def _words(ks):
+    """128-bit scalars -> randomizer word planes int32 [4, n]."""
+    w = np.array([[(k >> (32 * (3 - i))) & 0xFFFFFFFF for k in ks] for i in range(4)], np.uint32)
+    return torch.from_numpy(w.view(np.int32)).contiguous()
+
+
+def g2_jac_planes(pts, zs):
+    """Jacobian G2 planes [3, 2, 12, n] of affine points scaled by Z."""
+    cols = []
+    for (x, y), z in zip(pts, zs):
+        z2 = GT.fp2_mul(z, z)
+        cols.append((GT.fp2_mul(x, z2), GT.fp2_mul(y, GT.fp2_mul(z2, z)), z))
+    return torch.from_numpy(
+        np.stack([np.stack([LY.encode_batch([c[i][k] for c in cols]) for k in range(2)]) for i in range(3)])
+    ).contiguous()
+
+
+def rand_fp2():
+    return tuple(int.from_bytes(RNG.bytes(48), "little") % P for _ in range(2))
+
+
+def test_randmul_host_build_equals_plain(libs):
+    """r P in G1 and r Q in G2 with the subgroup row: scalars 0, 1, all
+    ones and a random one; a base flagged infinity; an outside point."""
+    ks = [0, 1, (1 << 128) - 1, int.from_bytes(RNG.bytes(16), "big") | 1]
+    rw = _words(ks)
+    inf = torch.tensor([[0, 0, 1, 0]], dtype=torch.int32)
+    lib = libs["randmul"]
+    p = g1_planes([GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(4)], [1] * 4)
+    out, out_inf = i32(3, LY.NL, 4), i32(1, 4)
+    assert lib.lt_g1_rpk(p.data_ptr(), inf.data_ptr(), rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(), 4, None) == 0
+    assert lib.lt_host_fp_muls() == 4 * KV.FP_MULS_PER_LANE["g1_rpk"]
+    want = KV.g1_rpk_plain(p, inf, rw)
+    assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
+    assert out_inf.tolist() == [[1, 0, 1, 0]]
+    u = GH.hash_to_field_fp2(b"host-rsig", 1, b"csrc-host")[0]
+    q = g2_planes([GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(3)]
+                  + [GH.map_to_curve_svdw(GC.FP2_OPS, u)])
+    out, out_inf, sub = i32(3, 2, LY.NL, 4), i32(1, 4), i32(1, 4)
+    assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+                              sub.data_ptr(), 4, None) == 0
+    assert lib.lt_host_fp_muls() == 4 * KV.FP_MULS_PER_LANE["g2_rsig_sub"]
+    want = KV.g2_rsig_sub_plain(q, inf, rw)
+    assert all(torch.equal(a, b) for a, b in zip((out, out_inf, sub), want))
+    assert sub.tolist() == [[1, 1, 1, 0]]
+
+
+@pytest.mark.parametrize("n", [5, 300])
+def test_reduce_host_build_equals_plain(libs, n):
+    """The one-block lane reductions: fewer lanes than slots, and lanes
+    folded past one tile; P + (-P) and P + P meet in the fold."""
+    base = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(3)]
+    pts = [base[i % 3] for i in range(n)]
+    if n > 128:
+        pts[128] = GC.affine_neg(GC.FP2_OPS, pts[0])  # slot 0: P then -P
+    pts_p = g2_jac_planes(pts, [rand_fp2() for _ in range(n)])
+    excl = torch.tensor([[int(i % 4 == 1) for i in range(n)]], dtype=torch.int32)
+    lib = libs["reduce"]
+    scr, scr_inf = i32(3, 2, LY.NL, KV.BT), i32(1, KV.BT)
+    assert lib.lt_sum_g2(pts_p.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
+    assert lib.lt_host_fp_muls() == (max(n, KV.BT) - 1) * KV.FP_MULS_PER_LANE["sum_g2"]
+    s, s_inf = KV.sum_g2_plain(pts_p, excl)
+    assert torch.equal(scr[..., :1], s) and torch.equal(scr_inf[:, :1], s_inf)
+    f = torch.from_numpy(np.stack([LY.encode_batch([int.from_bytes(RNG.bytes(48), "little") % P for _ in range(n)])
+                                   for _ in range(12)])).contiguous()
+    live = 1 - excl
+    scr = i32(12, LY.NL, KV.BT)
+    assert lib.lt_prod12(live.data_ptr(), f.data_ptr(), scr.data_ptr(), n, None) == 0
+    assert lib.lt_host_fp_muls() == (max(n, KV.BT) - 1) * KV.FP_MULS_PER_LANE["prod12"]
+    assert torch.equal(scr[..., :1], KV.prod12_plain(live, f))
+
+
+def test_tail_host_build_equals_plain(libs):
+    """affine_g2 on a finite point, a flagged one and Z = 0; final_one on
+    a valid relation, a wrong one, and A = O."""
+    lib = libs["tail"]
+    pts = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(3)]
+    p = g2_jac_planes(pts, [rand_fp2(), rand_fp2(), (0, 0)])
+    p_inf = torch.tensor([[0, 1, 0]], dtype=torch.int32)
+    a, a_inf = i32(2, 2, LY.NL, 3), i32(1, 3)
+    assert lib.lt_affine_g2(p.data_ptr(), p_inf.data_ptr(), a.data_ptr(), a_inf.data_ptr(), 3, None) == 0
+    assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["affine_g2"]
+    want = KV.affine_g2_plain(p, p_inf)
+    assert torch.equal(a, want[0]) and torch.equal(a_inf, want[1])
+    assert a_inf.tolist() == [[0, 1, 1]]
+    assert torch.equal(a[..., 1:], g2_planes([GC.G2_GEN] * 2))
+    sk = scalar()
+    h = GH.hash_to_g2(b"csrc-host-tail")
+    pk = GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, sk)
+    sig = GC.scalar_mul(GC.FP2_OPS, h, sk)
+    neg_g1 = GC.affine_neg(GC.FP_OPS, GC.G1_GEN)
+    prod = KV.miller_loop_plain(g1_planes([pk] * 3, [1] * 3), g2_planes([h] * 3))
+    fa = KV.miller_loop_plain(g1_planes([neg_g1] * 3, [1] * 3),
+                              g2_planes([sig, GC.scalar_mul(GC.FP2_OPS, h, sk + 1), sig]))
+    fa_inf = torch.tensor([[0, 0, 1]], dtype=torch.int32)
+    ok = i32(1, 3)
+    assert lib.lt_final_one(fa_inf.data_ptr(), prod.data_ptr(), fa.data_ptr(), ok.data_ptr(), 3, None) == 0
+    assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["final_one"]
+    assert torch.equal(ok, KV.final_one_plain(fa_inf, prod, fa))
+    assert ok.tolist() == [[1, 0, 0]]  # A = O leaves e(pk, H) alone: not one

@@ -6,9 +6,9 @@ Imports nothing of JAX, so it runs on a machine with the card alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held bit for bit against its plain torch version on the
-same device tensors, and the per-set verifier (default device: CUDA)
-against the crypto oracle.  chip_smoke.py does the same at the main
-path's shapes with a 1M-row table.
+same device tensors, and the verifier (default device: CUDA), per set
+and as an RLC batch, against the crypto oracle.  chip_smoke.py does the
+same at the main paths' shapes with a 1M-row table.
 """
 
 import numpy as np
@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from lodestar_tpu_torch.bls.pubkey_table import PubkeyTable
+from lodestar_tpu_torch.bls.rand import make_rand_words
 from lodestar_tpu_torch.bls.signature_set import SignatureSet
-from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier
+from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier, VerifyOptions
 from lodestar_tpu_torch.crypto import curves as GC
 from lodestar_tpu_torch.crypto import fields as GT
 from lodestar_tpu_torch.crypto import hash_to_curve as GH
@@ -77,6 +78,64 @@ def test_subgroup_miller_final_on_card(dev, points):
     torch.cuda.synchronize()
 
 
+@pytest.fixture(scope="module")
+def rlc(dev, points):
+    """The RLC kernels' chained outputs on N lanes: lane 3 flagged
+    infinity, lane 5 dead."""
+    p, q = points
+    rw = planes(make_rand_words(N, RNG), dev)
+    inf = torch.zeros((1, N), dtype=torch.int32, device=dev)
+    inf[0, 3] = 1
+    live = torch.ones((1, N), dtype=torch.int32, device=dev)
+    live[0, 5] = 0
+    rpk, rpk_inf = KV.g1_rpk(p, inf, rw)
+    rsig, rsig_inf, sub = KV.g2_rsig_sub(q, inf, rw)
+    excl = (1 - live) | rsig_inf
+    return dict(p=p, q=q, rw=rw, inf=inf, live=live, rpk=rpk, rsig=rsig, rsig_inf=rsig_inf,
+                excl=excl, f=KV.miller_loop(rpk, q))
+
+
+def _equal(kernel, plain, *args):
+    name = kernel.__name__
+    before = KV.LAUNCHES[name]
+    got = kernel(*args)
+    assert KV.LAUNCHES[name] == before + 1
+    want = plain(*args)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    return got
+
+
+def test_g1_rpk_on_card(rlc):
+    _equal(KV.g1_rpk, KV.g1_rpk_plain, rlc["p"], rlc["inf"], rlc["rw"])
+
+
+def test_g2_rsig_sub_on_card(rlc):
+    *_, sub = _equal(KV.g2_rsig_sub, KV.g2_rsig_sub_plain, rlc["q"], rlc["inf"], rlc["rw"])
+    assert sub.all()
+
+
+def test_sum_g2_on_card(rlc):
+    _equal(KV.sum_g2, KV.sum_g2_plain, rlc["rsig"], rlc["excl"])
+
+
+def test_prod12_on_card(rlc):
+    _equal(KV.prod12, KV.prod12_plain, rlc["live"], rlc["f"])
+
+
+def test_affine_g2_on_card(rlc):
+    _equal(KV.affine_g2, KV.affine_g2_plain, rlc["rsig"], rlc["rsig_inf"])
+    _equal(KV.affine_g2, KV.affine_g2_plain, *KV.sum_g2(rlc["rsig"], rlc["excl"]))
+
+
+def test_final_one_on_card(rlc):
+    a_inf = rlc["inf"][:, :8].contiguous()
+    f = rlc["f"]
+    ok, = _equal(KV.final_one, KV.final_one_plain, a_inf, f[..., :8].contiguous(), f[..., 8:16].contiguous())
+    assert ok.sum() == 0
+
+
 def test_verifier_on_card(dev):
     sks = [scalar() for _ in range(3)]
     pks = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, sk) for sk in sks]
@@ -90,5 +149,14 @@ def test_verifier_on_card(dev):
     assert v.device.type == "cuda"
     KV.reset_launches()
     assert v.verify_signature_sets_individually(sets) == [True, False, False, True]
-    assert min(KV.LAUNCHES.values()) > 0
+    assert min(KV.LAUNCHES[k] for k in ("mont_convert", "g2_subgroup_check", "miller_loop", "each_final")) > 0
     assert v._device_canary()
+    # the RLC batch: valid sets in one multi-pairing; a bad set fails the
+    # batch and the per-set retry names it
+    batchable = VerifyOptions(batchable=True)
+    KV.reset_launches()
+    assert v.verify_signature_sets([sets[0], sets[3]], batchable) is True
+    assert (KV.LAUNCHES["final_one"], KV.LAUNCHES["miller_loop"], KV.LAUNCHES["each_final"]) == (1, 2, 0)
+    job = v.begin_job([sets[0], sets[1], sets[3]], batchable=True)
+    assert v.finish_job(job) is False
+    assert job.verdicts.tolist() == [True, False, True] and job.batch_retries == 1

@@ -9,28 +9,36 @@ Needs one CUDA device; exits non-zero without one.  In order:
      the sources in this checkout (one nvcc per source, all at once); make
      64 keypairs, 8 signing roots hashed to G2 and 512 signatures from a
      fixed seed with the port's own crypto/ copy; a 1,048,576-row pubkey
-     table on the device; a 512-set job mixing valid sets, wrong messages,
-     swapped signatures, signatures at infinity and on-curve signatures
-     outside G2, and the all-valid job of the same 512 untampered
-     signatures; the host ground truth (crypto/bls.py verify) of every set;
-  2. kernel phases: each of the ten kernels against its plain torch
-     version on the same device inputs, bit for bit: the per-set path's
-     four on the mixed job's operands and the RLC batch path's six (and
-     the one-lane Miller loop of its tail) on the all-valid job's, at
-     N = 128 and N = 512; CUDA-event times of kernel (median of 5 after a
-     warm-up) and plain version (median of 3: the plain versions take
-     seconds per call);
+     table on the device (row r holds key r % 64); a 512-set job mixing
+     valid sets, wrong messages, swapped signatures, signatures at infinity
+     and on-curve signatures outside G2, and the all-valid job of the same
+     512 untampered signatures; their wire forms (96-byte compressed
+     signatures, crypto/curves.py g2_compress), the mixed job in bytes with
+     four wire-only faults (95 bytes, no compression bit, x >= p, an x with
+     no y); 256 aggregate sets of K = 128 distinct table rows over one root
+     (BASELINE.json config 2) and 4 sets of K = 512 (a sync committee), one
+     of them missing a signer; the host ground truth (crypto/bls.py verify
+     and fast_aggregate_verify) of every set;
+  2. kernel phases: each of the fourteen kernel rows against its plain
+     torch version on the same device inputs, bit for bit: the per-set
+     path's four on the mixed job's operands and the RLC batch path's six
+     (and the one-lane Miller loop of its tail) on the all-valid job's;
+     mont_convert on the 4 message planes and g2_decompress of the wire
+     mixed job, at N = 128 and N = 512; agg_pk on the K = 128 job (N = 256,
+     K bucket 512) and hash_g2 on one 128-lane batch of the 8 roots.
+     CUDA-event times of kernel (median of 5 after a warm-up) and plain
+     version (median of 3; once, without a warm-up, for agg_pk and
+     hash_g2, whose plain versions take seconds);
   3. main paths, each driven with the launch counts set to 0 just before
-     and read just after: the per-set path
-     (verify_signature_sets_individually on the mixed jobs, every verdict
-     against the ground truth, every per-set kernel launched); the RLC
-     batch (verify_signature_sets(batchable=True) on the all-valid jobs:
-     True, two Miller launches, one final_one, no each_final, every batch
-     kernel launched); the bisection (the all-valid 512-set job with one
-     wrong message: False, bisected to the 128-set leaf, every verdict
-     against the ground truth); and the mixed job sent batchable, which
-     holds infinity signatures and must go per set; sets/s and a
-     breakdown for both paths;
+     and read just after, every verdict held against the ground truth and
+     every job's host-routed set count (`job.host_sets`) 0: decoded per
+     set, RLC batch, bisection and mixed-batchable; a cold
+     MessageCache (one hash_g2 launch for the 8 roots, the points equal to
+     crypto/hash_to_curve.py hash_to_g2, a second lookup launches
+     nothing); the wire batch, wire per set, wire mixed-batchable and wire
+     bisection; the aggregate batch (256 x K = 128: one RLC batch through
+     agg_pk) and the K = 512 job (rejected, then retried per set); sets/s
+     and a breakdown for each timed path;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
@@ -62,6 +70,12 @@ JOBS = (128, 512)
 TIMED_RUNS = 5
 PLAIN_RUNS = 3
 BAD_SET = 323  # a wrong-message set of the mixed job (323 % 16 == 3)
+# wire-only faults of the wire mixed job, at positions that are valid sets
+# in the decoded pattern (inside the first 128 sets)
+WIRE_FAULTS = {1: "95_bytes", 2: "no_compression_bit", 5: "x_not_below_p", 6: "x_off_curve"}
+AGG_SETS, AGG_K = 256, 128  # BASELINE.json config 2: 1 signature over 128 pubkeys
+SYNC_SETS, SYNC_K = 4, 512  # a block's sync-committee aggregate
+SYNC_MISSING = 2  # the K = 512 set whose signature leaves out one signer
 
 # NVIDIA H100 SXM (data sheet): HBM3 rate; 32-bit IMAD issue rate per SM
 # (CUDA programming guide, compute capability 9.0 throughput table)
@@ -81,10 +95,25 @@ KERNELS = {
     "prod12": ("lodestar_tpu_torch/kernels/csrc/reduce.cu", "lodestar_tpu/kernels/verify.py:285"),
     "affine_g2": ("lodestar_tpu_torch/kernels/csrc/tail.cu", "lodestar_tpu/kernels/verify.py:231"),
     "final_one": ("lodestar_tpu_torch/kernels/csrc/tail.cu", "lodestar_tpu/kernels/verify.py:312"),
+    "mont_convert_4": ("lodestar_tpu_torch/kernels/csrc/mont.cu", "lodestar_tpu/kernels/verify.py:454"),
+    "g2_decompress": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:247"),
+    "agg_pk": ("lodestar_tpu_torch/kernels/csrc/aggpk.cu", "lodestar_tpu/kernels/verify.py:246"),
+    "hash_g2": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:219"),
 }
+# the launch counter of each row (mont_convert on 4 planes is the same kernel:
+# its launches are those of the wire paths, the 8-plane ones the decoded paths')
+COUNTER = {name: "mont_convert" if name == "mont_convert_4" else name for name in KERNELS}
+WIRE_PATHS = ("cold_hash", "wire_batch", "wire_per_set", "wire_bisection", "agg_batch", "sync_aggregate")
 PER_SET = ("mont_convert", "g2_subgroup_check", "miller_loop", "each_final")
 BATCH = ("mont_convert", "g1_rpk", "g2_rsig_sub", "sum_g2", "miller_loop", "prod12", "affine_g2", "final_one")
+WIRE_PER_SET = ("mont_convert_4", "g2_decompress", "g2_subgroup_check", "miller_loop", "each_final")
+WIRE_BATCH = ("mont_convert_4", "g2_decompress") + BATCH[1:]
+AGG_BATCH = WIRE_BATCH + ("agg_pk",)
 TAIL = ("affine_g2", "final_one")  # one lane per launch on the batch path
+# the path whose launch count is a row's "launches", and its lanes
+MAIN_PATH = {name: ("batch" if name in BATCH else "per_set", JOBS[-1]) for name in KERNELS}
+MAIN_PATH.update({"mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
+                  "agg_pk": ("agg_batch", AGG_SETS), "hash_g2": ("cold_hash", 128)})
 # bytes each kernel must move per lane (per launch for the reductions'
 # one output and the tail): inputs read once, outputs written once
 BYTES_PER_LANE = {
@@ -98,6 +127,10 @@ BYTES_PER_LANE = {
     "prod12": 4 + 12 * 48,
     "affine_g2": (6 * 48 + 4) + (4 * 48 + 4),
     "final_one": 4 + 24 * 48 + 4,
+    "mont_convert_4": 4 * 48 * 2,
+    "g2_decompress": (2 * 48 + 8) + (4 * 48 + 4),
+    "hash_g2": (4 * 48 + 8) + (6 * 48 + 4),
+    # agg_pk: K rows of 96 bytes and K index and mask words in, 148 bytes out
 }
 BYTES_PER_LAUNCH = {"sum_g2": 6 * 48 + 4, "prod12": 12 * 48}
 
@@ -130,12 +163,31 @@ def _ground_truth(args):
     return GB.verify(pk, root, sig)
 
 
-def make_job(pool):
+def _aggregate_truth(args):
+    from lodestar_tpu_torch.crypto import bls as GB
+
+    keys, root, sig = args
+    return GB.fast_aggregate_verify(keys, root, sig)
+
+
+def _decompress(sig: bytes):
+    """(decodable, point) by crypto/curves.py g2_decompress."""
+    from lodestar_tpu_torch.crypto import curves as GC
+
+    try:
+        return True, GC.g2_decompress(sig)
+    except ValueError:
+        return False, None
+
+
+def make_job(pool) -> dict:
     """Keys, roots, signatures, the mixed 512-set job and its ground truth,
-    and the all-valid job of the 512 untampered signatures."""
-    from lodestar_tpu_torch.bls.signature_set import SignatureSet
+    the all-valid job of the 512 untampered signatures, their wire forms
+    and the aggregate jobs."""
+    from lodestar_tpu_torch.bls.signature_set import SignatureSet, WireSignatureSet
     from lodestar_tpu_torch.crypto import bls as GB
     from lodestar_tpu_torch.crypto import curves as GC
+    from lodestar_tpu_torch.crypto import fields as GT
     from lodestar_tpu_torch.crypto import hash_to_curve as GH
 
     rng = np.random.default_rng(SEED)
@@ -144,8 +196,20 @@ def make_job(pool):
     roots = [rng.bytes(32) for _ in range(N_ROOTS)]
     hs = [GH.hash_to_g2(r) for r in roots]
     n = JOBS[-1]
+    # aggregates: distinct table rows (row r holds key r % 64); the
+    # signature is sum_k c_k sig_k, c_k the count of key k among the rows
+    agg_rows = [rng.choice(TABLE_ROWS, AGG_K, replace=False) for _ in range(AGG_SETS)]
+    sync_rows = [rng.choice(TABLE_ROWS, SYNC_K, replace=False) for _ in range(SYNC_SETS)]
+    sync_signed = [rows[1:] if j == SYNC_MISSING else rows for j, rows in enumerate(sync_rows)]
+
+    def scalar(rows):
+        return sum(sks[r % N_KEYS] for r in rows.tolist()) % GT.R
+
     # set i: key i % 64 signs root i // 64 (512 distinct signatures)
-    sigs = pool.map(_sign, [(sks[i % N_KEYS], hs[i // N_KEYS]) for i in range(n)])
+    sigs = pool.map(_sign, [(sks[i % N_KEYS], hs[i // N_KEYS]) for i in range(n)]
+                    + [(scalar(rows), hs[0]) for rows in agg_rows]
+                    + [(scalar(rows), hs[1]) for rows in sync_signed])
+    sigs, agg_sigs, sync_sigs = sigs[:n], sigs[n:n + AGG_SETS], sigs[n + AGG_SETS:]
     outside = []
     for j in range(4):
         u = GH.hash_to_field_fp2(b"outside-G2-%d" % j, 1, b"chip-smoke")[0]
@@ -153,7 +217,7 @@ def make_job(pool):
         assert GC.is_on_curve(GC.FP2_OPS, pt) and not GC.g2_subgroup_check(pt)
         outside.append(pt)
     rows = rng.integers(0, TABLE_ROWS // N_KEYS, size=n) * N_KEYS
-    sets, kinds, gt_args, valid_sets, extra = [], [], [], [], []
+    sets, kinds, gt_args, valid_sets, extra, msg_roots = [], [], [], [], [], []
     for i in range(n):
         k, r = i % N_KEYS, i // N_KEYS
         valid_sets.append(SignatureSet.single(int(rows[i] + k), hs[r], sigs[i]))
@@ -171,31 +235,84 @@ def make_job(pool):
             sig = outside[(i // 16) % 4]
         sets.append(SignatureSet.single(int(rows[i] + k), hs[msg_r], sig))
         kinds.append(kind)
+        msg_roots.append(msg_r)
         gt_args.append((pks[k], roots[msg_r], sig))
         if kind != "valid":  # the untampered set is not in the mixed job
             extra.append((pks[k], roots[r], sigs[i]))
-    truth = pool.map(_ground_truth, gt_args + extra)
+    agg_args = [([pks[r % N_KEYS] for r in rows.tolist()], roots[0], sig) for rows, sig in zip(agg_rows, agg_sigs)]
+    agg_args += [([pks[r % N_KEYS] for r in rows.tolist()], roots[1], sig) for rows, sig in zip(sync_rows, sync_sigs)]
+    truth_async = pool.map_async(_ground_truth, gt_args + extra)
+    agg_async = pool.map_async(_aggregate_truth, agg_args)
+
+    # the wire forms
+    c = GC.g2_compress
+    wire_valid = [WireSignatureSet.single(s.indices[0], roots[i // N_KEYS], c(sigs[i]))
+                  for i, s in enumerate(valid_sets)]
+    wire_mixed = [WireSignatureSet.single(s.indices[0], roots[msg_roots[i]], c(s.signature))
+                  for i, s in enumerate(sets)]
+    wire_kinds = list(kinds)
+    while True:  # a well-formed x with no y on E2, by trial from the seed
+        x = tuple(int.from_bytes(rng.bytes(48), "big") % GT.P for _ in range(2))
+        if GT.fp2_sqrt(GT.fp2_add(GT.fp2_mul(GT.fp2_sqr(x), x), GC.FP2_OPS.b_coeff)) is None:
+            break
+    off = bytearray(x[1].to_bytes(48, "big") + x[0].to_bytes(48, "big"))
+    off[0] |= 0x80
+    for i, fault in WIRE_FAULTS.items():
+        assert kinds[i] == "valid"
+        good = wire_mixed[i].signature
+        sig = {
+            "95_bytes": good[:95],
+            "no_compression_bit": bytes([good[0] & 0x7F]) + good[1:],
+            "x_not_below_p": bytes([good[0] | 0x1F]) + b"\xff" * 47 + good[48:],
+            "x_off_curve": bytes(off),
+        }[fault]
+        wire_mixed[i] = WireSignatureSet.single(wire_mixed[i].indices[0], wire_mixed[i].signing_root, sig)
+        wire_kinds[i] = fault
+    decoded = pool.map(_decompress, [s.signature for s in wire_mixed])
+    wire_agg = [WireSignatureSet.aggregate(rows.tolist(), roots[0], c(sig)) for rows, sig in zip(agg_rows, agg_sigs)]
+    wire_sync = [WireSignatureSet.aggregate(rows.tolist(), roots[1], c(sig))
+                 for rows, sig in zip(sync_rows, sync_sigs)]
+
+    truth = truth_async.get()
     if not all(truth[n:]):
         raise AssertionError("an untampered signature fails the ground truth")
-    return pks, sets, kinds, truth[:n], valid_sets
+    truth = truth[:n]
+    # the wire mixed job: what crypto/curves.py decodes is the decoded
+    # job's signature, whose verdict is known; what it refuses is False
+    wire_truth = []
+    for i, (ok, pt) in enumerate(decoded):
+        if ok and pt != sets[i].signature:
+            raise AssertionError(f"wire set {i} does not decode to the decoded job's signature")
+        wire_truth.append(ok and truth[i])
+    if [not ok for ok, _ in decoded] != [i in WIRE_FAULTS for i in range(n)]:
+        raise AssertionError("the wire-only faults are not exactly the undecodable wire sets")
+    agg_truth = agg_async.get()
+    return dict(
+        pks=pks, roots=roots, hs=hs, sets=sets, kinds=kinds, truth=truth, valid_sets=valid_sets,
+        wire_valid=wire_valid, wire_mixed=wire_mixed, wire_kinds=wire_kinds, wire_truth=wire_truth,
+        wire_agg=wire_agg, agg_truth=agg_truth[:AGG_SETS], wire_sync=wire_sync, sync_truth=agg_truth[AGG_SETS:],
+    )
 
 
 # -- timing -------------------------------------------------------------------
 
 
-def cuda_ms(fn, runs: int = TIMED_RUNS):
-    """Median CUDA-event time of fn() over `runs` runs after one warm-up;
-    returns (ms, warm-up result)."""
-    out = fn()
-    torch.cuda.synchronize()
+def cuda_ms(fn, runs: int = TIMED_RUNS, warm: bool = True):
+    """Median CUDA-event time of fn() over `runs` runs, after one warm-up
+    unless `warm` is False; returns (ms, the first result)."""
+    out = None
+    if warm:
+        out = fn()
+        torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        res = fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+        out = res if out is None else out
     return statistics.median(times), out
 
 
@@ -221,9 +338,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
 
+    from lodestar_tpu_torch.bls.ingest import MessageCache
     from lodestar_tpu_torch.bls.pubkey_table import PubkeyTable
     from lodestar_tpu_torch.bls.rand import make_rand_words
-    from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier, VerifyOptions
+    from lodestar_tpu_torch.bls.verifier import K_BUCKETS, TorchBlsVerifier, VerifyOptions
+    from lodestar_tpu_torch.crypto import hash_to_curve as GH
     from lodestar_tpu_torch.kernels import build as B
     from lodestar_tpu_torch.kernels import layout as LY
     from lodestar_tpu_torch.kernels import verify as KV
@@ -239,11 +358,15 @@ def main() -> int:
     t = time.perf_counter()
     with ThreadPoolExecutor(1) as builder, mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
         build = builder.submit(B.build_all)  # nvcc processes run while the pool signs
-        pks, sets, kinds, truth, valid_sets = make_job(pool)
+        d = make_job(pool)
         build.result()
+    sets, kinds, truth, valid_sets = d["sets"], d["kinds"], d["truth"], d["valid_sets"]
+    wire_valid, wire_mixed, wire_truth = d["wire_valid"], d["wire_mixed"], d["wire_truth"]
     log(f"setup: kernels built and data made in {time.perf_counter() - t:.1f} s "
         f"({sum(1 for k in kinds if k == 'valid')} valid of {len(sets)}; "
-        f"ground truth {sum(truth)} True; {len(valid_sets)} untampered sets all True)")
+        f"ground truth {sum(truth)} True; {len(valid_sets)} untampered sets all True; wire mixed job "
+        f"{sum(wire_truth)} True with faults {sorted(WIRE_FAULTS.values())}; {AGG_SETS} aggregates of K = {AGG_K}: "
+        f"{sum(d['agg_truth'])} True; {SYNC_SETS} of K = {SYNC_K}: {d['sync_truth']})")
     for name, report in B.ptxas_report().items():
         log(f"ptxas {name}.cu: {ptxas_summary(report)}")
     for kind, ok in zip(kinds, truth):
@@ -251,37 +374,50 @@ def main() -> int:
             raise AssertionError(f"ground truth disagrees with construction for a {kind} set")
     if kinds[BAD_SET] != "wrong_message" or truth[BAD_SET]:
         raise AssertionError("the bisection job's bad set is not a failing wrong-message set")
+    if not all(d["agg_truth"]) or d["sync_truth"] != [j != SYNC_MISSING for j in range(SYNC_SETS)]:
+        raise AssertionError("the aggregate jobs' ground truth disagrees with construction")
 
     dev = torch.device("cuda")
     table = PubkeyTable()
-    table.register_points_unchecked(pks, tile_to=TABLE_ROWS)
+    table.register_points_unchecked(d["pks"], tile_to=TABLE_ROWS)
     tx, ty = table.device_planes(dev)
     torch.cuda.synchronize()
     log(f"setup: pubkey table {len(table)} rows, {table.nbytes} bytes on {torch.cuda.get_device_name(0)}")
     verifier = TorchBlsVerifier(table, rng=np.random.default_rng(SEED))  # device None -> the CUDA device
+    jobs_begun = []  # every job the verifier begins: none may route a set to the host
+    begin_job = verifier.begin_job
+
+    def recording_begin_job(job_sets, batchable):
+        job = begin_job(job_sets, batchable)
+        jobs_begun.append(job)
+        return job
+
+    verifier.begin_job = recording_begin_job
 
     # -- 2. kernel phases --------------------------------------------------------
     results = {}  # (name, n) -> (kernel ms, plain ms, max abs err)
 
-    def plain_and_kernel(name, n, kernel, plain, *args):
+    def plain_and_kernel(name, n, kernel, plain, *args, plain_runs=PLAIN_RUNS):
+        """plain_runs 0: the plain version timed once, without a warm-up."""
         k_ms, k_out = cuda_ms(lambda: kernel(*args))
-        p_ms, p_out = cuda_ms(lambda: plain(*args), PLAIN_RUNS)
+        p_ms, p_out = cuda_ms(lambda: plain(*args), max(plain_runs, 1), warm=plain_runs > 0)
         k_outs = k_out if isinstance(k_out, tuple) else (k_out,)
         p_outs = p_out if isinstance(p_out, tuple) else (p_out,)
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(k_outs, p_outs))
         if err != 0 or not all(torch.equal(a, b) for a, b in zip(k_outs, p_outs)):
             raise AssertionError(f"{name} at N={n}: kernel differs from plain version (max {err})")
         results[name, n] = (k_ms, p_ms, err)
+        how = f"median of {plain_runs}" if plain_runs else "one run"
         log(f"kernel {name} N={n}: equal to plain bit for bit; kernel {k_ms:.3f} ms (median of {TIMED_RUNS}), "
-            f"plain {p_ms:.3f} ms (median of {PLAIN_RUNS}) (CUDA events)")
+            f"plain {p_ms:.3f} ms ({how}) (CUDA events)")
         return k_out
 
     for n in JOBS:
         # the per-set path's kernels on the mixed job
-        planes, idx, sig_inf, valid = verifier._prepare(sets[:n])
+        idx, kmask, planes, sig_inf, valid = verifier._prepare(sets[:n])
         m = plain_and_kernel("mont_convert", n, KV.mont_convert, KV.mont_convert_plain, planes)
         msg, sig = m[:4].reshape(2, 2, LY.NL, n), m[4:].reshape(2, 2, LY.NL, n)
-        ops = KV.each_operands(tx, ty, idx, msg, sig, sig_inf != 0, valid)
+        ops = KV.each_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid)
         sub = plain_and_kernel("g2_subgroup_check", n, KV.g2_subgroup_check, KV.g2_subgroup_check_plain,
                                *ops["sub"])
         f1 = plain_and_kernel("miller_loop", n, KV.miller_loop, KV.miller_loop_plain, *ops["miller_pk"])
@@ -292,11 +428,11 @@ def main() -> int:
         log(f"kernel outputs N={n}: {int(sub.sum())} lanes in G2, {int(ok.sum())} final exps equal to one")
 
         # the RLC batch path's kernels on the all-valid job
-        planes, idx, sig_inf, valid = verifier._prepare(valid_sets[:n])
+        idx, kmask, planes, sig_inf, valid = verifier._prepare(valid_sets[:n])
         m = KV.mont_convert(planes)
         msg, sig = m[:4].reshape(2, 2, LY.NL, n), m[4:].reshape(2, 2, LY.NL, n)
         rwords = torch.from_numpy(make_rand_words(n, np.random.default_rng(SEED + n))).to(dev)
-        ops = KV.batch_operands(tx, ty, idx, msg, sig, sig_inf != 0, valid, rwords)
+        ops = KV.batch_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid, rwords)
         rpk, _ = plain_and_kernel("g1_rpk", n, KV.g1_rpk, KV.g1_rpk_plain, *ops["g1_rpk"])
         rsig, rsig_inf, sub = plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain,
                                                *ops["g2_rsig_sub"])
@@ -308,9 +444,38 @@ def main() -> int:
         fa = plain_and_kernel("miller_loop_1", n, KV.miller_loop, KV.miller_loop_plain, KV._neg_g1(dev, 1), a)
         ok = plain_and_kernel("final_one", n, KV.final_one, KV.final_one_plain, a_inf, fprod, fa)
         if int(ok[0, 0]) != 1 or int(a_inf[0, 0]) != 0 or not bool(sub.all()):
-            raise AssertionError(f"batch kernels at N={n}: the all-valid job does not verify")
+            raise AssertionError(f"batch kernels at N={n}: the all-valid batch does not verify")
         log(f"kernel outputs N={n}: all-valid batch: {int(sub.sum())} lanes in G2, aggregate finite, "
             f"final exp of the product equal to one")
+
+        # the wire paths' ingest: the message planes of the all-valid job
+        # (4 planes) and the signatures of the wire mixed job
+        args, _ = verifier._prepare_wire(wire_valid[:n])
+        plain_and_kernel("mont_convert_4", n, KV.mont_convert, KV.mont_convert_plain, args.msg)
+        args, host_bad = verifier._prepare_wire(wire_mixed[:n])
+        _, dec_ok = plain_and_kernel("g2_decompress", n, KV.g2_decompress, KV.g2_decompress_plain,
+                                     args.sig_x, args.sig_flags)
+        off = [i for i in range(n) if dec_ok[0, i] == 0]
+        if off != [i for i in WIRE_FAULTS if WIRE_FAULTS[i] == "x_off_curve"]:
+            raise AssertionError(f"g2_decompress at N={n}: lanes off the curve {off}")
+        log(f"kernel outputs N={n}: wire mixed job: {int(host_bad.sum())} encodings refused on the host, "
+            f"{n - len(off)} lanes decompressed or flagged infinity, {len(off)} x off the curve")
+
+    # pubkey aggregation on the K = 128 job (K bucket 512), hash on 8 roots
+    args, _ = verifier._prepare_wire(d["wire_agg"])
+    k_bucket = args.idx.shape[1]
+    _, pk_inf = plain_and_kernel("agg_pk", AGG_SETS, KV.agg_pk, KV.agg_pk_plain, tx, ty, args.idx, args.kmask,
+                                 plain_runs=0)
+    if bool(pk_inf[0, :AGG_SETS].any()) or k_bucket != min(b for b in K_BUCKETS if b >= AGG_K):
+        raise AssertionError(f"agg_pk: K bucket {k_bucket}, {int(pk_inf.sum())} aggregates at infinity")
+    roots_p = d["roots"] + [d["roots"][-1]] * (KV.BT - N_ROOTS)  # padded as MessageCache pads
+    us = [GH.hash_to_field_fp2(r, 2, GH.DST_G2) for r in roots_p]
+    u = torch.from_numpy(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
+                                   for i in range(2)])).to(dev)
+    sgn = torch.tensor([[GH._sgn0_fp2(v[i]) for v in us] for i in range(2)], dtype=torch.int32, device=dev)
+    _, h_ok = plain_and_kernel("hash_g2", KV.BT, KV.hash_g2, KV.hash_g2_plain, u, sgn, plain_runs=0)
+    if not bool(h_ok.all()):
+        raise AssertionError("hash_g2: a lane flagged not ok")
 
     # -- 3. main paths -------------------------------------------------------------
     def counted(fn):
@@ -330,17 +495,30 @@ def main() -> int:
             times.append(time.perf_counter() - t)
         return statistics.median(times) * 1e3
 
-    def breakdown(label, n, job, ms, counts, kernel_names):
-        prep = host_ms(lambda: verifier._prepare(job))
+    def no_host_sets(label):
+        if not jobs_begun or any(j.host_sets for j in jobs_begun):
+            raise AssertionError(f"{label}: a job routed sets to the host: {[j.host_sets for j in jobs_begun]}")
+        jobs_begun.clear()
+
+    def require(label, counts, names):
+        if min(counts[COUNTER[k]] for k in names) == 0:
+            raise AssertionError(f"{label}: a kernel of the path was never launched: {counts}")
+
+    def breakdown(label, n, prepare, ms, counts, names):
+        """Kernel-phase medians at this N, or at the largest N where a
+        kernel was not timed at this one."""
+        prep = host_ms(prepare)
         kern = 0.0
-        for k in kernel_names:
-            per = results[k, n][0]
-            if k == "miller_loop" and label == "batch":  # one N-lane and one 1-lane launch
-                per = (results[k, n][0] + results["miller_loop_1", n][0]) / 2
-            kern += per * counts[k]
+        at = {k: n if (k, n) in results else JOBS[-1] for k in names + ("miller_loop_1",)}
+        for k in names:
+            per = results[k, at[k]][0]
+            if k == "miller_loop" and "batch" in label:  # one N-lane and one 1-lane launch
+                per = (per + results["miller_loop_1", at[k]][0]) / 2
+            kern += per * counts[COUNTER[k]]
+        elsewhere = sorted({f"{k} at N={m}" for k, m in at.items() if m != n and k in names})
         log(f"breakdown {label} N={n}: job {ms:.3f} ms = host preparation (encode + copy to the card) "
-            f"{prep:.3f} ms + kernels {kern:.3f} ms (kernel-phase medians x launches) + the rest "
-            f"{ms - prep - kern:.3f} ms")
+            f"{prep:.3f} ms + kernels {kern:.3f} ms (kernel-phase medians x launches"
+            + (f"; {', '.join(elsewhere)}" if elsewhere else "") + f") + the rest {ms - prep - kern:.3f} ms")
 
     paths = {}  # (path, n) -> launch counts
     batchable = VerifyOptions(batchable=True)
@@ -352,8 +530,7 @@ def main() -> int:
         if got != want:
             bad = [(i, kinds[i], g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
             raise AssertionError(f"N={n}: {len(bad)} verdicts differ from the ground truth: {bad[:8]}")
-        if min(counts[k] for k in PER_SET) == 0:
-            raise AssertionError(f"N={n}: a kernel of the per-set path was never launched: {counts}")
+        require(f"per-set N={n}", counts, PER_SET)
         if verifier.verify_signature_sets(job) != all(want):
             raise AssertionError(f"N={n}: verify_signature_sets gave the wrong verdict")
         if not verifier.verify_signature_sets([s for s, w in zip(job, want) if w]):
@@ -362,11 +539,11 @@ def main() -> int:
         log(f"main path per-set N={n}: {sum(got)} of {n} True, every verdict equals the ground truth; "
             f"launches {json.dumps(counts)}; verify_signature_sets_individually {ms:.1f} ms = "
             f"{n / ms * 1e3:.1f} sets/s (host clock, median of 3 after a warm-up)")
-        breakdown("per-set", n, job, ms, counts, PER_SET)
+        breakdown("per-set", n, lambda: verifier._prepare(job), ms, counts, PER_SET)
         paths["per_set", n] = counts
         results["sets_per_s", "per_set", n] = n / ms * 1e3
 
-        # the RLC batch path (the system's main path)
+        # the RLC batch path on decoded sets
         job = valid_sets[:n]
         verifier.verify_signature_sets(job, batchable)  # warm-up
         ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
@@ -374,13 +551,12 @@ def main() -> int:
             raise AssertionError(f"N={n}: the all-valid batch was rejected")
         if counts["miller_loop"] != 2 or counts["final_one"] != 1 or counts["each_final"] != 0:
             raise AssertionError(f"N={n}: the batch did not run as one multi-pairing: {counts}")
-        if min(counts[k] for k in BATCH) == 0:
-            raise AssertionError(f"N={n}: a kernel of the batch path was never launched: {counts}")
+        require(f"batch N={n}", counts, BATCH)
         ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
         log(f"main path batch N={n}: accepted {n} of {n} valid sets as one RLC batch; launches "
             f"{json.dumps(counts)}; verify_signature_sets(batchable=True) {ms:.1f} ms = {n / ms * 1e3:.1f} "
             f"sets/s (host clock, median of 3 after a warm-up)")
-        breakdown("batch", n, job, ms, counts, BATCH)
+        breakdown("batch", n, lambda: verifier._prepare(job), ms, counts, BATCH)
         paths["batch", n] = counts
         results["sets_per_s", "batch", n] = n / ms * 1e3
 
@@ -392,32 +568,134 @@ def main() -> int:
         if ok is not False or counts["each_final"] != 1 or counts["final_one"] != 0:
             raise AssertionError(f"N={n}: the mixed batchable job did not go per set: {ok}, {counts}")
         log(f"main path mixed-batchable N={n}: False, routed per set (launches {json.dumps(counts)})")
+    no_host_sets("decoded paths")
 
-    # the bisection: the all-valid 512-set job with one wrong message
+    def bisection(label, n, bad_job):
+        """A 512-set job with one wrong message at BAD_SET: batch rejected,
+        bisected to the leaf, exact verdicts in submission order."""
+        want = [i != BAD_SET for i in range(n)]
+        t = time.perf_counter()
+        job, _ = counted(lambda: verifier.begin_job(bad_job, batchable=True))
+        ok = verifier.finish_job(job)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        counts = dict(KV.LAUNCHES)
+        if ok is not False or job.verdicts.tolist() != want:
+            raise AssertionError(f"{label}: verdict {ok}, {int((job.verdicts != want).sum())} per-set verdicts wrong")
+        leaf = verifier.bisect_leaf
+        if job.bisect_depth < 2 or job.batch_retries != 1 or job.batch_sigs_success != n - leaf:
+            raise AssertionError(f"{label}: depth {job.bisect_depth}, retries {job.batch_retries}, "
+                                 f"cleared {job.batch_sigs_success}")
+        if verifier.verify_signature_sets_individually(bad_job) != want:
+            raise AssertionError(f"{label} job: per-set verdicts differ from the ground truth")
+        if verifier.verify_signature_sets(bad_job, batchable) is not False:
+            raise AssertionError(f"{label} job: verify_signature_sets accepted a job with a bad set")
+        log(f"main path {label} N={n}: one wrong message at set {BAD_SET}: batch rejected, bisected "
+            f"{n} -> {n // 2} -> ... -> {leaf} (depth {job.bisect_depth}), {job.batch_sigs_success} sets cleared by "
+            f"passing halves, the {leaf}-set leaf verified per set; every verdict equals the ground truth; "
+            f"launches {json.dumps(counts)}; {dt:.1f} ms (host clock, one run)")
+        no_host_sets(label)
+        return counts
+
     n = JOBS[-1]
     bad_job = list(valid_sets[:n])
     bad_job[BAD_SET] = sets[BAD_SET]
-    want = [i != BAD_SET for i in range(n)]
+    paths["bisection", n] = bisection("bisection", n, bad_job)
+
+    # the cold message cache: the 8 roots hashed in one 128-lane launch
+    cache = MessageCache(device=dev)
     t = time.perf_counter()
-    job, counts = counted(lambda: verifier.begin_job(bad_job, batchable=True))
-    ok = verifier.finish_job(job)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t) * 1e3
-    counts = dict(KV.LAUNCHES)
-    if ok is not False or job.verdicts.tolist() != want:
-        raise AssertionError(f"bisection: verdict {ok}, {int((job.verdicts != want).sum())} per-set verdicts wrong")
-    leaf = verifier.bisect_leaf
-    if job.bisect_depth < 2 or job.batch_retries != 1 or job.batch_sigs_success != n - leaf:
-        raise AssertionError(f"bisection: depth {job.bisect_depth}, retries {job.batch_retries}, "
-                             f"cleared {job.batch_sigs_success}")
-    if verifier.verify_signature_sets_individually(bad_job) != want:
-        raise AssertionError("bisection job: per-set verdicts differ from the ground truth")
-    if verifier.verify_signature_sets(bad_job, batchable) is not False:
-        raise AssertionError("bisection job: verify_signature_sets accepted a job with a bad set")
-    log(f"main path bisection N={n}: one wrong message at set {BAD_SET}: batch rejected, bisected "
-        f"{n} -> {n // 2} -> ... -> {leaf} (depth {job.bisect_depth}), {job.batch_sigs_success} sets cleared by "
-        f"passing halves, the {leaf}-set leaf verified per set; every verdict equals the ground truth; "
-        f"launches {json.dumps(counts)}; {dt:.1f} ms (host clock, one run)")
+    pts, counts = counted(lambda: cache.get_many(d["roots"]))
+    cold_ms = (time.perf_counter() - t) * 1e3
+    if pts != d["hs"] or counts["hash_g2"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"cold MessageCache: points equal hash_to_g2: {pts == d['hs']}; launches {counts}")
+    again, counts2 = counted(lambda: cache.get_many(d["roots"]))
+    if again != d["hs"] or sum(counts2.values()) != 0 or cache.hits != N_ROOTS:
+        raise AssertionError(f"warm MessageCache: launches {counts2}, hits {cache.hits}")
+    log(f"main path cold-hash: MessageCache.get_many of {N_ROOTS} roots: one hash_g2 launch, every point "
+        f"equals crypto/hash_to_curve.py hash_to_g2; {cold_ms:.1f} ms (host clock, one run, host hash_to_field "
+        f"included); the second lookup launched nothing")
+    paths["cold_hash", KV.BT] = counts
+    verifier.messages = cache
+
+    for n in JOBS:
+        # the wire batch: the all-valid job as wire bytes
+        job = wire_valid[:n]
+        verifier.verify_signature_sets(job, batchable)  # warm-up
+        ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+        if ok is not True:
+            raise AssertionError(f"wire N={n}: the all-valid wire batch was rejected")
+        if counts["miller_loop"] != 2 or counts["final_one"] != 1 or counts["each_final"] != 0 or counts["hash_g2"]:
+            raise AssertionError(f"wire N={n}: the batch did not run as one multi-pairing: {counts}")
+        require(f"wire batch N={n}", counts, WIRE_BATCH)
+        ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
+        log(f"main path wire-batch N={n}: accepted {n} of {n} wire sets as one RLC batch; launches "
+            f"{json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of 3 after a "
+            f"warm-up)")
+        breakdown("wire-batch", n, lambda: verifier._prepare_wire(job), ms, counts, WIRE_BATCH)
+        paths["wire_batch", n] = counts
+        results["sets_per_s", "wire_batch", n] = n / ms * 1e3
+
+        # the wire per-set path on the wire mixed job
+        job, want = wire_mixed[:n], wire_truth[:n]
+        verifier.verify_signature_sets_individually(job)  # warm-up
+        got, counts = counted(lambda: verifier.verify_signature_sets_individually(job))
+        if got != want:
+            bad = [(i, d["wire_kinds"][i], g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"wire N={n}: {len(bad)} verdicts differ from the ground truth: {bad[:8]}")
+        require(f"wire per-set N={n}", counts, WIRE_PER_SET)
+        ms = host_ms(lambda: verifier.verify_signature_sets_individually(job))
+        log(f"main path wire-per-set N={n}: {sum(got)} of {n} True, every verdict equals the ground truth; "
+            f"launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of 3 "
+            f"after a warm-up)")
+        breakdown("wire-per-set", n, lambda: verifier._prepare_wire(job), ms, counts, WIRE_PER_SET)
+        paths["wire_per_set", n] = counts
+        results["sets_per_s", "wire_per_set", n] = n / ms * 1e3
+
+        # the wire mixed job sent batchable: malformed encodings void the batch
+        ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+        if ok is not False or counts["each_final"] != 1 or counts["final_one"] != 0:
+            raise AssertionError(f"wire N={n}: the mixed batchable job did not go per set: {ok}, {counts}")
+        log(f"main path wire-mixed-batchable N={n}: False, routed per set (launches {json.dumps(counts)})")
+    no_host_sets("wire paths")
+
+    n = JOBS[-1]
+    bad_job = list(wire_valid[:n])
+    bad_job[BAD_SET] = wire_mixed[BAD_SET]
+    paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job)
+
+    # the aggregate batch: 256 sets of K = 128 over one root
+    job = d["wire_agg"]
+    verifier.verify_signature_sets(job, batchable)  # warm-up
+    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+    if ok is not True or counts["agg_pk"] != 1 or counts["final_one"] != 1 or counts["each_final"] != 0:
+        raise AssertionError(f"aggregate batch: verdict {ok}, launches {counts}")
+    require("aggregate batch", counts, AGG_BATCH)
+    ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
+    log(f"main path aggregate-batch N={AGG_SETS} K={AGG_K}: accepted as one RLC batch through agg_pk (K bucket "
+        f"{k_bucket}); launches {json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
+        f"{AGG_SETS * AGG_K / ms * 1e3:.1f} pubkeys (signers' signatures)/s (host clock, median of 3 after a "
+        f"warm-up)")
+    breakdown("aggregate-batch", AGG_SETS, lambda: verifier._prepare_wire(job), ms, counts, AGG_BATCH)
+    paths["agg_batch", AGG_SETS] = counts
+    results["sets_per_s", "agg_batch", AGG_SETS] = AGG_SETS / ms * 1e3
+    results["pubkeys_per_s", "agg_batch", AGG_SETS] = AGG_SETS * AGG_K / ms * 1e3
+
+    # the K = 512 job: one set misses a signer, so the batch fails and the
+    # 4-set job (under the bisection leaf) is retried per set
+    job, want = d["wire_sync"], d["sync_truth"]
+    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+    sync_job = verifier.begin_job(job, batchable=True)
+    verifier.finish_job(sync_job)
+    if (ok is not False or sync_job.verdicts.tolist() != want or sync_job.batch_retries != 1
+            or counts["final_one"] != 1 or counts["each_final"] != 1 or counts["agg_pk"] != 2):
+        raise AssertionError(f"K = {SYNC_K} job: verdict {ok}, per set {sync_job.verdicts}, launches {counts}")
+    if verifier.verify_signature_sets_individually(job) != want:
+        raise AssertionError(f"K = {SYNC_K} job: per-set verdicts differ from the ground truth")
+    log(f"main path sync-aggregate N={SYNC_SETS} K={SYNC_K}: batch rejected, retried per set: verdicts {want} "
+        f"equal the ground truth; launches {json.dumps(counts)}")
+    paths["sync_aggregate", SYNC_SETS] = counts
+    no_host_sets("aggregate paths")
 
     if not verifier._device_canary():
         raise AssertionError("device canary failed")
@@ -426,37 +704,46 @@ def main() -> int:
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path = "batch" if name in BATCH else "per_set"
+        path, n = MAIN_PATH[name]
         k_ms, p_ms, err = results[name, n]
-        # units of FP_MULS_PER_LANE and lanes of BYTES_PER_LANE in one launch
+        # units of FP_MULS_PER_LANE and bytes of one launch
+        lanes = n
         if name in TAIL:
             units = lanes = 1
         elif name in ("sum_g2", "prod12"):
-            units, lanes = n - 1, n  # N - 1 combines
-        elif name == "mont_convert":
-            units, lanes = 8 * n, n  # 8 planes per lane
+            units = n - 1  # N - 1 combines
+        elif name in ("mont_convert", "mont_convert_4"):
+            units = (8 if name == "mont_convert" else 4) * n  # planes per lane
+        elif name == "agg_pk":
+            units = (k_bucket - 1) * n  # K - 1 additions per lane
         else:
-            units = lanes = n
-        ops_ms = KV.FP_MULS_PER_LANE[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
-        nbytes = BYTES_PER_LANE[name] * lanes + BYTES_PER_LAUNCH.get(name, 0)
+            units = n
+        ops_ms = KV.FP_MULS_PER_LANE[COUNTER[name]] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
+        per_lane = k_bucket * (2 * 48 + 8) + 3 * 48 + 4 if name == "agg_pk" else BYTES_PER_LANE[name]
+        nbytes = per_lane * lanes + BYTES_PER_LAUNCH.get(name, 0)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths[path, n][name], "max_abs_err": err,
+            "launches": paths[path, n][COUNTER[name]], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "path": path, "n": n,
-            "launches_by_path": {p: paths[p, n][name] for p in ("per_set", "batch")},
-            "ms_n128": results[name, JOBS[0]][0], "plain_ms_n128": results[name, JOBS[0]][1],
+            "launches_by_path": {f"{p} N={pn}": c[COUNTER[name]] if (name == "mont_convert_4") == (p in WIRE_PATHS)
+                                 or COUNTER[name] != "mont_convert" else 0 for (p, pn), c in paths.items()},
         }
+        if (name, JOBS[0]) in results and n != JOBS[0]:
+            entry["ms_n128"], entry["plain_ms_n128"] = results[name, JOBS[0]][:2]
         if name == "miller_loop":
             entry["ms_1_lane"], entry["plain_ms_1_lane"] = results["miller_loop_1", n][:2]
         kernels.append(entry)
     log("main path sets/s: " + ", ".join(
-        f"{p} N={j}: {results['sets_per_s', p, j]:.1f}" for p in ("per_set", "batch") for j in JOBS)
-        + f" ({card}); total {time.perf_counter() - t_start:.1f} s")
+        f"{p} N={j}: {results['sets_per_s', p, j]:.1f}" for p in ("per_set", "batch", "wire_per_set", "wire_batch")
+        for j in JOBS)
+        + f", agg_batch N={AGG_SETS} K={AGG_K}: {results['sets_per_s', 'agg_batch', AGG_SETS]:.1f} "
+        f"({results['pubkeys_per_s', 'agg_batch', AGG_SETS]:.1f} pubkeys/s) ({card}); "
+        f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,19 +1,33 @@
 """TorchBlsVerifier: BLS signature-set verification on the port's CUDA
 kernels.
 
-Counterpart of `lodestar_tpu/bls/verifier.py` `TpuBlsVerifier` for
-decoded single-pubkey sets.  Semantics kept:
+Counterpart of `lodestar_tpu/bls/verifier.py` `TpuBlsVerifier`.
+Semantics kept:
 
   - `verify_signature_sets(sets, opts)` is True iff EVERY set verifies;
     jobs are chunked to `max_job_sets` (MAX_JOB_SETS = 512) and padded to
-    the N buckets; every chunk is dispatched (`begin_job`) before any is
-    synced (`finish_job`).
+    the N buckets, and each set's pubkey rows to a K bucket (K_BUCKETS;
+    K > 1 sets are summed on the device by `agg_pk`); every chunk is
+    dispatched (`begin_job`) before any is synced (`finish_job`).
+  - A job holds decoded `SignatureSet`s or `WireSignatureSet`s, not both.
+    Wire sets are hashed to G2 through `MessageCache` (the `hash_g2`
+    kernel) and decompressed on the device (`g2_decompress`); a malformed
+    encoding is `host_bad` and fails its set.  A wire job is sorted by
+    signing root, as the JAX package sorts it for message grouping, so
+    its bisection halves are the JAX plan's; the verdicts come back in
+    submission order.  Message grouping itself is not in the port yet:
+    a sorted wire job takes the ungrouped batch (`verify_batch_device_wire`).
+  - Sets with more than MAX_AGG_INDICES = 2048 indices, and sets with
+    external pubkeys, are verified on the host ground truth, as the JAX
+    package routes them (a property of the set, not a fallback on a
+    device failure); `job.host_sets` counts them.
   - A job is verified as ONE random-linear-combination batch
-    (`kernels/verify.py verify_batch_device`) iff it is batchable, has at
-    least 2 sets, every signature is decodable and `LODESTAR_TPU_BLS_RLC`
-    is not 0 (the escape hatch); otherwise it gets per-set verdicts
-    (`verify_each_device`).  A batchable job that holds an undecodable
-    signature counts one batch retry.
+    (`kernels/verify.py verify_batch_device[_wire]`) iff it is batchable,
+    has at least 2 sets, every signature is decodable on the host and
+    `LODESTAR_TPU_BLS_RLC` is not 0 (the escape hatch); otherwise it gets
+    per-set verdicts (`verify_each_device[_wire]`).  A batchable job that
+    holds an undecodable signature counts one batch retry.  A wire x off
+    the curve is not host-bad: its batch fails and bisects.
   - A failed batch bisects: both halves are dispatched as smaller RLC
     batches before either is synced, a passing half clears its sets, a
     failing one recurses, and a half of at most `bisect_leaf` sets
@@ -25,17 +39,16 @@ decoded single-pubkey sets.  Semantics kept:
   - `verify_on_main_thread` verifies on the host CPU ground truth;
     `can_accept_work()` is the 512-pending-job backpressure bound.
 
-Not in this slice: the metrics registry and trace spans, the
-DeviceSupervisor breaker (a device fault propagates as an exception),
-the export cache, wire (compressed) sets, message grouping and
-aggregate sets: K > 1 raises ValueError, since it needs the `_k_agg_pk`
-kernel of a later slice, and is not quietly sent to the host.
+Not in this slice: message grouping (`_grouping`,
+`verify_batch_device_wire_grouped`), pre-verify signature aggregation,
+the metrics registry and trace spans, the DeviceSupervisor breaker (a
+device fault propagates as an exception) and the export cache.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,15 +58,20 @@ from ..crypto import curves as C
 from ..crypto import pairing as CP
 from ..kernels import layout as LY
 from ..kernels import verify as KV
+from .ingest import MessageCache, encode_wire_planes
 from .pubkey_table import PubkeyTable
 from .rand import make_rand_words
-from .signature_set import SignatureSet
+from .signature_set import SignatureSet, WireSignatureSet
 
 MAX_JOB_SETS = 512
 MAX_PENDING_JOBS = 512
 # job sizes pad up to these lane counts (multiples of the JAX package's
 # 128-lane tile, kept so both packages run the same shapes)
 N_BUCKETS = (128, 256, 512, 1024, 2048)
+# pubkeys per set pad up to these counts; a larger aggregate (beyond a
+# full 2048-validator committee) is verified on the host
+K_BUCKETS = (1, 4, 16, 64, 512, 2048)
+MAX_AGG_INDICES = K_BUCKETS[-1]
 
 
 class VerifyOptions:
@@ -66,24 +84,61 @@ class VerifyOptions:
         self.verify_on_main_thread = verify_on_main_thread
 
 
+class DecodedArgs(NamedTuple):
+    """Device operands of a decoded job, in the order of
+    `verify_each_device` after the table."""
+
+    idx: torch.Tensor  # [n, K] table rows
+    kmask: torch.Tensor  # [n, K]
+    planes: torch.Tensor  # [8, 12, n] plain limbs of H(m) and the signature
+    sig_inf: torch.Tensor  # [n]
+    valid: torch.Tensor  # [n]
+
+
+class WireArgs(NamedTuple):
+    """Device operands of a wire job, in the order of
+    `verify_each_device_wire` after the table."""
+
+    idx: torch.Tensor
+    kmask: torch.Tensor
+    msg: torch.Tensor  # [4, 12, n] plain limbs of H(m)
+    sig_x: torch.Tensor  # [2, 12, n] plain limbs of the compressed x
+    sig_flags: torch.Tensor  # [2, n] (sign, infinity)
+    valid: torch.Tensor
+
+
 class _DeviceJob:
     """An in-flight job: lazy device results and the host context."""
 
     __slots__ = (
-        "sets", "args", "decodable", "batch_ok", "per_set", "verdicts",
-        "batch_retries", "batch_sigs_success", "bisect_depth",
+        "sets", "wire", "args", "decodable", "batch_ok", "per_set", "verdicts",
+        "batch_retries", "batch_sigs_success", "bisect_depth", "order", "host",
+        "n_submitted",
     )
 
-    def __init__(self, sets):
-        self.sets = sets
-        self.args = None  # prepared device operands (planes, idx, sig_inf, valid)
+    def __init__(self, sets, wire: bool = False):
+        self.sets = sets  # the device sets, in lane order
+        self.wire = wire
+        self.args = None  # DecodedArgs or WireArgs
         self.decodable = None
         self.batch_ok = None  # lazy device scalar: the RLC batch verdict
         self.per_set = None  # lazy device vector: per-set verdicts
-        self.verdicts = None  # host per-set bools after a per-set or bisected resolve
+        self.verdicts = None  # host per-set bools (submission order) after a per-set or bisected resolve
         self.batch_retries = 0
         self.batch_sigs_success = 0
         self.bisect_depth = 0  # 0: no bisection ran
+        # order[j]: submission position of device lane j (None: identity);
+        # it restores the caller's order after the sort by signing root
+        # (JAX `unsort`) and around the host-routed sets
+        self.order = None
+        self.host = {}  # submission position -> host verdict
+        self.n_submitted = len(sets)
+
+    @property
+    def host_sets(self) -> int:
+        """Sets of the job verified on the host (routed there by a property
+        of the set: more than MAX_AGG_INDICES indices, or external keys)."""
+        return len(self.host)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -96,11 +151,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _bucket(n: int) -> int:
-    for b in N_BUCKETS:
+def _bucket(n: int, buckets=None) -> int:
+    buckets = N_BUCKETS if buckets is None else buckets
+    for b in buckets:
         if n <= b:
             return b
-    raise ValueError(f"size {n} exceeds largest bucket {N_BUCKETS[-1]}")
+    raise ValueError(f"size {n} exceeds largest bucket {buckets[-1]}")
+
+
+def _host_routed(s) -> bool:
+    """Sets the JAX package verifies on the host: an aggregate beyond the
+    largest K bucket, or keys outside the registry."""
+    if len(s.indices) > MAX_AGG_INDICES:
+        return True
+    return getattr(s, "pubkeys", None) is not None or getattr(s, "external_pubkeys", None) is not None
 
 
 class TorchBlsVerifier:
@@ -117,6 +181,8 @@ class TorchBlsVerifier:
         self.table = table
         self.device = resolve_device(device)
         self.max_job_sets = min(max_job_sets, N_BUCKETS[-1])
+        # signing root -> hashed G2 message, hashed on this device
+        self.messages = MessageCache(device=self.device)
         self._pending_jobs = 0
         # None: OS CSPRNG randomizers; a seeded generator for tests
         self.rng = rng
@@ -134,16 +200,14 @@ class TorchBlsVerifier:
 
     # -- entry points -------------------------------------------------------
 
-    def verify_signature_sets(
-        self, sets: Sequence[SignatureSet], opts: Optional[VerifyOptions] = None
-    ) -> bool:
+    def verify_signature_sets(self, sets: Sequence, opts: Optional[VerifyOptions] = None) -> bool:
         if not sets:
             return True
         opts = opts or VerifyOptions()
         self._pending_jobs += 1
         try:
             if opts.verify_on_main_thread:
-                return all(self._verify_set_cpu(s) for s in sets)
+                return all(self._verify_set_host(s) for s in sets)
             step = self.max_job_sets
             jobs = [
                 self.begin_job(list(sets[i : i + step]), opts.batchable)
@@ -156,33 +220,48 @@ class TorchBlsVerifier:
         finally:
             self._pending_jobs -= 1
 
-    def verify_signature_sets_individually(self, sets: Sequence[SignatureSet]) -> List[bool]:
-        """Per-set verdicts, in submission order."""
-        jobs = [
-            self.begin_job(list(sets[i : i + MAX_JOB_SETS]), batchable=False)
-            for i in range(0, len(sets), MAX_JOB_SETS)
-        ]
-        out: List[bool] = []
-        for job in jobs:
-            self.finish_job(job)
-            out.extend(bool(v) for v in job.verdicts)
+    def verify_signature_sets_individually(self, sets: Sequence) -> List[bool]:
+        """Per-set verdicts, in submission order; wire and decoded sets may
+        be mixed (each kind runs in its own jobs)."""
+        out: List[Optional[bool]] = [None] * len(sets)
+        for wire in (False, True):
+            pos = [i for i, s in enumerate(sets) if isinstance(s, WireSignatureSet) == wire]
+            jobs = [
+                (pos[i : i + MAX_JOB_SETS], self.begin_job([sets[j] for j in pos[i : i + MAX_JOB_SETS]], False))
+                for i in range(0, len(pos), MAX_JOB_SETS)
+            ]
+            for chunk, job in jobs:
+                self.finish_job(job)
+                for j, v in zip(chunk, job.verdicts):
+                    out[j] = bool(v)
         return out
 
     # -- job execution --------------------------------------------------------
 
-    def _prepare(self, sets: List[SignatureSet]):
-        """Pad sets into an N bucket and encode the device operands: plain
-        limb planes [8, 12, n] (H(m) x0 x1 y0 y1, sig x0 x1 y0 y1), table
-        rows [n, 1], signature-infinity and valid flags [n]."""
-        for s in sets:
-            if len(s.indices) != 1:
-                raise ValueError(
-                    "aggregate sets (K > 1) need the pubkey-aggregation kernel "
-                    "(_k_agg_pk), which a later slice of the port adds"
-                )
-            if not 0 <= s.indices[0] < len(self.table):
-                raise IndexError(f"validator index {s.indices[0]} is not in the pubkey table")
+    def _kslots(self, sets, n: int):
+        """Table rows [n, K] and their mask, K the sets' K bucket; every
+        index must be a registered row."""
+        k = _bucket(max(len(s.indices) for s in sets), K_BUCKETS)
+        idx = np.zeros((n, k), np.int32)
+        kmask = np.zeros((n, k), np.int32)
+        for i, s in enumerate(sets):
+            for j in s.indices:
+                if not 0 <= j < len(self.table):
+                    raise IndexError(f"validator index {j} is not in the pubkey table")
+            idx[i, : len(s.indices)] = s.indices
+            kmask[i, : len(s.indices)] = 1
+        return idx, kmask
+
+    def _to_device(self, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+
+    def _prepare(self, sets: List[SignatureSet]) -> DecodedArgs:
+        """Pad decoded sets into an (N, K) bucket and encode the device
+        operands: plain limb planes [8, 12, n] (H(m) x0 x1 y0 y1, sig x0 x1
+        y0 y1), table rows and mask [n, K], signature-infinity and valid
+        flags [n]."""
         n = _bucket(len(sets))
+        idx, kmask = self._kslots(sets, n)
         g2 = C.G2_GEN
         msgs = [s.message for s in sets] + [g2] * (n - len(sets))
         sigs = [g2 if s.signature is None else s.signature for s in sets]
@@ -191,36 +270,61 @@ class TorchBlsVerifier:
             [pt[c][k] for pt in pts] for pts in (msgs, sigs) for c in range(2) for k in range(2)
         ]
         planes = np.stack([LY.encode_plain_batch(v) for v in coords])
-        idx = np.zeros((n, 1), np.int32)
-        idx[: len(sets), 0] = [s.indices[0] for s in sets]
         sig_inf = np.zeros(n, np.int32)
         sig_inf[: len(sets)] = [s.signature is None for s in sets]
         valid = np.zeros(n, np.int32)
         valid[: len(sets)] = 1
-        dev = self.device
-        return (
-            torch.from_numpy(planes).to(dev),
-            torch.from_numpy(idx).to(dev),
-            torch.from_numpy(sig_inf).to(dev),
-            torch.from_numpy(valid).to(dev),
-        )
+        return DecodedArgs(*self._to_device(idx, kmask, planes, sig_inf, valid))
+
+    def _prepare_wire(self, sets: List[WireSignatureSet]):
+        """Wire sets -> (WireArgs, host_bad [n]): messages hashed through
+        the MessageCache, signatures as compressed-x limbs and flag bits."""
+        n = _bucket(len(sets))
+        idx, kmask = self._kslots(sets, n)
+        valid = np.zeros(n, np.int32)
+        valid[: len(sets)] = 1
+        msgs = self.messages.get_many([s.signing_root for s in sets])
+        msgs = msgs + [C.G2_GEN] * (n - len(sets))
+        msg = np.stack([LY.encode_plain_batch([m[c][k] for m in msgs]) for c in range(2) for k in range(2)])
+        x0, x1, flags, host_bad = encode_wire_planes([s.signature for s in sets], n)
+        args = WireArgs(*self._to_device(idx, kmask, msg, np.stack([x0, x1]), flags, valid))
+        return args, host_bad
 
     def _each(self, args) -> torch.Tensor:
         """Launch the per-set path on prepared operands (no sync)."""
-        planes, idx, sig_inf, valid = args
         tx, ty = self.table.device_planes(self.device)
-        return KV.verify_each_device(tx, ty, idx, planes, sig_inf, valid)
+        if isinstance(args, WireArgs):
+            return KV.verify_each_device_wire(tx, ty, *args)
+        return KV.verify_each_device(tx, ty, *args)
 
-    def begin_job(self, sets: List[SignatureSet], batchable: bool) -> _DeviceJob:
+    def begin_job(self, sets: List, batchable: bool) -> _DeviceJob:
         """Dispatch one job (<= max_job_sets sets) without syncing;
         `finish_job` syncs it.  Routing as `_begin_job` of the JAX package
-        (`lodestar_tpu/bls/verifier.py:643`)."""
-        job = _DeviceJob(sets)
-        if not sets:
+        (`lodestar_tpu/bls/verifier.py:577-663`)."""
+        wire = bool(sets) and isinstance(sets[0], WireSignatureSet)
+        if any(isinstance(s, WireSignatureSet) != wire for s in sets):
+            raise ValueError("begin_job needs a job of only wire or only decoded sets")
+        host = {i: self._verify_set_host(s) for i, s in enumerate(sets) if _host_routed(s)}
+        pos = [i for i in range(len(sets)) if i not in host]
+        job = _DeviceJob([sets[i] for i in pos], wire)
+        job.host, job.n_submitted = host, len(sets)
+        if host:
+            job.order = np.asarray(pos, np.int64)
+        if not job.sets:
             return job
-        job.args = self._prepare(sets)
-        job.decodable = np.array([s.signature is not None for s in sets])
-        batchable_job = batchable and len(sets) >= 2
+        if wire:
+            # sorted by signing root, as the JAX package sorts for message
+            # grouping: the bisection halves are then its halves
+            perm = sorted(range(len(job.sets)), key=lambda i: job.sets[i].signing_root)
+            if perm != list(range(len(job.sets))):
+                job.sets = [job.sets[i] for i in perm]
+                job.order = np.asarray(pos, np.int64)[perm]
+            job.args, host_bad = self._prepare_wire(job.sets)
+            job.decodable = ~host_bad[: len(job.sets)]
+        else:
+            job.args = self._prepare(job.sets)
+            job.decodable = np.array([s.signature is not None for s in job.sets])
+        batchable_job = batchable and len(job.sets) >= 2
         if batchable_job and self._use_rlc and job.decodable.all():
             job.batch_ok = self._dispatch_rlc_batch(job.args)
         else:
@@ -233,16 +337,25 @@ class TorchBlsVerifier:
 
     def finish_job(self, job: _DeviceJob) -> bool:
         """Sync a begun job; True iff every set verified.  Per-set verdicts
-        land in `job.verdicts` unless the batch accepted every set."""
-        sets = job.sets
-        if not sets:
-            return True
+        (submission order, host-routed sets included) land in
+        `job.verdicts` unless the batch accepted every set."""
+        host_ok = all(job.host.values())
+        if not job.sets:
+            if job.host:
+                job.verdicts = np.array([job.host[i] for i in range(job.n_submitted)])
+            return host_ok
         if job.batch_ok is not None:
             per_set = self._resolve_rlc_batch(job)
             if per_set is None:
-                return True
+                return host_ok
         else:
             per_set = self._collect(job.per_set, job.decodable)
+        if job.order is not None:
+            out = np.zeros(job.n_submitted, bool)
+            out[job.order] = per_set
+            for i, v in job.host.items():
+                out[i] = v
+            per_set = out
         job.verdicts = per_set
         return bool(per_set.all())
 
@@ -294,15 +407,22 @@ class TorchBlsVerifier:
     def _dispatch_rlc_batch(self, args) -> torch.Tensor:
         """ONE RLC multi-pairing dispatch with fresh randomizers (no sync);
         shared by the job path and the bisection."""
-        planes, idx, sig_inf, valid = args
-        rwords = torch.from_numpy(make_rand_words(valid.shape[0], self.rng)).to(self.device)
+        rwords = torch.from_numpy(make_rand_words(args.valid.shape[0], self.rng)).to(self.device)
         tx, ty = self.table.device_planes(self.device)
-        batch_ok, _sub_ok = KV.verify_batch_device(tx, ty, idx, planes, sig_inf, rwords, valid)
+        fn = KV.verify_batch_device_wire if isinstance(args, WireArgs) else KV.verify_batch_device
+        batch_ok, _sub_ok = fn(tx, ty, *args[:-1], rwords, args.valid)
         return batch_ok
+
+    def _prepare_any(self, sets):
+        """(operands, host-decodable mask) of a homogeneous sub-job."""
+        if isinstance(sets[0], WireSignatureSet):
+            args, host_bad = self._prepare_wire(sets)
+            return args, ~host_bad[: len(sets)]
+        return self._prepare(sets), np.array([s.signature is not None for s in sets])
 
     def _dispatch_batch(self, sets) -> torch.Tensor:
         """Dispatch one sub-batch of the bisection (no sync)."""
-        return self._dispatch_rlc_batch(self._prepare(sets))
+        return self._dispatch_rlc_batch(self._prepare_any(sets)[0])
 
     def _batch_verdict(self, handle) -> bool:
         """Sync one batch handle to a host bool."""
@@ -310,23 +430,34 @@ class TorchBlsVerifier:
 
     def _per_set_verdicts(self, sets) -> np.ndarray:
         """Independent per-set verdicts (the bisection leaf)."""
-        decodable = np.array([s.signature is not None for s in sets])
-        return self._collect(self._each(self._prepare(sets)), decodable)
+        args, decodable = self._prepare_any(sets)
+        return self._collect(self._each(args), decodable)
 
     # -- host paths -------------------------------------------------------------
 
+    def _verify_set_host(self, s) -> bool:
+        """Ground-truth verdict of one set, wire or decoded."""
+        return self._verify_set_cpu(s.decode() if isinstance(s, WireSignatureSet) else s)
+
     def _verify_set_cpu(self, s: SignatureSet) -> bool:
-        """Ground-truth verification of one set on the host CPU (pubkeys
-        were KeyValidated at registration; messages are in G2 by
-        construction)."""
+        """Ground-truth verification of one decoded set on the host CPU.
+        Registry pubkeys were KeyValidated at registration; external keys
+        are KeyValidated here; messages are in G2 by construction."""
         if s.signature is None:
             return False
         if not C.is_on_curve(C.FP2_OPS, s.signature):
             return False
         if not C.g2_subgroup_check(s.signature):
             return False
-        agg = C.multi_add(C.FP_OPS, [self.table.host_affine(i) for i in s.indices])
-        if agg is None:
+        if s.external_pubkeys is not None:
+            for pk in s.external_pubkeys:
+                if pk is None or not C.is_on_curve(C.FP_OPS, pk) or not C.g1_subgroup_check(pk):
+                    return False
+            keys = list(s.external_pubkeys)
+        else:
+            keys = [self.table.host_affine(i) for i in s.indices]
+        agg = C.multi_add(C.FP_OPS, keys)
+        if agg is None:  # an aggregate pubkey at infinity never verifies
             return False
         return CP.multi_pairing_is_one([(agg, s.message), (CB.NEG_G1_GEN, s.signature)])
 

@@ -31,7 +31,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("mont", "subgroup", "miller", "final", "randmul", "reduce", "tail")
+SOURCES = ("mont", "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -137,6 +137,13 @@ _ARGTYPES = {
     "lt_prod12": [_VP, _VP, _VP, _INT, _VP],
     "lt_affine_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_final_one": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_g2_decompress": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_hash_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_agg_pk": [_VP, _VP, _INT, _VP, _VP, _INT, _VP, _VP, _INT, _VP],
+    # host build only: the ingest building blocks for the tests
+    "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],
+    "lt_host_signs": [_VP, _VP, _INT],
+    "lt_host_sswu": [_VP, _VP, _VP, _INT],
 }
 
 

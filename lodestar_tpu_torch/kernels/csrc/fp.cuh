@@ -177,3 +177,7 @@ LT_NOINL void fp_pow_words(fp &r, const fp &a, const uint32_t *e, int top) {
 
 // a^(p - 2) = a^-1 (0 for a = 0); p - 2 has its top bit at position 380
 LT_DEV void fp_inv(fp &r, const fp &a) { fp_pow_words(r, a, LT_P_MINUS_2, 380); }
+
+// the candidate square root a^((p + 1) / 4) (p = 3 mod 4): a root of a
+// iff its square is a (lodestar_tpu/kernels/sqrt.py fp_sqrt_cand)
+LT_DEV void fp_sqrt_cand(fp &r, const fp &a) { fp_pow_words(r, a, LT_SQRT_EXP, LT_SQRT_TOP); }

@@ -227,6 +227,25 @@ def _take_lanes(table, idx):
     return torch.gather(table, 0, i)[0]
 
 
+def sum_points_axis0(fo: FieldOps, pts, inf):
+    """Tree sum over a leading axis: points [K, ..., N], inf [K, N] ->
+    [..., N], in the order of `lodestar_tpu/kernels/curve.py:380` (and of
+    csrc/aggpk.cu): half = (k + 1) // 2, row i added to row i + half, an
+    odd middle row passed through, until one row is left.  The Jacobian
+    coordinates depend on that order, so it is kept exactly."""
+    k = inf.shape[0]
+    while k > 1:
+        half = (k + 1) // 2
+        n = k - half
+        s, s_inf = jac_add_full(
+            fo, tuple(c[:n] for c in pts), inf[:n], tuple(c[half:k] for c in pts), inf[half:k]
+        )
+        pts = tuple(torch.cat([a, c[n:half]]) for a, c in zip(s, pts))
+        inf = torch.cat([s_inf, inf[n:half]])
+        k = half
+    return tuple(c[0] for c in pts), inf[0]
+
+
 def sum_points_lanes(fo: FieldOps, pts, inf, width: int = 128):
     """(sum of the lanes not flagged infinity, its inf flag) -> [..., 1].
 

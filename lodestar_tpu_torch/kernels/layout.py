@@ -183,6 +183,12 @@ def _fp2_words(v) -> str:
     return "{" + _fp_words(v[0]) + ", " + _fp_words(v[1]) + "}"
 
 
+def _exp_words(e: int) -> str:
+    """A static exponent as little-endian 32-bit words (csrc pow loops)."""
+    n = -(-e.bit_length() // 32)
+    return "{" + ", ".join(f"0x{(e >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(n)) + "}"
+
+
 def cuda_constants() -> str:
     """Text of csrc/constants.cuh: every constant the CUDA field engine
     needs, in Montgomery form, generated from this module and the host
@@ -190,6 +196,7 @@ def cuda_constants() -> str:
     file with this text)."""
     from ..crypto import curves as CU
     from ..crypto import fields as F
+    from ..crypto import hash_to_curve as HC
 
     x_abs = -F.X_PARAM
     mont = lambda v: v % P * R_MOD_P % P  # noqa: E731
@@ -222,6 +229,35 @@ def cuda_constants() -> str:
     for n in (1, 2, 3):
         body = ", ".join(_fp2_words(g) for g in frob[n])
         lines.append(f"LT_CONST uint32_t LT_FROB{n}[6][2][12] = {{{body}}};")
+    # ingest: square roots, signs, decompression, SSWU, iso3, cofactor
+    sqrt_exp = (P + 1) // 4
+    lines += [
+        f"#define LT_SQRT_TOP {sqrt_exp.bit_length() - 1}",
+        f"LT_CONST uint32_t LT_SQRT_EXP[12] = {_fp_words(sqrt_exp)};",
+        f"LT_CONST uint32_t LT_INV2[12] = {_fp_words(mont(pow(2, P - 2, P)))};",
+        f"LT_CONST uint32_t LT_HALF_P[12] = {_fp_words((P - 1) // 2)};",
+        f"LT_CONST uint32_t LT_G2_B[2][12] = {_fp2_words(mont2(CU.FP2_OPS.b_coeff))};",
+    ]
+    a, b, z = HC._A2, HC._B2, HC._Z2
+    sswu = {
+        "A": a,
+        "B": b,
+        "Z": z,
+        "MBA": F.fp2_mul(F.fp2_neg(b), F.fp2_inv(a)),
+        "BZA": F.fp2_mul(b, F.fp2_inv(F.fp2_mul(z, a))),
+    }
+    for name, v in sswu.items():
+        lines.append(f"LT_CONST uint32_t LT_SSWU_{name}[2][12] = {_fp2_words(mont2(v))};")
+    for name in ("XNUM", "XDEN", "YNUM", "YDEN"):
+        coeffs = getattr(HC, f"_ISO3_{name}")
+        body = ", ".join(_fp2_words(mont2(c)) for c in coeffs)
+        lines.append(f"#define LT_ISO_{name}_LEN {len(coeffs)}")
+        lines.append(f"LT_CONST uint32_t LT_ISO_{name}[{len(coeffs)}][2][12] = {{{body}}};")
+    h = HC.H_EFF_G2
+    lines += [
+        f"#define LT_H_EFF_TOP {h.bit_length() - 1}",
+        f"LT_CONST uint32_t LT_H_EFF[{-(-h.bit_length() // 32)}] = {_exp_words(h)};",
+    ]
     return "\n".join(lines) + "\n"
 
 

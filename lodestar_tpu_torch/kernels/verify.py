@@ -1,12 +1,13 @@
-"""BLS verification on the device: the kernels and the two paths that
-drive them.
+"""BLS verification on the device: the kernels and the paths that drive
+them.
 
-Counterpart of the decoded-set half of `lodestar_tpu/kernels/verify.py`.
-The per-set path, `verify_each_device` (`:922`, `_each_core` `:1092`):
-one job of N padded single-pubkey sets runs
+Counterpart of `lodestar_tpu/kernels/verify.py` and of the kernels of
+`lodestar_tpu/kernels/ingest.py`.  The per-set path, `verify_each_device`
+(`:922`, `_each_core` `:1092`): one job of N padded sets runs
 
     mont_convert       8 planes of plain limbs -> Montgomery   (_k_mont8)
-    [gather]           pubkey rows by index: torch.index_select (_gather_pk)
+    [gather]           K = 1: pubkey rows, torch.index_select  (_gather_pk)
+    agg_pk             K > 1: masked sum of each set's K keys  (_k_agg_pk)
     [substitute]       dead lanes -> generators, torch.where   (_j_substitute)
     g2_subgroup_check  psi(sig) == -[|x|] sig per lane         (_k_sub_only)
     miller_loop x 2    (pk, H(m)) and (-G1, sig) per lane      (_k_miller)
@@ -17,7 +18,7 @@ one multi-pairing check prod_i e(r_i pk_i, H_i) e(-G1, sum_i r_i sig_i)
 == 1 with random odd 128-bit r_i, N + 1 Miller lanes and one final
 exponentiation:
 
-    mont_convert, [gather], [substitute]     as above
+    mont_convert, [gather] or agg_pk, [substitute]   as above
     g1_rpk             r_i pk_i per lane                      (_k_g1_rpk)
     g2_rsig_sub        r_i sig_i and the subgroup check       (_k_g2_rsig_sub)
     sum_g2             sum of the live r_i sig_i -> A         (_k_sum_g2 + _j_sum_lanes)
@@ -27,6 +28,17 @@ exponentiation:
     miller_loop        (-G1, A), ONE lane                     (_k_miller)
     final_one          prod f_A -> final exp -> is-one        (_k_final_one)
     [verdict]          torch ops                              (_j_batch_verdict)
+
+The wire paths, `verify_batch_device_wire` (`:417`) and
+`verify_each_device_wire` (`:945`), take the signatures as they arrive
+(the compressed x and the sign and infinity bits) and run before the
+paths above
+
+    mont_convert       4 planes of H(m) -> Montgomery          (_k_mont4)
+    g2_decompress      wire x -> (x, y) by an Fp2 square root  (_k_g2_decompress)
+
+and `hash_g2` (`_k_hash_g2`) hashes signing roots to G2 for
+`bls/ingest.py MessageCache`.
 
 Each kernel wrapper checks its operands, then runs the hand-written CUDA
 kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
@@ -39,7 +51,8 @@ last axis; an Fp2 value is ``[2, 12, N]``, an affine G2 point
 G2 point ``[3, 2, 12, N]`` and an Fp12 value ``[12, 12, N]`` in the JAX
 package's leaf order.  Lane flags are int32 ``[1, N]`` rows, as in the
 JAX kernels.  Randomizers are int32 ``[4, N]`` big-endian words
-(`bls/rand.py make_rand_words`).
+(`bls/rand.py make_rand_words`).  Table rows are int32 ``idx [N, K]``
+with ``kmask [N, K]`` (1 where the row is one of the set's keys).
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ from ..crypto import fields as GT
 from . import build as B
 from . import core as C
 from . import curve as CV
+from . import ingest as IG
 from . import layout as LY
 from . import pairing as KP
 from . import tower as TW
@@ -63,6 +77,7 @@ RAND_BITS = 128  # RLC randomizer width (bls/rand.py)
 RAND_WORDS = RAND_BITS // 32
 WINDOW = 4  # scalar-multiplication window; divides 32
 BT = 128  # slots of the lane reductions (csrc/reduce.cu), the JAX lane tile
+AGG_CHUNK = 32  # rows of one tree of the pubkey aggregation (csrc/aggpk.cu)
 
 LAUNCHES: Dict[str, int] = {
     "mont_convert": 0,
@@ -75,11 +90,15 @@ LAUNCHES: Dict[str, int] = {
     "prod12": 0,
     "affine_g2": 0,
     "final_one": 0,
+    "g2_decompress": 0,
+    "hash_g2": 0,
+    "agg_pk": 0,
 }
 
-# Fp multiplications per lane (per element for mont_convert, per combine
-# for the reductions sum_g2 and prod12, which make max(N, 128) - 1 of
-# them) of each kernel, from the structure of csrc/*.cuh;
+# Fp multiplications per lane of each kernel (per element for
+# mont_convert; per combine for the reductions sum_g2 and prod12, which
+# make max(N, 128) - 1 of them; per addition for agg_pk, which makes
+# K - 1 per lane), from the structure of csrc/*.cuh;
 # tests/test_torch_csrc_host.py checks them against a count taken by the
 # host build.  A 12-limb CIOS Montgomery product issues 12 rows x
 # (4 x 12 multiply-adds + 1 multiply).
@@ -94,6 +113,9 @@ FP_MULS_PER_LANE = {
     "prod12": 54,
     "affine_g2": 623,
     "final_one": 8337,
+    "g2_decompress": 3656,
+    "hash_g2": 41987,
+    "agg_pk": 23,
 }
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 
@@ -433,6 +455,106 @@ def final_one(a_inf: torch.Tensor, prod: torch.Tensor, fa: torch.Tensor) -> torc
 
 
 # ---------------------------------------------------------------------------
+# K11, K12: wire ingest (_k_g2_decompress, _k_hash_g2)
+# ---------------------------------------------------------------------------
+
+
+def g2_decompress_plain(x, flags):
+    xm = C.mont_convert(LY.planes_to_digits(x))
+    y, ok = IG.g2_decompress_y(xm, flags[0] != 0)
+    ok = ok | (flags[1] != 0)
+    return LY.digits_to_planes(torch.stack([xm, y])), ok.to(torch.int32)[None, :]
+
+
+def g2_decompress(x: torch.Tensor, flags: torch.Tensor):
+    """Wire x as plain limb planes [2, 12, N] (x0, x1) and the (sign,
+    infinity) bits [2, N] -> (Montgomery affine (x, y) [2, 2, 12, N],
+    ok [1, N]: 1 where x is on the curve or the lane is flagged infinity).
+    y is the root of x^3 + 4(1 + i) whose fp2_sgn is the sign bit."""
+    n = x.shape[-1]
+    _shape(x, (2, NL, n), "g2_decompress x")
+    _shape(flags, (2, n), "g2_decompress flags")
+    if _on_cpu(x, flags):
+        return g2_decompress_plain(x, flags)
+    xy = torch.empty((2, 2, NL, n), dtype=torch.int32, device=x.device)
+    ok = torch.empty((1, n), dtype=torch.int32, device=x.device)
+    _launch("g2_decompress", "ingest", "lt_g2_decompress", x.data_ptr(), flags.data_ptr(),
+            xy.data_ptr(), ok.data_ptr(), n)
+    return xy, ok
+
+
+def hash_g2_plain(u, sgn):
+    ud = C.mont_convert(LY.planes_to_digits(u))
+    pt, ok = IG.hash_to_g2_values(ud, sgn != 0)
+    return LY.digits_to_planes(torch.stack(pt)), ok.to(torch.int32)[None, :]
+
+
+def hash_g2(u: torch.Tensor, sgn: torch.Tensor):
+    """map_to_curve of one message per lane: u = (u0, u1) from the host's
+    hash_to_field as plain limb planes [2, 2, 12, N] and their RFC 9380
+    sgn0 bits [2, N] -> (Jacobian G2 [3, 2, 12, N], ok [1, N]: both iso3
+    denominators nonzero)."""
+    n = u.shape[-1]
+    _shape(u, (2, 2, NL, n), "hash_g2 u")
+    _shape(sgn, (2, n), "hash_g2 sgn")
+    if _on_cpu(u, sgn):
+        return hash_g2_plain(u, sgn)
+    out = torch.empty((3, 2, NL, n), dtype=torch.int32, device=u.device)
+    ok = torch.empty((1, n), dtype=torch.int32, device=u.device)
+    _launch("hash_g2", "ingest", "lt_hash_g2", u.data_ptr(), sgn.data_ptr(), out.data_ptr(),
+            ok.data_ptr(), n)
+    return out, ok
+
+
+# ---------------------------------------------------------------------------
+# K13: pubkey aggregation (_k_agg_pk with _gather_pk's gather)
+# ---------------------------------------------------------------------------
+
+
+def agg_pk_plain(table_x, table_y, idx, kmask):
+    n, k = idx.shape
+    kc = min(k, AGG_CHUNK)
+    rows = idx.t().reshape(-1).to(torch.int64)  # row k of every lane, k-major
+
+    def gather(table):  # -> [kc, K / kc, ND, N]: chunk c holds rows c kc ..
+        d = LY.planes_to_digits(torch.index_select(table, 1, rows)).reshape(ND, k // kc, kc, n)
+        return d.permute(2, 1, 0, 3)
+
+    x, y = gather(table_x), gather(table_y)
+    one = torch.broadcast_to(CV.FP_OPS.one(n, x.device), x.shape)
+    inf = (kmask == 0).t().reshape(k // kc, kc, n).transpose(0, 1)
+    # the chunks' trees side by side, then the chunk sums in order
+    s, s_inf = CV.sum_points_axis0(CV.FP_OPS, (x, y, one), inf)
+    acc, acc_inf = tuple(c[0] for c in s), s_inf[0]
+    for c in range(1, k // kc):
+        acc, acc_inf = CV.jac_add_full(CV.FP_OPS, acc, acc_inf, tuple(p[c] for p in s), s_inf[c])
+    return LY.digits_to_planes(torch.stack(acc)), acc_inf.to(torch.int32)[None, :]
+
+
+def agg_pk(table_x: torch.Tensor, table_y: torch.Tensor, idx: torch.Tensor, kmask: torch.Tensor):
+    """Montgomery table planes [12, V], rows idx [N, K] and kmask [N, K] ->
+    (per lane the Jacobian G1 sum of its rows with kmask 1, [3, 12, N],
+    and its infinity flag [1, N]), in the order of `_k_agg_pk`: trees of
+    min(K, 32) rows, the chunk sums added in order.  Rows are not checked
+    against V on the card (the verifier checks them on the host)."""
+    if table_x.dim() != 2 or table_x.shape[0] != NL:
+        raise ValueError(f"agg_pk table_x: expected [{NL}, V], got {tuple(table_x.shape)}")
+    _shape(table_y, table_x.shape, "agg_pk table_y")
+    if idx.dim() != 2 or idx.shape[1] % min(idx.shape[1], AGG_CHUNK) != 0:
+        raise ValueError(f"agg_pk idx: expected [N, K], K a multiple of min(K, {AGG_CHUNK}), "
+                         f"got {tuple(idx.shape)}")
+    _shape(kmask, idx.shape, "agg_pk kmask")
+    n, k = idx.shape
+    if _on_cpu(table_x, table_y, idx, kmask):
+        return agg_pk_plain(table_x, table_y, idx, kmask)
+    out = torch.empty((3, NL, n), dtype=torch.int32, device=idx.device)
+    out_inf = torch.empty((1, n), dtype=torch.int32, device=idx.device)
+    _launch("agg_pk", "aggpk", "lt_agg_pk", table_x.data_ptr(), table_y.data_ptr(), table_x.shape[1],
+            idx.data_ptr(), kmask.data_ptr(), k, out.data_ptr(), out_inf.data_ptr(), n)
+    return out, out_inf
+
+
+# ---------------------------------------------------------------------------
 # The per-set path
 # ---------------------------------------------------------------------------
 
@@ -461,22 +583,18 @@ def _const_planes(device) -> dict:
     return c
 
 
-def _check_single(idx) -> None:
-    if idx.dim() != 2 or idx.shape[1] != 1:
-        raise ValueError(
-            "aggregate sets (K > 1) need the pubkey-aggregation kernel "
-            "(_k_agg_pk), which a later slice of the port adds"
-        )
-
-
-def _gather_pk(table_x, table_y, idx):
-    """Per-set pubkey, K = 1: rows of the device table by index ->
-    Jacobian planes [3, 12, N] (Z = 1) and the infinity mask (none)."""
-    _check_single(idx)
+def _gather_pk(table_x, table_y, idx, kmask):
+    """Per-set pubkey from the device table -> (Jacobian planes
+    [3, 12, N], infinity mask bool [N]).  K = 1: the rows by
+    torch.index_select with Z = 1 and no infinity (kmask is not read, as
+    in the JAX package); K > 1: the masked sum of the K rows (agg_pk)."""
+    n, k = idx.shape
+    if k > 1:
+        pk, pk_inf = agg_pk(table_x, table_y, idx, kmask)
+        return pk, pk_inf[0] != 0
     rows = idx[:, 0].to(torch.int64)
     px = torch.index_select(table_x, 1, rows)
     py = torch.index_select(table_y, 1, rows)
-    n = rows.shape[0]
     pz = _const_planes(table_x.device)["one"].expand(NL, n)
     return torch.stack([px, py, pz]), torch.zeros(n, dtype=torch.bool, device=table_x.device)
 
@@ -488,11 +606,11 @@ def _substitute(live, pk, sig):
     return torch.where(live, pk, g1), torch.where(live, sig, c["g2"])
 
 
-def _live_lanes(table_x, table_y, idx, sig, sig_bad, valid):
-    """Gather the pubkeys, mark the live lanes (valid, pubkey and
-    signature not infinity) and substitute generators into the dead ones
-    -> (live, pk_inf, pk [3, 12, N], sig [2, 2, 12, N])."""
-    pk, pk_inf = _gather_pk(table_x, table_y, idx)
+def _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid):
+    """Gather (and aggregate) the pubkeys, mark the live lanes (valid,
+    pubkey and signature not infinity) and substitute generators into the
+    dead ones -> (live, pk_inf, pk [3, 12, N], sig [2, 2, 12, N])."""
+    pk, pk_inf = _gather_pk(table_x, table_y, idx, kmask)
     live = (valid != 0) & ~pk_inf & ~sig_bad
     pk, sig = _substitute(live, pk, sig)
     return live, pk_inf, pk.contiguous(), sig.contiguous()
@@ -503,12 +621,12 @@ def _neg_g1(device, n: int) -> torch.Tensor:
     return torch.stack([c["g1x"], c["neg_g1y"], c["one"]]).expand(3, NL, n).contiguous()
 
 
-def each_operands(table_x, table_y, idx, msg, sig, sig_bad, valid) -> dict:
+def each_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid) -> dict:
     """The kernel operands of one per-set job, from Montgomery message and
     signature points [2, 2, 12, N]: gather the pubkeys, substitute
     generators into dead lanes, and lay out the four kernel launches."""
     n = valid.shape[0]
-    live, _, pk, sig = _live_lanes(table_x, table_y, idx, sig, sig_bad, valid)
+    live, _, pk, sig = _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid)
     return {
         "live": live,
         "sub": (sig, torch.zeros((1, n), dtype=torch.int32, device=pk.device)),
@@ -518,8 +636,8 @@ def each_operands(table_x, table_y, idx, msg, sig, sig_bad, valid) -> dict:
     }
 
 
-def _each_core(table_x, table_y, idx, msg, sig, sig_bad, valid):
-    ops = each_operands(table_x, table_y, idx, msg, sig, sig_bad, valid)
+def _each_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid):
+    ops = each_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid)
     sub = g2_subgroup_check(*ops["sub"])
     f1 = miller_loop(*ops["miller_pk"])
     f2 = miller_loop(*ops["miller_sig"])
@@ -527,23 +645,52 @@ def _each_core(table_x, table_y, idx, msg, sig, sig_bad, valid):
     return ((ok[0] != 0) & (sub[0] != 0) & ops["live"]) | ~(valid != 0)
 
 
-def verify_each_device(table_x, table_y, idx, planes, sig_inf, valid):
+def _decoded_inputs(idx, kmask, planes, n):
+    """Plain limb planes [8, 12, N] of H(m) and sig -> Montgomery points."""
+    _shape(idx, (n, idx.shape[-1]), "idx")
+    _shape(kmask, idx.shape, "kmask")
+    _shape(planes, (8, NL, n), "planes")
+    m = mont_convert(planes)
+    return m[:4].reshape(2, 2, NL, n), m[4:].reshape(2, 2, NL, n)
+
+
+def _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n):
+    """Plain limb planes [4, 12, N] of H(m), wire x [2, 12, N] and flags
+    [2, N] -> (Montgomery message and signature points, sig_bad: the
+    signature is flagged infinity (or malformed on the host) or x is not
+    on the curve)."""
+    _shape(idx, (n, idx.shape[-1]), "idx")
+    _shape(kmask, idx.shape, "kmask")
+    _shape(msg_planes, (4, NL, n), "msg planes")
+    msg = mont_convert(msg_planes).reshape(2, 2, NL, n)
+    sig, dec_ok = g2_decompress(sig_x, sig_flags)
+    return msg, sig, (sig_flags[1] != 0) | (dec_ok[0] == 0)
+
+
+def verify_each_device(table_x, table_y, idx, kmask, planes, sig_inf, valid):
     """Independent per-set verdicts: e(pk_i, H_i) e(-G1, sig_i) == 1 and
     sig_i in G2, per lane; padding lanes True.
 
     table_x, table_y: int32 [12, V] Montgomery pubkey planes;
-    idx: int [N, 1] table rows (K = 1: single-pubkey sets only);
+    idx, kmask: int32 [N, K] table rows and their mask (K = 1 or a K
+    bucket; a set whose rows are all masked is at infinity and fails);
     planes: int32 [8, 12, N] PLAIN limbs of H(m) x0, x1, y0, y1 and
     sig x0, x1, y0, y1; sig_inf, valid: int32 [N].
     Returns bool [N]: ((ok & sub & live) | ~valid), as `_each_core`.
     """
     n = valid.shape[0]
-    _shape(planes, (8, NL, n), "verify_each_device planes")
-    _check_single(idx)
-    m = mont_convert(planes)
-    msg = m[:4].reshape(2, 2, NL, n)
-    sig = m[4:].reshape(2, 2, NL, n)
-    return _each_core(table_x, table_y, idx, msg, sig, sig_inf != 0, valid)
+    msg, sig = _decoded_inputs(idx, kmask, planes, n)
+    return _each_core(table_x, table_y, idx, kmask, msg, sig, sig_inf != 0, valid)
+
+
+def verify_each_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, sig_flags, valid):
+    """Per-set verdicts from WIRE signatures (`:945`): the compressed x as
+    plain limbs [2, 12, N] and the (sign, infinity) bits [2, N] are
+    decompressed on the card; an x off the curve fails its set.  Other
+    operands as `verify_each_device`, with H(m) as [4, 12, N] plain limbs."""
+    n = valid.shape[0]
+    msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
+    return _each_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -551,13 +698,13 @@ def verify_each_device(table_x, table_y, idx, planes, sig_inf, valid):
 # ---------------------------------------------------------------------------
 
 
-def batch_operands(table_x, table_y, idx, msg, sig, sig_bad, valid, rwords) -> dict:
+def batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords) -> dict:
     """The kernel operands of one RLC batch job (`_batch_local` `:510`):
     the per-set path's gather and substitution, then the two randomized
     scalar multiplications' inputs (no lane flagged infinity: dead lanes
     hold generators)."""
     n = valid.shape[0]
-    live, pk_inf, pk, sig = _live_lanes(table_x, table_y, idx, sig, sig_bad, valid)
+    live, pk_inf, pk, sig = _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid)
     zero = torch.zeros((1, n), dtype=torch.int32, device=pk.device)
     return {
         "live": live,
@@ -586,8 +733,8 @@ def _batch_verdict(ok, sub, live, pk_inf, sig_bad, valid):
     return batch_ok, sub_ok
 
 
-def _batch_core(table_x, table_y, idx, msg, sig, sig_bad, rwords, valid):
-    ops = batch_operands(table_x, table_y, idx, msg, sig, sig_bad, valid, rwords)
+def _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid):
+    ops = batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords)
     rpk, _ = g1_rpk(*ops["g1_rpk"])
     rsig, rsig_inf, sub = g2_rsig_sub(*ops["g2_rsig_sub"])
     # the aggregate signature point: dead lanes excluded from the sum
@@ -598,7 +745,7 @@ def _batch_core(table_x, table_y, idx, msg, sig, sig_bad, rwords, valid):
     return _batch_verdict(ok, sub, ops["live"], ops["pk_inf"], sig_bad, valid)
 
 
-def verify_batch_device(table_x, table_y, idx, planes, sig_inf, rwords, valid):
+def verify_batch_device(table_x, table_y, idx, kmask, planes, sig_inf, rwords, valid):
     """RLC batch verification of N padded sets: one multi-pairing check
     prod_i e(r_i pk_i, H_i) e(-G1, sum_i r_i sig_i) == 1.
 
@@ -606,12 +753,19 @@ def verify_batch_device(table_x, table_y, idx, planes, sig_inf, rwords, valid):
     randomizers' big-endian words (`bls/rand.py make_rand_words`).
     Returns (batch_ok: bool [], sub_ok: bool [N]) as the JAX package's
     `verify_batch_device`: padding lanes are excluded, and a set whose
-    signature is infinity fails the batch."""
+    pubkey or signature is infinity fails the batch."""
     n = valid.shape[0]
-    _shape(planes, (8, NL, n), "verify_batch_device planes")
     _shape(rwords, (RAND_WORDS, n), "verify_batch_device rwords")
-    _check_single(idx)
-    m = mont_convert(planes)
-    msg = m[:4].reshape(2, 2, NL, n)
-    sig = m[4:].reshape(2, 2, NL, n)
-    return _batch_core(table_x, table_y, idx, msg, sig, sig_inf != 0, rwords, valid)
+    msg, sig = _decoded_inputs(idx, kmask, planes, n)
+    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_inf != 0, rwords, valid)
+
+
+def verify_batch_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, sig_flags, rwords, valid):
+    """Batch verification from WIRE signatures (`:417`): operands as
+    `verify_each_device_wire` plus rwords.  A signature whose x is off the
+    curve fails the batch like an infinity signature, and the caller's
+    bisection or per-set retry finds it."""
+    n = valid.shape[0]
+    _shape(rwords, (RAND_WORDS, n), "verify_batch_device_wire rwords")
+    msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
+    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid)

@@ -220,3 +220,59 @@ def test_tail_host_build_equals_plain(libs):
     assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["final_one"]
     assert torch.equal(ok, KV.final_one_plain(fa_inf, prod, fa))
     assert ok.tolist() == [[1, 0, 0]]  # A = O leaves e(pk, H) alone: not one
+
+
+def test_ingest_host_build_counts_and_equals_plain(libs):
+    """g2_decompress (a point, infinity, an x off the curve) bit-equal to
+    its plain version, and hash_g2 giving hash_to_g2 of two roots; the Fp
+    products per lane are the cost model's (the hash's plain version is
+    held against the host build in tests/test_torch_ingest.py)."""
+    lib = libs["ingest"]
+    pt = GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar())
+    xs = [pt[0], (0, 0), (5, 9)]
+    x = torch.from_numpy(np.stack([LY.encode_plain_batch([v[k] for v in xs]) for k in range(2)])).contiguous()
+    flags = torch.tensor([[GT.fp2_sgn(pt[1]), 0, 1], [0, 1, 0]], dtype=torch.int32)
+    xy, ok = i32(2, 2, LY.NL, 3), i32(1, 3)
+    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), xy.data_ptr(), ok.data_ptr(), 3, None) == 0
+    assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["g2_decompress"]
+    want = KV.g2_decompress_plain(x, flags)
+    assert torch.equal(xy, want[0]) and torch.equal(ok, want[1])
+    assert ok.tolist() == [[1, 1, 0]] and torch.equal(xy[..., :1], g2_planes([pt]))
+    roots = [b"csrc-host-hash-0", b"csrc-host-hash-1"]
+    us = [GH.hash_to_field_fp2(r, 2, GH.DST_G2) for r in roots]
+    u = torch.from_numpy(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
+                                   for i in range(2)])).contiguous()
+    sgn = torch.tensor([[GH._sgn0_fp2(v[i]) for v in us] for i in range(2)], dtype=torch.int32)
+    out, ok = i32(3, 2, LY.NL, 2), i32(1, 2)
+    assert lib.lt_hash_g2(u.data_ptr(), sgn.data_ptr(), out.data_ptr(), ok.data_ptr(), 2, None) == 0
+    assert lib.lt_host_fp_muls() == 2 * KV.FP_MULS_PER_LANE["hash_g2"]
+    assert ok.tolist() == [[1, 1]]
+    c = [[LY.decode_batch(out[i, k].numpy()) for k in range(2)] for i in range(3)]
+    for j, r in enumerate(roots):
+        (x0, x1), (y0, y1), (z0, z1) = ((c[i][0][j], c[i][1][j]) for i in range(3))
+        zi = GT.fp2_inv((z0, z1))
+        zi2 = GT.fp2_mul(zi, zi)
+        assert (GT.fp2_mul((x0, x1), zi2), GT.fp2_mul((y0, y1), GT.fp2_mul(zi2, zi))) == GH.hash_to_g2(r)
+
+
+@pytest.mark.parametrize("k", [1, 4, 64])
+def test_agg_pk_host_build_counts_and_equals_plain(libs, k):
+    """K - 1 complete additions per lane (a tree per 32-row chunk, then
+    the chunks in order): the host build's product count and its planes
+    equal the plain version's; a lane with every row masked is infinity."""
+    keys = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(5)]
+    tx = torch.from_numpy(LY.encode_batch([p[0] for p in keys]))
+    ty = torch.from_numpy(LY.encode_batch([p[1] for p in keys]))
+    n = 3
+    idx = torch.from_numpy(RNG.integers(0, 5, size=(n, k)).astype(np.int32))
+    kmask = torch.from_numpy((RNG.random((n, k)) < 0.8).astype(np.int32))
+    kmask[1] = 0
+    kmask[2] = 1
+    out, out_inf = i32(3, LY.NL, n), i32(1, n)
+    lib = libs["aggpk"]
+    assert lib.lt_agg_pk(tx.data_ptr(), ty.data_ptr(), 5, idx.data_ptr(), kmask.data_ptr(), k, out.data_ptr(),
+                         out_inf.data_ptr(), n, None) == 0
+    assert lib.lt_host_fp_muls() == n * (k - 1) * KV.FP_MULS_PER_LANE["agg_pk"]
+    want = KV.agg_pk_plain(tx, ty, idx, kmask)
+    assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
+    assert out_inf.tolist()[0][1:] == [1, 0]

@@ -160,3 +160,70 @@ def test_verifier_on_card(dev):
     job = v.begin_job([sets[0], sets[1], sets[3]], batchable=True)
     assert v.finish_job(job) is False
     assert job.verdicts.tolist() == [True, False, True] and job.batch_retries == 1
+
+
+def test_mont_convert_four_planes_on_card(dev):
+    """The wire path's message planes: 4 planes of plain limbs (_k_mont4)."""
+    vals = [int.from_bytes(RNG.bytes(48), "little") for _ in range(4 * N)]
+    x = planes(LY.encode_plain_batch(vals).reshape(LY.NL, 4, N).transpose(1, 0, 2), dev)
+    _equal(KV.mont_convert, KV.mont_convert_plain, x)
+
+
+def test_g2_decompress_on_card(dev):
+    """Points of both signs, the infinity flag and x values off the curve."""
+    from lodestar_tpu_torch.bls.ingest import parse_signature_bytes
+
+    pts = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(N - 8)]
+    parsed = [parse_signature_bytes(GC.g2_compress(p)) for p in pts] + [(k, k + 1, k % 2, 0, True) for k in range(7)]
+    parsed.append(parse_signature_bytes(GC.g2_compress(None)))
+    x = planes(np.stack([LY.encode_plain_batch([p[i] for p in parsed]) for i in range(2)]), dev)
+    flags = planes(np.array([[p[2] for p in parsed], [p[3] for p in parsed]], np.int32), dev)
+    xy, ok = _equal(KV.g2_decompress, KV.g2_decompress_plain, x, flags)
+    assert ok[0, : N - 8].all() and ok[0, -1] == 1
+
+
+def test_hash_g2_on_card(dev):
+    from lodestar_tpu_torch.crypto import hash_to_curve as HC
+
+    us = [HC.hash_to_field_fp2(b"on-card-%d" % i, 2, HC.DST_G2) for i in range(4)]
+    u = planes(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
+                         for i in range(2)]), dev)
+    sgn = planes(np.array([[HC._sgn0_fp2(v[i]) for v in us] for i in range(2)], np.int32), dev)
+    _, ok = _equal(KV.hash_g2, KV.hash_g2_plain, u, sgn)
+    assert ok.all()
+
+
+@pytest.mark.parametrize("k", [4, 64, 512])
+def test_agg_pk_on_card(dev, points, k):
+    p, _ = points
+    n = 8
+    idx = planes(RNG.integers(0, N, size=(n, k)).astype(np.int32), dev)
+    kmask = planes((RNG.random((n, k)) < 0.7).astype(np.int32), dev)
+    kmask[1] = 0
+    tx, ty = p[0].contiguous(), p[1].contiguous()
+    _, inf = _equal(KV.agg_pk, KV.agg_pk_plain, tx, ty, idx, kmask)
+    assert inf[0].tolist() == [0, 1] + [0] * (n - 2)
+
+
+def test_wire_verifier_on_card(dev):
+    """Wire sets, single and aggregate, per set and as one RLC batch."""
+    from lodestar_tpu_torch.bls.signature_set import WireSignatureSet
+
+    sks = [scalar() for _ in range(3)]
+    table = PubkeyTable()
+    table.register([GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, sk) for sk in sks])
+    root = b"on-card-wire"
+    h = GH.hash_to_g2(root)
+    sig = [GC.scalar_mul(GC.FP2_OPS, h, sk) for sk in sks]
+    agg = GC.multi_add(GC.FP2_OPS, sig)
+    sets = [WireSignatureSet.single(0, root, GC.g2_compress(sig[0])),
+            WireSignatureSet.aggregate([0, 1, 2], root, GC.g2_compress(agg)),
+            WireSignatureSet.single(1, root, GC.g2_compress(sig[2])),
+            WireSignatureSet.aggregate([0, 1], root, GC.g2_compress(agg))]
+    v = TorchBlsVerifier(table)
+    KV.reset_launches()
+    assert v.verify_signature_sets_individually(sets) == [True, True, False, False]
+    assert min(KV.LAUNCHES[k] for k in ("hash_g2", "g2_decompress", "agg_pk", "each_final")) > 0
+    KV.reset_launches()
+    assert v.verify_signature_sets(sets[:2], VerifyOptions(batchable=True)) is True
+    assert (KV.LAUNCHES["final_one"], KV.LAUNCHES["each_final"], KV.LAUNCHES["hash_g2"]) == (1, 0, 0)

@@ -389,9 +389,9 @@ def test_verify_batch_device_matches_oracle(world, small_buckets):
     out[4] = SignatureSet.single(0, world["hs"][0], world["outside"])
     tx, ty = world["table"].device_planes("cpu")
     for sets, sub_want in ((good, [True] * 8), (wrong, [True] * 8), (out, [True] * 4 + [False] + [True] * 3)):
-        planes, idx, sig_inf, valid = v._prepare(sets)
+        idx, kmask, planes, sig_inf, valid = v._prepare(sets)
         rw = torch.from_numpy(RD.make_rand_words(8, np.random.default_rng(len(sets))))
-        ok, sub_ok = KV.verify_batch_device(tx, ty, idx, planes, sig_inf, rw, valid)
+        ok, sub_ok = KV.verify_batch_device(tx, ty, idx, kmask, planes, sig_inf, rw, valid)
         assert ok.dtype == torch.bool and ok.dim() == 0
         assert bool(ok) == all(_oracle(world, s) for s in sets)
         assert sub_ok.tolist() == sub_want
@@ -412,7 +412,8 @@ def test_wrappers_check_batch_operands():
     with pytest.raises(ValueError, match="fa"):
         KV.final_one(i32(1, 1), i32(12, LY.NL, 1), i32(12, LY.NL, 2))
     with pytest.raises(ValueError, match="rwords"):
-        KV.verify_batch_device(i32(LY.NL, 1), i32(LY.NL, 1), i32(4, 1), i32(8, LY.NL, 4), i32(4), i32(4, 3), i32(4))
+        KV.verify_batch_device(i32(LY.NL, 1), i32(LY.NL, 1), i32(4, 1), i32(4, 1), i32(8, LY.NL, 4), i32(4), i32(4, 3),
+                               i32(4))
 
 
 class Recorder:
@@ -607,9 +608,9 @@ def test_batch_verdicts_equal_pallas_verify_batch_device(world):
     wrong = list(world["valid"])
     wrong[2] = SignatureSet.single(2, world["hs"][1], wrong[2].signature)
     for sets in (world["valid"], wrong):
-        planes, idx, sig_inf, valid = v._prepare(sets)
+        idx, kmask, planes, sig_inf, valid = v._prepare(sets)
         rw = RD.make_rand_words(n, np.random.default_rng(11))
-        port = KV.verify_batch_device(*world["table"].device_planes("cpu"), idx, planes, sig_inf,
+        port = KV.verify_batch_device(*world["table"].device_planes("cpu"), idx, kmask, planes, sig_inf,
                                       torch.from_numpy(rw), valid)
         p = planes.numpy()
         out = JKV.verify_batch_device(

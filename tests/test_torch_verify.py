@@ -153,10 +153,12 @@ def test_verify_each_device_padding_and_dead_lanes(world):
     sig_inf = torch.tensor([0, 0, 1, 0], dtype=torch.int32)
     valid = torch.tensor([1, 1, 1, 0], dtype=torch.int32)
     tx, ty = table.device_planes("cpu")
-    got = KV.verify_each_device(tx, ty, idx, planes, sig_inf, valid)
+    got = KV.verify_each_device(tx, ty, idx, torch.ones_like(idx), planes, sig_inf, valid)
     assert got.tolist() == [True, True, False, True]
-    with pytest.raises(ValueError, match="_k_agg_pk"):
-        KV.verify_each_device(tx, ty, idx.repeat(1, 2), planes, sig_inf, valid)
+    # K = 2 with the second row masked: agg_pk sums one key, same verdicts
+    idx2 = torch.cat([idx, torch.full_like(idx, 2)], 1)
+    kmask2 = torch.tensor([[1, 0]] * 4, dtype=torch.int32)
+    assert KV.verify_each_device(tx, ty, idx2, kmask2, planes, sig_inf, valid).tolist() == got.tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -187,16 +189,22 @@ def test_verify_signature_sets_ands_over_chunks(world, small_buckets):
     assert v.verify_signature_sets(sets[:3], main) is False
 
 
-def test_aggregate_and_unknown_index_sets_raise(world):
+@pytest.mark.parametrize("case", ["aggregate_verifies", "unknown_index_raises"])
+def test_aggregate_and_unknown_index_sets(world, small_buckets, case):
+    """An aggregate set (K = 2, the K bucket 4) verifies on the device
+    path against the oracle; an index outside the table still raises."""
     v = VR.TorchBlsVerifier(world["table"], device="cpu")
     s = world["sets"][0]
-    agg = SignatureSet.aggregate([0, 1], s.message, s.signature)
-    with pytest.raises(ValueError, match="_k_agg_pk"):
-        v.verify_signature_sets([s, agg])
-    with pytest.raises(ValueError, match="_k_agg_pk"):
-        v.verify_signature_sets_individually([agg])
-    with pytest.raises(IndexError, match="not in the pubkey table"):
-        v.verify_signature_sets([SignatureSet.single(N_KEYS, s.message, s.signature)])
+    if case == "unknown_index_raises":
+        with pytest.raises(IndexError, match="not in the pubkey table"):
+            v.verify_signature_sets([SignatureSet.single(N_KEYS, s.message, s.signature)])
+        return
+    sig01 = GC.affine_add(GC.FP2_OPS, s.signature, world["cases"][3][2])  # keys 0 and 1 sign root a
+    good = SignatureSet.aggregate([0, 1], s.message, sig01)
+    bad = SignatureSet.aggregate([0, 1], s.message, s.signature)
+    assert GB.fast_aggregate_verify(world["pks"][:2], b"root-a", sig01)
+    assert v.verify_signature_sets_individually([bad, good, s]) == [False, True, True]
+    assert v.verify_signature_sets([s, good]) is True
 
 
 def test_canary_on_the_real_bucket(world):
@@ -227,8 +235,8 @@ def test_verdicts_equal_pallas_verify_each_device(world):
     n = 128
     sets, jtable = world["sets"], world["jtable"]
     v = VR.TorchBlsVerifier(world["table"], device="cpu")
-    planes, idx, sig_inf, valid = v._prepare(sets)
-    port = KV.verify_each_device(*world["table"].device_planes("cpu"), idx, planes, sig_inf, valid)
+    idx, kmask, planes, sig_inf, valid = v._prepare(sets)
+    port = KV.verify_each_device(*world["table"].device_planes("cpu"), idx, kmask, planes, sig_inf, valid)
     g2 = GC.G2_GEN
     msgs = [s.message for s in sets] + [g2] * (n - len(sets))
     sigs = [g2 if s.signature is None else s.signature for s in sets] + [g2] * (n - len(sets))

@@ -100,10 +100,6 @@ KERNELS = {
     "agg_pk": ("lodestar_tpu_torch/kernels/csrc/aggpk.cu", "lodestar_tpu/kernels/verify.py:246"),
     "hash_g2": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:219"),
 }
-# the launch counter of each row (mont_convert on 4 planes is the same kernel:
-# its launches are those of the wire paths, the 8-plane ones the decoded paths')
-COUNTER = {name: "mont_convert" if name == "mont_convert_4" else name for name in KERNELS}
-WIRE_PATHS = ("cold_hash", "wire_batch", "wire_per_set", "wire_bisection", "agg_batch", "sync_aggregate")
 PER_SET = ("mont_convert", "g2_subgroup_check", "miller_loop", "each_final")
 BATCH = ("mont_convert", "g1_rpk", "g2_rsig_sub", "sum_g2", "miller_loop", "prod12", "affine_g2", "final_one")
 WIRE_PER_SET = ("mont_convert_4", "g2_decompress", "g2_subgroup_check", "miller_loop", "each_final")
@@ -130,7 +126,8 @@ BYTES_PER_LANE = {
     "mont_convert_4": 4 * 48 * 2,
     "g2_decompress": (2 * 48 + 8) + (4 * 48 + 4),
     "hash_g2": (4 * 48 + 8) + (6 * 48 + 4),
-    # agg_pk: K rows of 96 bytes and K index and mask words in, 148 bytes out
+    # agg_pk: its live rows of 96 bytes and K index and mask words in,
+    # 148 bytes out (counted from the job's kmask)
 }
 BYTES_PER_LAUNCH = {"sum_g2": 6 * 48 + 4, "prod12": 12 * 48}
 
@@ -464,6 +461,8 @@ def main() -> int:
     # pubkey aggregation on the K = 128 job (K bucket 512), hash on 8 roots
     args, _ = verifier._prepare_wire(d["wire_agg"])
     k_bucket = args.idx.shape[1]
+    agg_live_rows = int(args.kmask.sum())  # the rows agg_pk must read and add
+    agg_live_lanes = int((args.kmask.sum(dim=1) > 0).sum())
     _, pk_inf = plain_and_kernel("agg_pk", AGG_SETS, KV.agg_pk, KV.agg_pk_plain, tx, ty, args.idx, args.kmask,
                                  plain_runs=0)
     if bool(pk_inf[0, :AGG_SETS].any()) or k_bucket != min(b for b in K_BUCKETS if b >= AGG_K):
@@ -501,7 +500,7 @@ def main() -> int:
         jobs_begun.clear()
 
     def require(label, counts, names):
-        if min(counts[COUNTER[k]] for k in names) == 0:
+        if min(counts[k] for k in names) == 0:
             raise AssertionError(f"{label}: a kernel of the path was never launched: {counts}")
 
     def breakdown(label, n, prepare, ms, counts, names):
@@ -514,7 +513,7 @@ def main() -> int:
             per = results[k, at[k]][0]
             if k == "miller_loop" and "batch" in label:  # one N-lane and one 1-lane launch
                 per = (per + results["miller_loop_1", at[k]][0]) / 2
-            kern += per * counts[COUNTER[k]]
+            kern += per * counts[k]
         elsewhere = sorted({f"{k} at N={m}" for k, m in at.items() if m != n and k in names})
         log(f"breakdown {label} N={n}: job {ms:.3f} ms = host preparation (encode + copy to the card) "
             f"{prep:.3f} ms + kernels {kern:.3f} ms (kernel-phase medians x launches"
@@ -715,24 +714,27 @@ def main() -> int:
         elif name in ("mont_convert", "mont_convert_4"):
             units = (8 if name == "mont_convert" else 4) * n  # planes per lane
         elif name == "agg_pk":
-            units = (k_bucket - 1) * n  # K - 1 additions per lane
+            units = agg_live_rows - agg_live_lanes  # one addition per live row after a lane's first
         else:
             units = n
-        ops_ms = KV.FP_MULS_PER_LANE[COUNTER[name]] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
-        per_lane = k_bucket * (2 * 48 + 8) + 3 * 48 + 4 if name == "agg_pk" else BYTES_PER_LANE[name]
-        nbytes = per_lane * lanes + BYTES_PER_LAUNCH.get(name, 0)
+        ops_ms = KV.FP_MULS_PER_LANE[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
+        if name == "agg_pk":
+            nbytes = agg_live_rows * 2 * 48 + n * (k_bucket * 8 + 3 * 48 + 4)
+        else:
+            nbytes = BYTES_PER_LANE[name] * lanes + BYTES_PER_LAUNCH.get(name, 0)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths[path, n][COUNTER[name]], "max_abs_err": err,
+            "launches": paths[path, n][name], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "path": path, "n": n,
-            "launches_by_path": {f"{p} N={pn}": c[COUNTER[name]] if (name == "mont_convert_4") == (p in WIRE_PATHS)
-                                 or COUNTER[name] != "mont_convert" else 0 for (p, pn), c in paths.items()},
+            "launches_by_path": {f"{p} N={pn}": c[name] for (p, pn), c in paths.items()},
         }
+        if name == "agg_pk":
+            entry["live_rows"], entry["k_bucket"] = agg_live_rows, k_bucket
         if (name, JOBS[0]) in results and n != JOBS[0]:
             entry["ms_n128"], entry["plain_ms_n128"] = results[name, JOBS[0]][:2]
         if name == "miller_loop":

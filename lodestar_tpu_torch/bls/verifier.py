@@ -319,11 +319,7 @@ class TorchBlsVerifier:
             if perm != list(range(len(job.sets))):
                 job.sets = [job.sets[i] for i in perm]
                 job.order = np.asarray(pos, np.int64)[perm]
-            job.args, host_bad = self._prepare_wire(job.sets)
-            job.decodable = ~host_bad[: len(job.sets)]
-        else:
-            job.args = self._prepare(job.sets)
-            job.decodable = np.array([s.signature is not None for s in job.sets])
+        job.args, job.decodable = self._prepare_any(job.sets)
         batchable_job = batchable and len(job.sets) >= 2
         if batchable_job and self._use_rlc and job.decodable.all():
             job.batch_ok = self._dispatch_rlc_batch(job.args)

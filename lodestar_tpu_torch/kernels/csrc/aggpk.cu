@@ -10,28 +10,37 @@
 // row i paired with row i + half, the odd middle passed through), then
 // the chunk sums accumulated in order with jac_add_full.
 //
+// A row outside [0, v) is read as row 0 and counted as infinity; if its
+// kmask bit is set, the lane's output is flagged infinity, so its set
+// fails (the plain version does the same).  v >= 1.
+//
 // One thread per set lane.  A chunk's tree holds up to 32 Jacobian G1
 // points in the thread's stack frame (4.6 KB of local memory): the simple
 // choice, over a warp-shared tree, for a first version.
 //
-// Bound on this card: 32-bit integer multiplies, K - 1 complete additions
-// per lane at 23 Fp products each (kernels/verify.py FP_MULS_PER_LANE,
-// per addition).  Bytes: each lane reads K rows of 96 bytes and K index
-// and mask words, and writes 148 bytes.
+// Bound on this card: 32-bit integer multiplies, one complete addition
+// per live row after a lane's first at 23 Fp products each
+// (kernels/verify.py FP_MULS_PER_LANE, per addition).  Bytes: each lane
+// reads its live rows of 96 bytes and K index and mask words, and writes
+// 148 bytes.
 #include "curve.cuh"
 
 #define LT_AGG_CHUNK 32
 
-// the tree sum of kc <= 32 rows; rows, mask: kc words of this lane
-LT_NOINL void agg_chunk(jac<fp> &r, bool &r_inf, const int32_t *tx, const int32_t *ty, int v,
-                        const int32_t *rows, const int32_t *mask, int kc) {
+// the tree sum of kc <= 32 rows; rows, mask: kc words of this lane;
+// bad: set where a row with its mask bit set lies outside [0, v)
+LT_NOINL void agg_chunk(jac<fp> &r, bool &r_inf, bool &bad, const int32_t *tx, const int32_t *ty,
+                        int v, const int32_t *rows, const int32_t *mask, int kc) {
   jac<fp> pts[LT_AGG_CHUNK];
   bool inf[LT_AGG_CHUNK];
   for (int j = 0; j < kc; j++) {
-    fp_load(pts[j].x, tx, v, rows[j]);
-    fp_load(pts[j].y, ty, v, rows[j]);
+    const bool in_range = rows[j] >= 0 && rows[j] < v;
+    const int row = in_range ? rows[j] : 0;
+    fp_load(pts[j].x, tx, v, row);
+    fp_load(pts[j].y, ty, v, row);
     fp_one(pts[j].z);
-    inf[j] = mask[j] == 0;
+    inf[j] = mask[j] == 0 || !in_range;
+    bad = bad || (mask[j] != 0 && !in_range);
   }
   for (int m = kc; m > 1;) {
     const int half = (m + 1) / 2;
@@ -50,9 +59,9 @@ LT_DEV void agg_pk_lane(const int32_t *tx, const int32_t *ty, int v, const int32
                         int lane) {
   const int kc = k < LT_AGG_CHUNK ? k : LT_AGG_CHUNK;
   jac<fp> acc, s;
-  bool acc_inf = true, s_inf;
+  bool acc_inf = true, s_inf, bad = false;
   for (int c = 0; c < k; c += kc) {
-    agg_chunk(s, s_inf, tx, ty, v, idx + lane * k + c, kmask + lane * k + c, kc);
+    agg_chunk(s, s_inf, bad, tx, ty, v, idx + lane * k + c, kmask + lane * k + c, kc);
     if (c == 0) {
       acc = s;
       acc_inf = s_inf;
@@ -63,7 +72,7 @@ LT_DEV void agg_pk_lane(const int32_t *tx, const int32_t *ty, int v, const int32
   fp_store(out, n, lane, acc.x);
   fp_store(out + LT_NL * n, n, lane, acc.y);
   fp_store(out + 2 * LT_NL * n, n, lane, acc.z);
-  out_inf[lane] = acc_inf ? 1 : 0;
+  out_inf[lane] = acc_inf || bad ? 1 : 0;
 }
 
 #ifdef __CUDACC__

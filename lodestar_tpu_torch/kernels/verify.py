@@ -43,7 +43,8 @@ and `hash_g2` (`_k_hash_g2`) hashes signing roots to G2 for
 Each kernel wrapper checks its operands, then runs the hand-written CUDA
 kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
 for CPU tensors; any other device raises.  There is no fallback from one
-to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches.
+to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches
+(`mont_convert` on 4 planes under its own name, `mont_convert_4`).
 
 Planes are int32 ``[..., 12, N]`` (`kernels/layout.py`), the batch on the
 last axis; an Fp2 value is ``[2, 12, N]``, an affine G2 point
@@ -81,6 +82,7 @@ AGG_CHUNK = 32  # rows of one tree of the pubkey aggregation (csrc/aggpk.cu)
 
 LAUNCHES: Dict[str, int] = {
     "mont_convert": 0,
+    "mont_convert_4": 0,
     "g2_subgroup_check": 0,
     "miller_loop": 0,
     "each_final": 0,
@@ -97,13 +99,14 @@ LAUNCHES: Dict[str, int] = {
 
 # Fp multiplications per lane of each kernel (per element for
 # mont_convert; per combine for the reductions sum_g2 and prod12, which
-# make max(N, 128) - 1 of them; per addition for agg_pk, which makes
-# K - 1 per lane), from the structure of csrc/*.cuh;
+# make max(N, 128) - 1 of them; per addition for agg_pk, which needs
+# one per live row after a lane's first), from the structure of csrc/*.cuh;
 # tests/test_torch_csrc_host.py checks them against a count taken by the
 # host build.  A 12-limb CIOS Montgomery product issues 12 rows x
 # (4 x 12 multiply-adds + 1 multiply).
 FP_MULS_PER_LANE = {
     "mont_convert": 1,
+    "mont_convert_4": 1,
     "g2_subgroup_check": 1181,
     "miller_loop": 7834,
     "each_final": 8337,
@@ -182,7 +185,10 @@ def mont_convert(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     n = x.shape[-1]
     planes = x.numel() // (NL * n) if n else 0
-    _launch("mont_convert", "mont", "lt_mont_convert", x.data_ptr(), out.data_ptr(), planes, n)
+    # counted apart: 4 planes are the wire paths' messages (_k_mont4),
+    # any other count (8 on the decoded paths) is _k_mont8's work
+    name = "mont_convert_4" if planes == 4 else "mont_convert"
+    _launch(name, "mont", "lt_mont_convert", x.data_ptr(), out.data_ptr(), planes, n)
     return out
 
 
@@ -514,7 +520,10 @@ def hash_g2(u: torch.Tensor, sgn: torch.Tensor):
 def agg_pk_plain(table_x, table_y, idx, kmask):
     n, k = idx.shape
     kc = min(k, AGG_CHUNK)
-    rows = idx.t().reshape(-1).to(torch.int64)  # row k of every lane, k-major
+    # a row outside [0, V) is read as row 0 and counted as infinity
+    in_range = (idx >= 0) & (idx < table_x.shape[1])
+    bad = ((kmask != 0) & ~in_range).any(dim=1)
+    rows = torch.where(in_range, idx, 0).t().reshape(-1).to(torch.int64)  # row k of every lane, k-major
 
     def gather(table):  # -> [kc, K / kc, ND, N]: chunk c holds rows c kc ..
         d = LY.planes_to_digits(torch.index_select(table, 1, rows)).reshape(ND, k // kc, kc, n)
@@ -522,23 +531,24 @@ def agg_pk_plain(table_x, table_y, idx, kmask):
 
     x, y = gather(table_x), gather(table_y)
     one = torch.broadcast_to(CV.FP_OPS.one(n, x.device), x.shape)
-    inf = (kmask == 0).t().reshape(k // kc, kc, n).transpose(0, 1)
+    inf = ((kmask == 0) | ~in_range).t().reshape(k // kc, kc, n).transpose(0, 1)
     # the chunks' trees side by side, then the chunk sums in order
     s, s_inf = CV.sum_points_axis0(CV.FP_OPS, (x, y, one), inf)
     acc, acc_inf = tuple(c[0] for c in s), s_inf[0]
     for c in range(1, k // kc):
         acc, acc_inf = CV.jac_add_full(CV.FP_OPS, acc, acc_inf, tuple(p[c] for p in s), s_inf[c])
-    return LY.digits_to_planes(torch.stack(acc)), acc_inf.to(torch.int32)[None, :]
+    return LY.digits_to_planes(torch.stack(acc)), (acc_inf | bad).to(torch.int32)[None, :]
 
 
 def agg_pk(table_x: torch.Tensor, table_y: torch.Tensor, idx: torch.Tensor, kmask: torch.Tensor):
     """Montgomery table planes [12, V], rows idx [N, K] and kmask [N, K] ->
     (per lane the Jacobian G1 sum of its rows with kmask 1, [3, 12, N],
     and its infinity flag [1, N]), in the order of `_k_agg_pk`: trees of
-    min(K, 32) rows, the chunk sums added in order.  Rows are not checked
-    against V on the card (the verifier checks them on the host)."""
-    if table_x.dim() != 2 or table_x.shape[0] != NL:
-        raise ValueError(f"agg_pk table_x: expected [{NL}, V], got {tuple(table_x.shape)}")
+    min(K, 32) rows, the chunk sums added in order.  A row outside [0, V)
+    counts as infinity, and if its kmask bit is set the lane is flagged
+    infinity, so its set fails."""
+    if table_x.dim() != 2 or table_x.shape[0] != NL or table_x.shape[1] == 0:
+        raise ValueError(f"agg_pk table_x: expected [{NL}, V], V >= 1, got {tuple(table_x.shape)}")
     _shape(table_y, table_x.shape, "agg_pk table_y")
     if idx.dim() != 2 or idx.shape[1] % min(idx.shape[1], AGG_CHUNK) != 0:
         raise ValueError(f"agg_pk idx: expected [N, K], K a multiple of min(K, {AGG_CHUNK}), "

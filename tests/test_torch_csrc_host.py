@@ -276,3 +276,25 @@ def test_agg_pk_host_build_counts_and_equals_plain(libs, k):
     want = KV.agg_pk_plain(tx, ty, idx, kmask)
     assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
     assert out_inf.tolist()[0][1:] == [1, 0]
+
+
+def test_agg_pk_host_build_flags_rows_outside_the_table(libs):
+    """A live row outside [0, V) flags its lane infinity (so its set
+    fails); a masked one is read as row 0 and counts as infinity.  The
+    host build reads no memory outside the table, and equals the plain
+    version."""
+    keys = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(5)]
+    tx = torch.from_numpy(LY.encode_batch([p[0] for p in keys]))
+    ty = torch.from_numpy(LY.encode_batch([p[1] for p in keys]))
+    idx = torch.tensor([[0, 1, 2, 3], [4, -1, 2, 3], [0, 1, 5, 3], [1 << 30, 1, 2, -(1 << 30)]], dtype=torch.int32)
+    kmask = torch.tensor([[1, 1, 1, 1], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 0]], dtype=torch.int32)
+    out, out_inf = i32(3, LY.NL, 4), i32(1, 4)
+    assert libs["aggpk"].lt_agg_pk(tx.data_ptr(), ty.data_ptr(), 5, idx.data_ptr(), kmask.data_ptr(), 4,
+                                   out.data_ptr(), out_inf.data_ptr(), 4, None) == 0
+    want = KV.agg_pk_plain(tx, ty, idx, kmask)
+    assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
+    assert out_inf.tolist() == [[0, 1, 1, 0]]
+    in_range = torch.where(kmask[3:] != 0, idx[3:], 0)
+    assert torch.equal(out[..., 3:], KV.agg_pk_plain(tx, ty, in_range, kmask[3:])[0])
+    with pytest.raises(ValueError, match="V >= 1"):
+        KV.agg_pk(tx[:, :0], ty[:, :0], idx, kmask)

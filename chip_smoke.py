@@ -8,8 +8,12 @@ Needs one CUDA device; exits non-zero without one.  In order:
   1. setup: the card's name and power limit; build every CUDA kernel from
      the sources in this checkout (one nvcc per source, all at once); make
      64 keypairs, 8 signing roots hashed to G2 and 512 signatures from a
-     fixed seed with the port's own crypto/ copy; a 1,048,576-row pubkey
-     table on the device (row r holds key r % 64); a 512-set job mixing
+     fixed seed with the port's own crypto/ copy; the 1,048,576-row pubkey
+     table registered from compressed keys (row r holds key r % 64) by
+     `PubkeyTable.register_compressed`, 16 KeyValidate launches of 65,536
+     lanes, its planes equal to the unchecked table's, and a 128-key job
+     with one key of each fault kind rejected at the first fault's
+     position, leaving its table empty; a 512-set job mixing
      valid sets, wrong messages, swapped signatures, signatures at infinity
      and on-curve signatures outside G2, and the all-valid job of the same
      512 untampered signatures; their wire forms (96-byte compressed
@@ -19,16 +23,20 @@ Needs one CUDA device; exits non-zero without one.  In order:
      (BASELINE.json config 2) and 4 sets of K = 512 (a sync committee), one
      of them missing a signer; the host ground truth (crypto/bls.py verify
      and fast_aggregate_verify) of every set;
-  2. kernel phases: each of the fourteen kernel rows against its plain
+  2. kernel phases: each of the seventeen kernel rows against its plain
      torch version on the same device inputs, bit for bit: the per-set
      path's four on the mixed job's operands and the RLC batch path's six
      (and the one-lane Miller loop of its tail) on the all-valid job's;
      mont_convert on the 4 message planes and g2_decompress of the wire
      mixed job, at N = 128 and N = 512; agg_pk on the K = 128 job (N = 256,
-     K bucket 512) and hash_g2 on one 128-lane batch of the 8 roots.
-     CUDA-event times of kernel (median of 5 after a warm-up) and plain
-     version (median of 3; once, without a warm-up, for agg_pk and
-     hash_g2, whose plain versions take seconds);
+     K bucket 512) and hash_g2 on one 128-lane batch of the 8 roots;
+     g1_keyvalidate on one 65,536-key registration chunk and on the fault
+     job with 128 valid keys; seg_sum_g1 on the grouped wire batch's
+     randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 512
+     decompressed signatures grouped by root.  CUDA-event times of kernel
+     (median of 5 after a warm-up) and plain version (median of 3; once,
+     without a warm-up, for agg_pk, hash_g2 and g1_keyvalidate, whose plain
+     versions take seconds);
   3. main paths, each driven with the launch counts set to 0 just before
      and read just after, every verdict held against the ground truth and
      every job's host-routed set count (`job.host_sets`) 0: decoded per
@@ -36,9 +44,16 @@ Needs one CUDA device; exits non-zero without one.  In order:
      MessageCache (one hash_g2 launch for the 8 roots, the points equal to
      crypto/hash_to_curve.py hash_to_g2, a second lookup launches
      nothing); the wire batch, wire per set, wire mixed-batchable and wire
-     bisection; the aggregate batch (256 x K = 128: one RLC batch through
-     agg_pk) and the K = 512 job (rejected, then retried per set); sets/s
-     and a breakdown for each timed path;
+     bisection, every wire batch through the message-grouped entry (one
+     seg_sum_g1 scan, one 128-lane Miller tile; the same job timed through
+     the ungrouped entry too, in turns); a wire job of 8 distinct roots
+     through the ungrouped entry; the aggregate batch (256 x K = 128:
+     one grouped RLC batch through agg_pk) and the K = 512 job (rejected,
+     then retried per set); pre-verify aggregation of the 512 wire
+     signatures by root (one 512-lane dispatch, every aggregate equal to
+     the host's bytes; a group with a 95-byte member gives None), then the
+     8 merged K = 64 sets verified as one batch; sets/s and a breakdown for
+     each timed path;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
@@ -76,6 +91,10 @@ WIRE_FAULTS = {1: "95_bytes", 2: "no_compression_bit", 5: "x_not_below_p", 6: "x
 AGG_SETS, AGG_K = 256, 128  # BASELINE.json config 2: 1 signature over 128 pubkeys
 SYNC_SETS, SYNC_K = 4, 512  # a block's sync-committee aggregate
 SYNC_MISSING = 2  # the K = 512 set whose signature leaves out one signer
+REG_CHUNK = 65536  # keys per KeyValidate launch at registration (register_compressed's device_batch)
+# fault keys of the 128-key rejection job, at these positions among valid keys
+KEY_FAULTS = {5: "infinity", 17: "x_off_curve", 29: "outside_G1", 41: "x_zero_order_3", 53: "x_not_below_p",
+              77: "no_compression_bit", 101: "47_bytes"}
 
 # NVIDIA H100 SXM (data sheet): HBM3 rate; 32-bit IMAD issue rate per SM
 # (CUDA programming guide, compute capability 9.0 throughput table)
@@ -99,17 +118,24 @@ KERNELS = {
     "g2_decompress": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:247"),
     "agg_pk": ("lodestar_tpu_torch/kernels/csrc/aggpk.cu", "lodestar_tpu/kernels/verify.py:246"),
     "hash_g2": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:219"),
+    "g1_keyvalidate": ("lodestar_tpu_torch/kernels/csrc/keyvalidate.cu", "lodestar_tpu/kernels/ingest.py:309"),
+    "seg_sum_g1": ("lodestar_tpu_torch/kernels/csrc/segsum.cu", "lodestar_tpu/kernels/verify.py:686"),
+    "seg_sum_g2": ("lodestar_tpu_torch/kernels/csrc/segsum.cu", "lodestar_tpu/kernels/verify.py:845"),
 }
 PER_SET = ("mont_convert", "g2_subgroup_check", "miller_loop", "each_final")
 BATCH = ("mont_convert", "g1_rpk", "g2_rsig_sub", "sum_g2", "miller_loop", "prod12", "affine_g2", "final_one")
 WIRE_PER_SET = ("mont_convert_4", "g2_decompress", "g2_subgroup_check", "miller_loop", "each_final")
 WIRE_BATCH = ("mont_convert_4", "g2_decompress") + BATCH[1:]
-AGG_BATCH = WIRE_BATCH + ("agg_pk",)
+GROUPED_BATCH = WIRE_BATCH + ("seg_sum_g1",)  # a wire batch with a repeated root
+AGG_BATCH = GROUPED_BATCH + ("agg_pk",)
+PREAGG = ("g2_decompress", "seg_sum_g2", "affine_g2")
 TAIL = ("affine_g2", "final_one")  # one lane per launch on the batch path
 # the path whose launch count is a row's "launches", and its lanes
 MAIN_PATH = {name: ("batch" if name in BATCH else "per_set", JOBS[-1]) for name in KERNELS}
 MAIN_PATH.update({"mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
-                  "agg_pk": ("agg_batch", AGG_SETS), "hash_g2": ("cold_hash", 128)})
+                  "agg_pk": ("agg_batch", AGG_SETS), "hash_g2": ("cold_hash", 128),
+                  "g1_keyvalidate": ("registration", REG_CHUNK), "seg_sum_g1": ("wire_batch", JOBS[-1]),
+                  "seg_sum_g2": ("preagg", JOBS[-1])})
 # bytes each kernel must move per lane (per launch for the reductions'
 # one output and the tail): inputs read once, outputs written once
 BYTES_PER_LANE = {
@@ -126,6 +152,9 @@ BYTES_PER_LANE = {
     "mont_convert_4": 4 * 48 * 2,
     "g2_decompress": (2 * 48 + 8) + (4 * 48 + 4),
     "hash_g2": (4 * 48 + 8) + (6 * 48 + 4),
+    "g1_keyvalidate": (48 + 8) + (2 * 48 + 4),
+    "seg_sum_g1": (3 * 48 + 8) + (3 * 48 + 4),  # Jacobian in and out, dead flag and group id
+    "seg_sum_g2": (4 * 48 + 8) + (6 * 48 + 4),  # affine in, Jacobian out
     # agg_pk: its live rows of 96 bytes and K index and mask words in,
     # 148 bytes out (counted from the job's kmask)
 }
@@ -284,10 +313,39 @@ def make_job(pool) -> dict:
     if [not ok for ok, _ in decoded] != [i in WIRE_FAULTS for i in range(n)]:
         raise AssertionError("the wire-only faults are not exactly the undecodable wire sets")
     agg_truth = agg_async.get()
+
+    # compressed pubkeys, and the 128-key job with one key of each fault kind
+    comp = [GC.g1_compress(pk) for pk in pks]
+    x_off = x_out = None
+    while x_off is None or x_out is None:  # an x with no y on E1, an x on E1 outside G1, by trial
+        x = int.from_bytes(rng.bytes(48), "big") % GT.P
+        y = GT.fp_sqrt((x * x * x + 4) % GT.P)
+        if y is None:
+            x_off = x_off if x_off is not None else x
+        elif x_out is None and not GC.g1_subgroup_check((x, y)):
+            x_out = x
+
+    def x_key(x):
+        out = bytearray(x.to_bytes(48, "big"))
+        out[0] |= 0x80
+        return bytes(out)
+
+    rej_keys = [comp[i % N_KEYS] for i in range(128)]
+    for i, fault in KEY_FAULTS.items():
+        rej_keys[i] = {
+            "infinity": GC.g1_compress(None),
+            "x_off_curve": x_key(x_off),
+            "outside_G1": x_key(x_out),
+            "x_zero_order_3": x_key(0),
+            "x_not_below_p": bytes([0x9F]) + b"\xff" * 47,
+            "no_compression_bit": bytes([rej_keys[i][0] & 0x7F]) + rej_keys[i][1:],
+            "47_bytes": rej_keys[i][:47],
+        }[fault]
     return dict(
         pks=pks, roots=roots, hs=hs, sets=sets, kinds=kinds, truth=truth, valid_sets=valid_sets,
         wire_valid=wire_valid, wire_mixed=wire_mixed, wire_kinds=wire_kinds, wire_truth=wire_truth,
         wire_agg=wire_agg, agg_truth=agg_truth[:AGG_SETS], wire_sync=wire_sync, sync_truth=agg_truth[AGG_SETS:],
+        comp=comp, rej_keys=rej_keys,
     )
 
 
@@ -335,10 +393,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
 
-    from lodestar_tpu_torch.bls.ingest import MessageCache
+    from lodestar_tpu_torch.bls.ingest import MessageCache, encode_pubkey_planes
     from lodestar_tpu_torch.bls.pubkey_table import PubkeyTable
     from lodestar_tpu_torch.bls.rand import make_rand_words
+    from lodestar_tpu_torch.bls.signature_set import WireSignatureSet
     from lodestar_tpu_torch.bls.verifier import K_BUCKETS, TorchBlsVerifier, VerifyOptions
+    from lodestar_tpu_torch.crypto import bls as GB
+    from lodestar_tpu_torch.crypto import curves as GC
     from lodestar_tpu_torch.crypto import hash_to_curve as GH
     from lodestar_tpu_torch.kernels import build as B
     from lodestar_tpu_torch.kernels import layout as LY
@@ -375,11 +436,61 @@ def main() -> int:
         raise AssertionError("the aggregate jobs' ground truth disagrees with construction")
 
     dev = torch.device("cuda")
+    paths = {}  # (path, n) -> launch counts
+
+    def counted(fn):
+        """fn() with every launch count set to 0 just before; (result, counts)."""
+        torch.cuda.synchronize()
+        KV.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(KV.LAUNCHES)
+
+    # -- registration: the 1M-row table from compressed keys, KeyValidate on the card
+    keys = [d["comp"][r % N_KEYS] for r in range(TABLE_ROWS)]
+    t = time.perf_counter()
+    reg_planes, reg_flags, reg_bad = encode_pubkey_planes(keys[:REG_CHUNK])
+    encode_ms = (time.perf_counter() - t) * 1e3
     table = PubkeyTable()
-    table.register_points_unchecked(d["pks"], tile_to=TABLE_ROWS)
+    t = time.perf_counter()
+    idx, counts = counted(lambda: table.register_compressed(keys, device_batch=REG_CHUNK))
+    reg_s = time.perf_counter() - t
+    unchecked = PubkeyTable()
+    unchecked.register_points_unchecked(d["pks"], tile_to=TABLE_ROWS)
+    same = all(np.array_equal(getattr(table, a)[:, :TABLE_ROWS], getattr(unchecked, a)[:, :TABLE_ROWS])
+               for a in ("_host_x", "_host_y"))
+    if idx != list(range(TABLE_ROWS)) or not same or reg_bad.any():
+        raise AssertionError(f"registration: {len(idx)} rows, planes equal to the unchecked table: {same}")
+    if counts["g1_keyvalidate"] != TABLE_ROWS // REG_CHUNK or sum(counts.values()) != counts["g1_keyvalidate"]:
+        raise AssertionError(f"registration: launches {counts}")
+    paths["registration", REG_CHUNK] = counts
+    log(f"main path registration: PubkeyTable.register_compressed of {TABLE_ROWS} compressed keys: "
+        f"{counts['g1_keyvalidate']} g1_keyvalidate launches of {REG_CHUNK} lanes; every row equals "
+        f"register_points_unchecked's planes bit for bit; {reg_s * 1e3:.1f} ms = {TABLE_ROWS / reg_s:.1f} keys/s "
+        f"(host clock, one run: host encoding, copies and the kernel); host encoding {encode_ms:.1f} ms per "
+        f"{REG_CHUNK}-key chunk (encode_pubkey_planes, numpy)")
+    rej_table = PubkeyTable()
+    first = min(KEY_FAULTS)
+    try:
+        rej_table.register_compressed(d["rej_keys"])
+        raise AssertionError("registration: the fault job was accepted")
+    except ValueError as e:
+        if f"pubkey {first} " not in str(e) or len(rej_table):
+            raise AssertionError(f"registration: fault job raised {e!r} with {len(rej_table)} rows committed")
+        rej_msg = str(e)
+    rej_planes, rej_flags, rej_bad = encode_pubkey_planes(d["rej_keys"])
+    _, rej_ok = KV.g1_keyvalidate(torch.from_numpy(rej_planes).to(dev), torch.from_numpy(rej_flags).to(dev))
+    refused = np.flatnonzero(~((rej_ok[0].cpu().numpy() != 0) & ~rej_bad)).tolist()
+    if refused != sorted(KEY_FAULTS):
+        raise AssertionError(f"registration: keys refused at {refused}, faults at {sorted(KEY_FAULTS)}")
+    log(f"main path registration-faults: 128 keys with faults {KEY_FAULTS}: register_compressed raised "
+        f"'{rej_msg}' and committed no row; refused exactly at the fault positions ({int(rej_bad.sum())} on the "
+        f"host, {len(refused) - int(rej_bad.sum())} by the kernel)")
+    t = time.perf_counter()
     tx, ty = table.device_planes(dev)
     torch.cuda.synchronize()
-    log(f"setup: pubkey table {len(table)} rows, {table.nbytes} bytes on {torch.cuda.get_device_name(0)}")
+    log(f"setup: pubkey table {len(table)} rows, {table.nbytes} bytes on {torch.cuda.get_device_name(0)} "
+        f"(copied to the card in {(time.perf_counter() - t) * 1e3:.1f} ms)")
     verifier = TorchBlsVerifier(table, rng=np.random.default_rng(SEED))  # device None -> the CUDA device
     jobs_begun = []  # every job the verifier begins: none may route a set to the host
     begin_job = verifier.begin_job
@@ -409,6 +520,25 @@ def main() -> int:
             f"plain {p_ms:.3f} ms ({how}) (CUDA events)")
         return k_out
 
+    # KeyValidate on one registration chunk (the main path's shape), and on
+    # the fault job beside 128 valid keys
+    kv_x, kv_flags = torch.from_numpy(reg_planes).to(dev), torch.from_numpy(reg_flags).to(dev)
+    _, kv_ok = plain_and_kernel("g1_keyvalidate", REG_CHUNK, KV.g1_keyvalidate, KV.g1_keyvalidate_plain, kv_x,
+                                kv_flags, plain_runs=0)
+    kv_x = torch.from_numpy(np.concatenate([rej_planes, reg_planes[:, :128]], axis=1)).to(dev)
+    kv_flags = torch.from_numpy(np.concatenate([rej_flags, reg_flags[:, :128]], axis=1)).to(dev)
+    _, kv_ok256 = plain_and_kernel("g1_keyvalidate", 256, KV.g1_keyvalidate, KV.g1_keyvalidate_plain, kv_x,
+                                   kv_flags, plain_runs=0)
+    if not bool(kv_ok.all()) or int(kv_ok256.sum()) != 256 - len(KEY_FAULTS):
+        raise AssertionError(f"g1_keyvalidate: {int(kv_ok.sum())} of {REG_CHUNK} keys valid, "
+                             f"{int(kv_ok256.sum())} of 256 on the fault job")
+    seg_units = {}  # name -> the additions the segmented sum needs on its row's data
+
+    def seg_needed(dead, group):
+        """Live lanes less live groups: one addition per live lane after its group's first."""
+        live = dead[0] == 0
+        return int(live.sum()) - int(torch.unique(group[live]).numel())
+
     for n in JOBS:
         # the per-set path's kernels on the mixed job
         idx, kmask, planes, sig_inf, valid = verifier._prepare(sets[:n])
@@ -430,7 +560,7 @@ def main() -> int:
         msg, sig = m[:4].reshape(2, 2, LY.NL, n), m[4:].reshape(2, 2, LY.NL, n)
         rwords = torch.from_numpy(make_rand_words(n, np.random.default_rng(SEED + n))).to(dev)
         ops = KV.batch_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid, rwords)
-        rpk, _ = plain_and_kernel("g1_rpk", n, KV.g1_rpk, KV.g1_rpk_plain, *ops["g1_rpk"])
+        rpk, rpk_inf = plain_and_kernel("g1_rpk", n, KV.g1_rpk, KV.g1_rpk_plain, *ops["g1_rpk"])
         rsig, rsig_inf, sub = plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain,
                                                *ops["g2_rsig_sub"])
         excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
@@ -444,6 +574,18 @@ def main() -> int:
             raise AssertionError(f"batch kernels at N={n}: the all-valid batch does not verify")
         log(f"kernel outputs N={n}: all-valid batch: {int(sub.sum())} lanes in G2, aggregate finite, "
             f"final exp of the product equal to one")
+        # its grouped G1 side: the sets of a root are one run of 64 lanes
+        group, head_lanes, glive = (torch.from_numpy(a).to(dev) for a in verifier._grouping(wire_valid[:n], n))
+        gops = KV.grouped_operands(ops, rpk, rpk_inf, group, head_lanes, glive)
+        pts, seg_inf = plain_and_kernel("seg_sum_g1", n, KV.seg_sum_g1, KV.seg_sum_g1_plain, *gops["seg_sum_g1"])
+        if n == JOBS[-1]:
+            seg_units["seg_sum_g1"] = seg_needed(*gops["seg_sum_g1"][1:])
+        g, q, live_row = KV._group_heads(pts, seg_inf, *gops["heads"])
+        ok = KV._batch_tail(KV.prod12(live_row, KV.miller_loop(g, q)), jsum, jsum_inf)
+        if int(ok[0, 0]) != 1 or int(live_row.sum()) != n // N_KEYS:
+            raise AssertionError(f"grouped batch kernels at N={n}: not verified ({int(live_row.sum())} groups)")
+        log(f"kernel outputs N={n}: grouped: {int(live_row.sum())} group totals on one {KV.BT}-lane Miller "
+            f"tile, final exp of the product equal to one")
 
         # the wire paths' ingest: the message planes of the all-valid job
         # (4 planes) and the signatures of the wire mixed job
@@ -457,6 +599,18 @@ def main() -> int:
             raise AssertionError(f"g2_decompress at N={n}: lanes off the curve {off}")
         log(f"kernel outputs N={n}: wire mixed job: {int(host_bad.sum())} encodings refused on the host, "
             f"{n - len(off)} lanes decompressed or flagged infinity, {len(off)} x off the curve")
+
+    # pre-verify aggregation's scan: the 512 wire signatures, decompressed,
+    # grouped by root as aggregate_wire_signatures groups them
+    n = JOBS[-1]
+    args, _ = verifier._prepare_wire(wire_valid[:n])
+    xy, dec_ok = KV.g2_decompress(args.sig_x, args.sig_flags)
+    bad = ((args.sig_flags[1] != 0) | (dec_ok[0] == 0))[None, :].to(torch.int32)
+    group = torch.from_numpy(verifier._grouping(wire_valid[:n], n)[0]).to(dev)
+    _, seg_inf = plain_and_kernel("seg_sum_g2", n, KV.seg_sum_g2, KV.seg_sum_g2_plain, xy, bad, group)
+    seg_units["seg_sum_g2"] = seg_needed(bad, group)
+    if bool(seg_inf.any()) or bool(bad.any()):
+        raise AssertionError("seg_sum_g2: a valid signature's running sum at infinity")
 
     # pubkey aggregation on the K = 128 job (K bucket 512), hash on 8 roots
     args, _ = verifier._prepare_wire(d["wire_agg"])
@@ -477,14 +631,6 @@ def main() -> int:
         raise AssertionError("hash_g2: a lane flagged not ok")
 
     # -- 3. main paths -------------------------------------------------------------
-    def counted(fn):
-        """fn() with every launch count set to 0 just before; (result, counts)."""
-        torch.cuda.synchronize()
-        KV.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, dict(KV.LAUNCHES)
-
     def host_ms(fn, runs=3):
         times = []
         for _ in range(runs):
@@ -503,6 +649,12 @@ def main() -> int:
         if min(counts[k] for k in names) == 0:
             raise AssertionError(f"{label}: a kernel of the path was never launched: {counts}")
 
+    def entries(fn):
+        """fn() counted, and the verifier's batch dispatches by entry in it."""
+        before = dict(verifier.entries)
+        out, counts = counted(fn)
+        return out, counts, {k: v - before.get(k, 0) for k, v in verifier.entries.items() if v != before.get(k, 0)}
+
     def breakdown(label, n, prepare, ms, counts, names):
         """Kernel-phase medians at this N, or at the largest N where a
         kernel was not timed at this one."""
@@ -519,7 +671,6 @@ def main() -> int:
             f"{prep:.3f} ms + kernels {kern:.3f} ms (kernel-phase medians x launches"
             + (f"; {', '.join(elsewhere)}" if elsewhere else "") + f") + the rest {ms - prep - kern:.3f} ms")
 
-    paths = {}  # (path, n) -> launch counts
     batchable = VerifyOptions(batchable=True)
     for n in JOBS:
         # the per-set path (PR 1's main path)
@@ -569,16 +720,21 @@ def main() -> int:
         log(f"main path mixed-batchable N={n}: False, routed per set (launches {json.dumps(counts)})")
     no_host_sets("decoded paths")
 
-    def bisection(label, n, bad_job):
+    def bisection(label, n, bad_job, want_entry):
         """A 512-set job with one wrong message at BAD_SET: batch rejected,
         bisected to the leaf, exact verdicts in submission order."""
         want = [i != BAD_SET for i in range(n)]
         t = time.perf_counter()
+        before = dict(verifier.entries)
         job, _ = counted(lambda: verifier.begin_job(bad_job, batchable=True))
         ok = verifier.finish_job(job)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
         counts = dict(KV.LAUNCHES)
+        took = {k: v - before.get(k, 0) for k, v in verifier.entries.items() if v != before.get(k, 0)}
+        grouped = want_entry == "batch_wire_grouped"
+        if took != {want_entry: counts["final_one"]} or grouped != (counts["seg_sum_g1"] > 0):
+            raise AssertionError(f"{label}: batch entries {took}, launches {counts}")
         if ok is not False or job.verdicts.tolist() != want:
             raise AssertionError(f"{label}: verdict {ok}, {int((job.verdicts != want).sum())} per-set verdicts wrong")
         leaf = verifier.bisect_leaf
@@ -592,14 +748,14 @@ def main() -> int:
         log(f"main path {label} N={n}: one wrong message at set {BAD_SET}: batch rejected, bisected "
             f"{n} -> {n // 2} -> ... -> {leaf} (depth {job.bisect_depth}), {job.batch_sigs_success} sets cleared by "
             f"passing halves, the {leaf}-set leaf verified per set; every verdict equals the ground truth; "
-            f"launches {json.dumps(counts)}; {dt:.1f} ms (host clock, one run)")
+            f"batch entries {json.dumps(took)}; launches {json.dumps(counts)}; {dt:.1f} ms (host clock, one run)")
         no_host_sets(label)
         return counts
 
     n = JOBS[-1]
     bad_job = list(valid_sets[:n])
     bad_job[BAD_SET] = sets[BAD_SET]
-    paths["bisection", n] = bisection("bisection", n, bad_job)
+    paths["bisection", n] = bisection("bisection", n, bad_job, "batch_decoded")
 
     # the cold message cache: the 8 roots hashed in one 128-lane launch
     cache = MessageCache(device=dev)
@@ -621,17 +777,29 @@ def main() -> int:
         # the wire batch: the all-valid job as wire bytes
         job = wire_valid[:n]
         verifier.verify_signature_sets(job, batchable)  # warm-up
-        ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+        ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
         if ok is not True:
             raise AssertionError(f"wire N={n}: the all-valid wire batch was rejected")
         if counts["miller_loop"] != 2 or counts["final_one"] != 1 or counts["each_final"] != 0 or counts["hash_g2"]:
             raise AssertionError(f"wire N={n}: the batch did not run as one multi-pairing: {counts}")
-        require(f"wire batch N={n}", counts, WIRE_BATCH)
+        if took != {"batch_wire_grouped": 1} or counts["seg_sum_g1"] != KV.seg_rounds(n):
+            raise AssertionError(f"wire N={n}: entries {took}, seg_sum_g1 launches {counts['seg_sum_g1']}")
+        require(f"wire batch N={n}", counts, GROUPED_BATCH)
         ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
-        log(f"main path wire-batch N={n}: accepted {n} of {n} wire sets as one RLC batch; launches "
-            f"{json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of 3 after a "
-            f"warm-up)")
-        breakdown("wire-batch", n, lambda: verifier._prepare_wire(job), ms, counts, WIRE_BATCH)
+        # the same job through the ungrouped entry, then grouped again: the
+        # two entries compared on one card, in turns
+        verifier._grouping = lambda job_sets, lanes: None
+        try:
+            ms_ungrouped = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
+        finally:
+            del verifier._grouping
+        ms_again = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
+        log(f"main path wire-batch N={n}: accepted {n} of {n} wire sets as one RLC batch through the grouped "
+            f"entry ({n // N_KEYS} roots: one {KV.BT}-lane Miller tile and the one-lane tail); batch entries "
+            f"{json.dumps(took)}; launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host "
+            f"clock, median of 3 after a warm-up); the same job through the ungrouped entry {ms_ungrouped:.3f} ms, "
+            f"then grouped again {ms_again:.3f} ms (medians of 3)")
+        breakdown("wire-batch", n, lambda: verifier._prepare_wire(job), ms, counts, GROUPED_BATCH)
         paths["wire_batch", n] = counts
         results["sets_per_s", "wire_batch", n] = n / ms * 1e3
 
@@ -652,27 +820,42 @@ def main() -> int:
         results["sets_per_s", "wire_per_set", n] = n / ms * 1e3
 
         # the wire mixed job sent batchable: malformed encodings void the batch
-        ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
-        if ok is not False or counts["each_final"] != 1 or counts["final_one"] != 0:
-            raise AssertionError(f"wire N={n}: the mixed batchable job did not go per set: {ok}, {counts}")
-        log(f"main path wire-mixed-batchable N={n}: False, routed per set (launches {json.dumps(counts)})")
+        ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
+        if ok is not False or counts["each_final"] != 1 or counts["final_one"] != 0 or took:
+            raise AssertionError(f"wire N={n}: the mixed batchable job did not go per set: {ok}, {counts}, {took}")
+        log(f"main path wire-mixed-batchable N={n}: False, routed per set before any batch entry (its "
+            f"malformed encodings void the batch; batch entries {json.dumps(took)}; launches {json.dumps(counts)})")
     no_host_sets("wire paths")
+
+    # 8 sets of 8 distinct roots: no root repeats, so the ungrouped entry
+    job = [wire_valid[r * N_KEYS] for r in range(N_ROOTS)]
+    ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
+    if ok is not True or took != {"batch_wire": 1} or counts["seg_sum_g1"] or counts["miller_loop"] != 2:
+        raise AssertionError(f"ungrouped wire batch: verdict {ok}, entries {took}, launches {counts}")
+    require("ungrouped wire batch", counts, WIRE_BATCH)
+    log(f"main path wire-batch-ungrouped N={len(job)}: {N_ROOTS} distinct roots, accepted as one RLC batch "
+        f"through the ungrouped entry; batch entries {json.dumps(took)}; launches {json.dumps(counts)}")
+    paths["wire_batch_ungrouped", len(job)] = counts
+    no_host_sets("ungrouped wire batch")
 
     n = JOBS[-1]
     bad_job = list(wire_valid[:n])
     bad_job[BAD_SET] = wire_mixed[BAD_SET]
-    paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job)
+    paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job, "batch_wire_grouped")
 
     # the aggregate batch: 256 sets of K = 128 over one root
     job = d["wire_agg"]
     verifier.verify_signature_sets(job, batchable)  # warm-up
-    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+    ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
     if ok is not True or counts["agg_pk"] != 1 or counts["final_one"] != 1 or counts["each_final"] != 0:
         raise AssertionError(f"aggregate batch: verdict {ok}, launches {counts}")
+    if took != {"batch_wire_grouped": 1}:
+        raise AssertionError(f"aggregate batch: entries {took}")
     require("aggregate batch", counts, AGG_BATCH)
     ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
     log(f"main path aggregate-batch N={AGG_SETS} K={AGG_K}: accepted as one RLC batch through agg_pk (K bucket "
-        f"{k_bucket}); launches {json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
+        f"{k_bucket}) and the grouped entry (one root); batch entries {json.dumps(took)}; launches "
+        f"{json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
         f"{AGG_SETS * AGG_K / ms * 1e3:.1f} pubkeys (signers' signatures)/s (host clock, median of 3 after a "
         f"warm-up)")
     breakdown("aggregate-batch", AGG_SETS, lambda: verifier._prepare_wire(job), ms, counts, AGG_BATCH)
@@ -696,6 +879,37 @@ def main() -> int:
     paths["sync_aggregate", SYNC_SETS] = counts
     no_host_sets("aggregate paths")
 
+    # pre-verify aggregation: the 512 wire signatures by root, one dispatch
+    n = JOBS[-1]
+    groups = [[s.signature for s in wire_valid[r * N_KEYS:(r + 1) * N_KEYS]] for r in range(N_ROOTS)]
+    host_aggs = [verifier._aggregate_wire_host(g) for g in groups]
+    t = time.perf_counter()
+    aggs, counts = counted(lambda: verifier.aggregate_wire_signatures(groups))
+    agg_ms = (time.perf_counter() - t) * 1e3
+    if aggs != host_aggs or None in aggs:
+        raise AssertionError(f"pre-verify aggregation: {sum(a == b for a, b in zip(aggs, host_aggs))} of "
+                             f"{N_ROOTS} aggregates equal the host's")
+    if (counts["g2_decompress"], counts["seg_sum_g2"], counts["affine_g2"]) != (1, KV.seg_rounds(n), 1):
+        raise AssertionError(f"pre-verify aggregation: not one {n}-lane dispatch: {counts}")
+    require("pre-verify aggregation", counts, PREAGG)
+    paths["preagg", n] = counts
+    bad_group = [wire_valid[0].signature, wire_valid[1].signature[:95]]
+    if verifier.aggregate_wire_signatures([bad_group]) != [None]:
+        raise AssertionError("pre-verify aggregation: a group with a 95-byte member was aggregated")
+    merged = [WireSignatureSet.aggregate([s.indices[0] for s in wire_valid[r * N_KEYS:(r + 1) * N_KEYS]],
+                                         d["roots"][r], aggs[r]) for r in range(N_ROOTS)]
+    merged_truth = [GB.fast_aggregate_verify([d["pks"][i % N_KEYS] for i in s.indices], s.signing_root,
+                                             GC.g2_decompress(s.signature)) for s in merged]
+    ok, counts2, took = entries(lambda: verifier.verify_signature_sets(merged, batchable))
+    if not all(merged_truth) or ok is not True or counts2["agg_pk"] != 1 or took != {"batch_wire": 1}:
+        raise AssertionError(f"merged sets: truth {merged_truth}, verdict {ok}, entries {took}, launches {counts2}")
+    log(f"main path preagg N={n}: aggregate_wire_signatures of {N_ROOTS} groups of {N_KEYS} wire signatures: "
+        f"every aggregate equals the host's bytes (_aggregate_wire_host); launches {json.dumps(counts)}; "
+        f"{agg_ms:.1f} ms (host clock, one run, compression on the host included); a group with a 95-byte member "
+        f"gave None; the {N_ROOTS} merged sets (K = {N_KEYS}, ground truth all True) accepted as one RLC batch "
+        f"(batch entries {json.dumps(took)}; launches {json.dumps(counts2)})")
+    no_host_sets("merged sets")
+
     if not verifier._device_canary():
         raise AssertionError("device canary failed")
 
@@ -715,6 +929,8 @@ def main() -> int:
             units = (8 if name == "mont_convert" else 4) * n  # planes per lane
         elif name == "agg_pk":
             units = agg_live_rows - agg_live_lanes  # one addition per live row after a lane's first
+        elif name in seg_units:
+            units = seg_units[name]  # one addition per live lane after its group's first
         else:
             units = n
         ops_ms = KV.FP_MULS_PER_LANE[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
@@ -739,12 +955,17 @@ def main() -> int:
             entry["ms_n128"], entry["plain_ms_n128"] = results[name, JOBS[0]][:2]
         if name == "miller_loop":
             entry["ms_1_lane"], entry["plain_ms_1_lane"] = results["miller_loop_1", n][:2]
+        if name == "g1_keyvalidate":
+            entry["ms_256"], entry["plain_ms_256"] = results[name, 256][:2]
+        if name in seg_units:
+            entry["additions_needed"] = seg_units[name]
         kernels.append(entry)
     log("main path sets/s: " + ", ".join(
         f"{p} N={j}: {results['sets_per_s', p, j]:.1f}" for p in ("per_set", "batch", "wire_per_set", "wire_batch")
         for j in JOBS)
         + f", agg_batch N={AGG_SETS} K={AGG_K}: {results['sets_per_s', 'agg_batch', AGG_SETS]:.1f} "
-        f"({results['pubkeys_per_s', 'agg_batch', AGG_SETS]:.1f} pubkeys/s) ({card}); "
+        f"({results['pubkeys_per_s', 'agg_batch', AGG_SETS]:.1f} pubkeys/s); registration {TABLE_ROWS / reg_s:.1f} "
+        f"keys/s ({card}); "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

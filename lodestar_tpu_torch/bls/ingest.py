@@ -12,7 +12,10 @@ A copy of `lodestar_tpu/bls/ingest.py` for the port:
     x coordinate and (sign, infinity) bits, with the host's wire checks
     (length, compression bit, infinity padding, x < p); the y recovery
     runs on the device (`kernels/verify.py g2_decompress`);
-  - `encode_wire_planes` lays out a job's signatures as device planes.
+  - `encode_wire_planes` lays out a job's signatures as device planes;
+  - `parse_pubkey_bytes` and `encode_pubkey_planes` do the same for
+    48-byte compressed pubkeys at registration, whose y recovery and
+    KeyValidate run on the device (`kernels/verify.py g1_keyvalidate`).
 """
 
 from __future__ import annotations
@@ -148,3 +151,54 @@ def encode_wire_planes(
     x1s.extend([0] * pad)
     flags[1, len(sigs):] = 1
     return LY.encode_plain_batch(x0s), LY.encode_plain_batch(x1s), flags, host_bad
+
+
+def parse_pubkey_bytes(pk: bytes) -> Tuple[int, int, int, bool]:
+    """48-byte compressed G1 -> (x, sign, inf, wire_ok), with the host's
+    wire checks of `crypto/curves.py g1_decompress` (length, compression
+    bit, infinity padding, x < p)."""
+    if len(pk) != 48:
+        return 0, 0, 0, False
+    flags = pk[0]
+    if not flags & _COMP:
+        return 0, 0, 0, False
+    if flags & _INF:
+        if flags & (_SIGN | 0x1F) or any(pk[1:]):
+            return 0, 0, 0, False
+        return 0, 0, 1, True
+    x = int.from_bytes(bytes([flags & 0x1F]) + pk[1:], "big")
+    if x >= P:
+        return 0, 0, 0, False
+    return x, 1 if flags & _SIGN else 0, 0, True
+
+
+_P_WORDS = np.frombuffer(P.to_bytes(48, "big"), ">u4").astype(np.uint32)
+
+
+def encode_pubkey_planes(keys: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pubkeys -> (x planes [12, n] plain limbs, flag bits [2, n] (sign,
+    infinity), host_bad [n]) for `kernels/verify.py g1_keyvalidate`: the
+    outputs of `parse_pubkey_bytes` key by key, computed with numpy over
+    the concatenated keys.  A malformed key (not 48 bytes, no compression
+    bit, bad infinity padding, x >= p) is host_bad and gets x = 0 and the
+    infinity flag, so the device refuses it too; an honest infinity
+    encoding gets the infinity flag alone."""
+    n = len(keys)
+    sized = np.fromiter(map(len, keys), np.int64, n) == 48
+    raw = b"".join(keys if sized.all() else (k if ok else bytes(48) for k, ok in zip(keys, sized)))
+    a = np.frombuffer(raw, np.uint8).reshape(n, 48)
+    flag = a[:, 0]
+    comp = (flag & _COMP) != 0
+    inf = (flag & _INF) != 0
+    body = a.copy()
+    body[:, 0] &= 0x1F
+    words = body.view(">u4").astype(np.uint32)  # [n, 12], most significant first
+    differ = words != _P_WORDS
+    first = differ.argmax(axis=1)
+    below_p = differ.any(axis=1) & (words[np.arange(n), first] < _P_WORDS[first])
+    inf_padding_ok = ((flag & (_SIGN | 0x1F)) == 0) & ~a[:, 1:].any(axis=1)
+    ok = sized & comp & np.where(inf, inf_padding_ok, below_p)
+    point = ok & ~inf
+    planes = np.where(point[None, :], words[:, ::-1].T, 0).astype(np.uint32).view(np.int32)
+    flags = np.stack([point & ((flag & _SIGN) != 0), inf | ~ok]).astype(np.int32)
+    return np.ascontiguousarray(planes), flags, ~ok

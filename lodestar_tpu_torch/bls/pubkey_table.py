@@ -15,6 +15,10 @@ import torch
 
 from ..crypto import curves as C
 from ..kernels import layout as LY
+from ..kernels import verify as KV
+from .ingest import encode_pubkey_planes
+
+KEY_TILE = 128  # registration chunks pad up to a multiple of these lanes
 
 
 class PubkeyTable:
@@ -46,6 +50,45 @@ class PubkeyTable:
             if not C.g1_subgroup_check(pk):
                 raise ValueError("pubkey not in G1 subgroup")
         return self._append([pk[0] for pk in pubkeys], [pk[1] for pk in pubkeys])
+
+    def register_compressed(self, keys: Sequence[bytes], device_batch: int = 65536, device=None) -> List[int]:
+        """Register 48-byte compressed pubkeys with KeyValidate on the
+        device (`kernels/verify.py g1_keyvalidate`: decompression, the
+        on-curve check and the [r]P subgroup check, one lane per key);
+        returns their indices.  `device` None means the CUDA device; on the
+        CPU the kernel's plain version runs.
+
+        Two phases, as the JAX package's: every chunk of `device_batch`
+        keys (padded to a multiple of KEY_TILE lanes with its last key) is
+        validated first, then all are committed, so an invalid key raises
+        ValueError naming its position and leaves the table unchanged.
+        The validated (x, y) planes go to the host planes; the device
+        mirrors are dropped."""
+        dev = torch.device("cuda" if device is None else device)
+        validated = []
+        for start in range(0, len(keys), device_batch):
+            chunk = list(keys[start : start + device_batch])
+            n = len(chunk)
+            planes, flags, host_bad = encode_pubkey_planes(chunk + [chunk[-1]] * ((-n) % KEY_TILE))
+            xy, ok = KV.g1_keyvalidate(torch.from_numpy(planes).to(dev), torch.from_numpy(flags).to(dev))
+            ok = (ok[0, :n].cpu().numpy() != 0) & ~host_bad[:n]
+            if not ok.all():
+                bad = int(np.argmin(ok))
+                raise ValueError(
+                    f"pubkey {start + bad} failed KeyValidate (malformed, off-curve, infinity, or out of subgroup)"
+                )
+            validated.append(xy[..., :n].cpu().numpy())
+        idxs: List[int] = []
+        for xy in validated:
+            n = xy.shape[-1]
+            while self._n + n > self._cap:
+                self._grow()
+            self._host_x[:, self._n : self._n + n] = xy[0]
+            self._host_y[:, self._n : self._n + n] = xy[1]
+            idxs.extend(range(self._n, self._n + n))
+            self._n += n
+        self._device = {}
+        return idxs
 
     def _append(self, xs, ys) -> List[int]:
         k = len(xs)

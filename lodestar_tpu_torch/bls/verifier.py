@@ -15,8 +15,13 @@ Semantics kept:
     encoding is `host_bad` and fails its set.  A wire job is sorted by
     signing root, as the JAX package sorts it for message grouping, so
     its bisection halves are the JAX plan's; the verdicts come back in
-    submission order.  Message grouping itself is not in the port yet:
-    a sorted wire job takes the ungrouped batch (`verify_batch_device_wire`).
+    submission order.
+  - Message grouping (`_grouping`): a sorted wire batch, or a bisection
+    half of one, with at most 128 distinct signing roots and at least one
+    repeated root takes `verify_batch_device_wire_grouped`, whose Miller
+    side runs once per distinct root on one 128-lane tile; any other wire
+    batch takes `verify_batch_device_wire`.  `entries` counts the batch
+    entry each dispatch took.
   - Sets with more than MAX_AGG_INDICES = 2048 indices, and sets with
     external pubkeys, are verified on the host ground truth, as the JAX
     package routes them (a property of the set, not a fallback on a
@@ -38,16 +43,23 @@ Semantics kept:
     (`bls/rand.py`); a seeded `rng` is for tests.
   - `verify_on_main_thread` verifies on the host CPU ground truth;
     `can_accept_work()` is the 512-pending-job backpressure bound.
+  - `aggregate_wire_signatures(groups)` point-adds each group of
+    compressed signatures into one compressed aggregate (None where a
+    member is undecodable), the seam of `bls/pipeline.py`'s pre-verify
+    aggregation: on the verifier's device by `aggregate_g2_sum_device` (the
+    CUDA kernels, or their plain versions on the CPU), or on the host when
+    `LODESTAR_TPU_AGG_DEVICE=0`.  A device fault propagates; nothing falls
+    back to the host.
 
-Not in this slice: message grouping (`_grouping`,
-`verify_batch_device_wire_grouped`), pre-verify signature aggregation,
-the metrics registry and trace spans, the DeviceSupervisor breaker (a
-device fault propagates as an exception) and the export cache.
+Not in this slice: the metrics registry and trace spans, the
+DeviceSupervisor breaker (a device fault propagates as an exception) and
+the export cache.
 """
 
 from __future__ import annotations
 
 import os
+from collections import Counter
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -194,6 +206,9 @@ class TorchBlsVerifier:
         # below one 128-lane tile every sub-job pads to the same bucket,
         # so bisection stops there and the leaf runs per-set verdicts
         self.bisect_leaf = KV.BT if bisect_leaf is None else bisect_leaf
+        # batch dispatches by entry: "batch_decoded", "batch_wire",
+        # "batch_wire_grouped" (the JAX package's dispatch names)
+        self.entries: Counter = Counter()
 
     def can_accept_work(self) -> bool:
         return self._pending_jobs < MAX_PENDING_JOBS
@@ -322,7 +337,7 @@ class TorchBlsVerifier:
         job.args, job.decodable = self._prepare_any(job.sets)
         batchable_job = batchable and len(job.sets) >= 2
         if batchable_job and self._use_rlc and job.decodable.all():
-            job.batch_ok = self._dispatch_rlc_batch(job.args)
+            job.batch_ok = self._dispatch_rlc_batch(job.args, job.sets)
         else:
             if batchable_job and self._use_rlc:
                 # an undecodable signature voids the batch: count a retry
@@ -400,14 +415,57 @@ class TorchBlsVerifier:
                 max_depth = max(max_depth, d)
         return np.concatenate(parts), max_depth
 
-    def _dispatch_rlc_batch(self, args) -> torch.Tensor:
+    def _dispatch_rlc_batch(self, args, sets) -> torch.Tensor:
         """ONE RLC multi-pairing dispatch with fresh randomizers (no sync);
-        shared by the job path and the bisection."""
-        rwords = torch.from_numpy(make_rand_words(args.valid.shape[0], self.rng)).to(self.device)
+        shared by the job path and the bisection, so both choose the entry
+        alike: a wire job (sorted by signing root) takes the grouped entry
+        whenever `_grouping` applies."""
+        n = args.valid.shape[0]
+        rwords = torch.from_numpy(make_rand_words(n, self.rng)).to(self.device)
         tx, ty = self.table.device_planes(self.device)
-        fn = KV.verify_batch_device_wire if isinstance(args, WireArgs) else KV.verify_batch_device
-        batch_ok, _sub_ok = fn(tx, ty, *args[:-1], rwords, args.valid)
+        if not isinstance(args, WireArgs):
+            self.entries["batch_decoded"] += 1
+            batch_ok, _sub_ok = KV.verify_batch_device(tx, ty, *args[:-1], rwords, args.valid)
+            return batch_ok
+        grouping = self._grouping(sets, n)
+        if grouping is not None:
+            self.entries["batch_wire_grouped"] += 1
+            batch_ok, _sub_ok = KV.verify_batch_device_wire_grouped(
+                tx, ty, *args[:-1], *self._to_device(*grouping), rwords, args.valid
+            )
+            return batch_ok
+        self.entries["batch_wire"] += 1
+        batch_ok, _sub_ok = KV.verify_batch_device_wire(tx, ty, *args[:-1], rwords, args.valid)
         return batch_ok
+
+    @staticmethod
+    def _grouping(sets, n: int):
+        """Distinct-message group arrays (group [n], head_lanes [BT],
+        glive [BT]) for `verify_batch_device_wire_grouped`, or None where
+        grouping does not apply: more distinct roots than one 128-lane
+        tile, or no repeated root (nothing to collapse).  `sets` must be
+        sorted by signing root, as `begin_job` sorts them (JAX `_grouping`,
+        `lodestar_tpu/bls/verifier.py:668-702`)."""
+        roots = [s.signing_root for s in sets]
+        group = np.zeros(n, np.int32)
+        heads = []
+        g = 0
+        for i in range(1, len(sets)):
+            if roots[i] != roots[i - 1]:
+                heads.append(i - 1)
+                g += 1
+            group[i] = g
+        heads.append(len(sets) - 1)
+        n_groups = g + 1
+        if n_groups > KV.BT or n_groups == len(sets):
+            return None
+        # padding lanes get fresh ids, so none merges into the last group
+        group[len(sets) :] = np.arange(n_groups, n_groups + n - len(sets), dtype=np.int32)
+        head_lanes = np.zeros(KV.BT, np.int32)
+        head_lanes[:n_groups] = heads
+        glive = np.zeros(KV.BT, np.int32)
+        glive[:n_groups] = 1
+        return group, head_lanes, glive
 
     def _prepare_any(self, sets):
         """(operands, host-decodable mask) of a homogeneous sub-job."""
@@ -418,7 +476,7 @@ class TorchBlsVerifier:
 
     def _dispatch_batch(self, sets) -> torch.Tensor:
         """Dispatch one sub-batch of the bisection (no sync)."""
-        return self._dispatch_rlc_batch(self._prepare_any(sets)[0])
+        return self._dispatch_rlc_batch(self._prepare_any(sets)[0], sets)
 
     def _batch_verdict(self, handle) -> bool:
         """Sync one batch handle to a host bool."""
@@ -428,6 +486,97 @@ class TorchBlsVerifier:
         """Independent per-set verdicts (the bisection leaf)."""
         args, decodable = self._prepare_any(sets)
         return self._collect(self._each(args), decodable)
+
+    # -- pre-verify signature aggregation -----------------------------------------
+
+    def aggregate_wire_signatures(self, groups: Sequence[Sequence[bytes]]) -> List[Optional[bytes]]:
+        """Point-add each group's compressed G2 signatures -> one compressed
+        aggregate per group, None where a member is undecodable (the
+        caller then verifies the members unaggregated).  The sum seam of
+        the pre-verify aggregation (`bls/pipeline.py`, `bls/aggregator.py`):
+        on the verifier's device, one `aggregate_g2_sum_device` dispatch per
+        chunk of at most 128 groups, unless LODESTAR_TPU_AGG_DEVICE=0
+        selects the host path."""
+        groups = [list(g) for g in groups]
+        if not groups:
+            return []
+        if self._use_agg_device():
+            return self._aggregate_wire_device(groups)
+        return [self._aggregate_wire_host(g) for g in groups]
+
+    @staticmethod
+    def _use_agg_device() -> bool:
+        env = os.environ.get("LODESTAR_TPU_AGG_DEVICE", "1")
+        return env.strip().lower() not in ("0", "false", "no", "off", "")
+
+    @staticmethod
+    def _aggregate_wire_host(sigs: List[bytes]) -> Optional[bytes]:
+        """The host ground truth: decompress every member, add, compress."""
+        pts = []
+        for s in sigs:
+            try:
+                pts.append(C.g2_decompress(s))
+            except ValueError:
+                return None
+        return C.g2_compress(C.multi_add(C.FP2_OPS, pts))
+
+    def _aggregate_wire_device(self, groups: List[List[bytes]]) -> List[Optional[bytes]]:
+        """Chunks of at most BT groups and N_BUCKETS[-1] signatures (a group
+        larger than that alone in its chunk), one dispatch each."""
+        out: List[Optional[bytes]] = []
+        start = 0
+        while start < len(groups):
+            chunk: List[List[bytes]] = []
+            total = 0
+            while (
+                start + len(chunk) < len(groups)
+                and len(chunk) < KV.BT
+                and (not chunk or total + len(groups[start + len(chunk)]) <= N_BUCKETS[-1])
+            ):
+                total += len(groups[start + len(chunk)])
+                chunk.append(groups[start + len(chunk)])
+            out.extend(self._aggregate_chunk_device(chunk, total))
+            start += len(chunk)
+        return out
+
+    def _aggregate_chunk_device(self, chunk: List[List[bytes]], total: int) -> List[Optional[bytes]]:
+        """One dispatch: the segmented G2 sum of the decompressed
+        signatures, the group totals to affine on the device, compressed on
+        the host (y is known: no square root)."""
+        n = _bucket(total)
+        x0, x1, flags, host_bad = encode_wire_planes([s for g in chunk for s in g], n)
+        group = np.zeros(n, np.int32)
+        head_lanes = np.zeros(KV.BT, np.int32)
+        glive = np.zeros(KV.BT, np.int32)
+        pos = 0
+        for gi, g in enumerate(chunk):
+            group[pos : pos + len(g)] = gi
+            pos += len(g)
+            head_lanes[gi] = pos - 1
+            glive[gi] = 1
+        # padding lanes get fresh ids, so none merges into the last group
+        group[total:] = np.arange(len(chunk), len(chunk) + n - total, dtype=np.int32)
+        a, g_inf, ok = KV.aggregate_g2_sum_device(
+            *self._to_device(np.stack([x0, x1]), flags, group, head_lanes, glive)
+        )
+        ok = (ok[0, :total].cpu().numpy() != 0) & ~host_bad[:total]
+        g_inf = g_inf[0].cpu().numpy() != 0
+        coords = [LY.decode_batch(p) for p in a.cpu().numpy().reshape(4, LY.NL, KV.BT)]
+        out: List[Optional[bytes]] = []
+        pos = 0
+        for gi, g in enumerate(chunk):
+            members_ok = bool(ok[pos : pos + len(g)].all())
+            pos += len(g)
+            if not members_ok:
+                # an undecodable member was left out of the sum: the total
+                # is not the group's aggregate
+                out.append(None)
+            elif g_inf[gi]:
+                out.append(C.g2_compress(None))
+            else:
+                x0g, x1g, y0g, y1g = (c[gi] for c in coords)
+                out.append(C.g2_compress(((x0g, x1g), (y0g, y1g))))
+        return out
 
     # -- host paths -------------------------------------------------------------
 

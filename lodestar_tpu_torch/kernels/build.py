@@ -31,7 +31,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("mont", "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk")
+SOURCES = (
+    "mont", "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum",
+)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,6 +142,9 @@ _ARGTYPES = {
     "lt_g2_decompress": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_hash_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_pk": [_VP, _VP, _INT, _VP, _VP, _INT, _VP, _VP, _INT, _VP],
+    "lt_g1_keyvalidate": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     # host build only: the ingest building blocks for the tests
     "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],
     "lt_host_signs": [_VP, _VP, _INT],

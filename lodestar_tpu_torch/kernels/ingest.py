@@ -1,9 +1,10 @@
-"""Device ingest: G2 decompression and SSWU hash-to-G2, the plain torch
-engine and its CUDA twin.
+"""Device ingest: G2 decompression, SSWU hash-to-G2 and G1 KeyValidate,
+the plain torch engine and its CUDA twin.
 
 Counterpart of the value-level functions of `lodestar_tpu/kernels/
-ingest.py`; the CUDA device functions are in `csrc/ingest.cu`, and the
-kernel wrappers (`g2_decompress`, `hash_g2`) with their plain versions in
+ingest.py`; the CUDA device functions are in `csrc/ingest.cu` and
+`csrc/keyvalidate.cu`, and the kernel wrappers (`g2_decompress`,
+`hash_g2`, `g1_keyvalidate`) with their plain versions in
 `kernels/verify.py`.  Same steps, constants and selects as the JAX
 package, so the points (and the Jacobian coordinates of the hash) equal
 the JAX functions' exactly:
@@ -12,7 +13,9 @@ the JAX functions' exactly:
   - `sswu_map_g2`, `iso3_map`, `clear_cofactor_g2_jac`,
     `hash_to_g2_values`: the map of RFC 9380 for G2; expand_message_xmd
     and hash_to_field stay on the host, which ships u as plain limbs and
-    its sgn0 bit.
+    its sgn0 bit;
+  - `g1_keyvalidate`: a compressed pubkey's y (one Fp sqrt) and the
+    on-curve and [r]P subgroup checks of blst KeyValidate.
 
 Fp2 values are digit tensors [..., 2, ND, N]; the two SSWU maps of a
 message run as one batched call on a leading axis.
@@ -26,6 +29,7 @@ from ..crypto import curves as GC
 from ..crypto import fields as GT
 from ..crypto import hash_to_curve as HC
 from . import canonical as CN
+from . import core as C
 from . import curve as CV
 from . import fp2 as F2
 from . import sqrt as SQ
@@ -118,3 +122,28 @@ def hash_to_g2_values(u, u_sgn0):
     one = CV.FP2_OPS.one(x0.shape[-1], x0.device).expand_as(x0)
     s = CV.jac_add_mixed(CV.FP2_OPS, (x0, y0, one), (x1, y1))
     return clear_cofactor_g2_jac(s), ok[0] & ok[1]
+
+
+def g1_keyvalidate(x, sign):
+    """((x, y), ok) for Montgomery x [ND, N] and the sort-flag sign bits
+    (bool [N]): y = sqrt(x^3 + 4) with fp_sgn(y) == sign, ok = on the
+    curve and [r]P = O.  The subgroup check is a full [r]P by MSB-first
+    double-and-add with the COMPLETE addition and the infinity flag
+    carried through the chain: a key of small order (x = 0 gives (0, +-2),
+    of order 3) meets T == +-P mid-chain, which the exact-zero dispatch of
+    `jac_add_full` handles; doubling keeps Z = 0 at infinity."""
+    rhs = C.add(C.mont_mul(C.mont_sqr(x), x), C.const_digits(GC.FP_OPS.b_coeff, x.device))
+    y, on_curve = SQ.fp_sqrt(rhs)
+    flip = CN.fp_sgn(y) != sign
+    y = C.select(flip, C.neg(y), y)
+    base = (x, y, CV.FP_OPS.one(x.shape[-1], x.device))
+    no_inf = torch.zeros(x.shape[-1], dtype=torch.bool, device=x.device)
+
+    def dbl(st):
+        return CV.jac_dbl(CV.FP_OPS, st[0]), st[1]
+
+    def add(st, _base):
+        return CV.jac_add_full(CV.FP_OPS, st[0], st[1], base, no_inf)
+
+    T, t_inf = C.pow_static((base, no_inf), GT.R, dbl, add)
+    return (x, y), on_curve & (t_inf | C.is_zero_modp(T[2]))

@@ -238,6 +238,13 @@ def cuda_constants() -> str:
         f"LT_CONST uint32_t LT_HALF_P[12] = {_fp_words((P - 1) // 2)};",
         f"LT_CONST uint32_t LT_G2_B[2][12] = {_fp2_words(mont2(CU.FP2_OPS.b_coeff))};",
     ]
+    # G1 KeyValidate: E1's b = 4 and the group order r for the [r]P check
+    r = F.R
+    lines += [
+        f"LT_CONST uint32_t LT_G1_B[12] = {_fp_words(mont(CU.FP_OPS.b_coeff))};",
+        f"#define LT_R_TOP {r.bit_length() - 1}",
+        f"LT_CONST uint32_t LT_R_ORDER[{-(-r.bit_length() // 32)}] = {_exp_words(r)};",
+    ]
     a, b, z = HC._A2, HC._B2, HC._Z2
     sswu = {
         "A": a,

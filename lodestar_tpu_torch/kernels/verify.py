@@ -40,11 +40,30 @@ paths above
 and `hash_g2` (`_k_hash_g2`) hashes signing roots to G2 for
 `bls/ingest.py MessageCache`.
 
+The message-grouped wire batch, `verify_batch_device_wire_grouped`
+(`:804`, `_batch_local_grouped` `:739`), takes a job sorted by signing
+root and replaces the N-lane Miller loop by one per distinct root:
+
+    seg_sum_g1         r_i pk_i summed per message group        (_j_seg_sum_g1)
+    [group heads]      totals and messages onto one BT-lane tile (_j_group_heads)
+    miller_loop        (group total, H(m)), BT lanes             (_k_miller)
+
+Pre-verify signature aggregation, `aggregate_g2_sum_device` (`:883`):
+
+    g2_decompress      wire x -> (x, y)                          (_k_g2_decompress)
+    seg_sum_g2         signatures summed per group               (_j_seg_sum_g2)
+    [agg heads]        group totals onto one BT-lane tile        (_j_agg_heads)
+    affine_g2          totals -> affine                          (_k_affine_g2)
+
+and `g1_keyvalidate` (`_k_g1_keyvalidate`) decompresses and validates
+pubkeys for `bls/pubkey_table.py PubkeyTable.register_compressed`.
+
 Each kernel wrapper checks its operands, then runs the hand-written CUDA
 kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
 for CPU tensors; any other device raises.  There is no fallback from one
 to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches
-(`mont_convert` on 4 planes under its own name, `mont_convert_4`).
+(`mont_convert` on 4 planes under its own name, `mont_convert_4`; the
+segmented sums launch once per round of their scan, `seg_rounds(N)`).
 
 Planes are int32 ``[..., 12, N]`` (`kernels/layout.py`), the batch on the
 last axis; an Fp2 value is ``[2, 12, N]``, an affine G2 point
@@ -95,12 +114,17 @@ LAUNCHES: Dict[str, int] = {
     "g2_decompress": 0,
     "hash_g2": 0,
     "agg_pk": 0,
+    "g1_keyvalidate": 0,
+    "seg_sum_g1": 0,
+    "seg_sum_g2": 0,
 }
 
 # Fp multiplications per lane of each kernel (per element for
 # mont_convert; per combine for the reductions sum_g2 and prod12, which
 # make max(N, 128) - 1 of them; per addition for agg_pk, which needs
-# one per live row after a lane's first), from the structure of csrc/*.cuh;
+# one per live row after a lane's first, and for the segmented sums,
+# which make one per lane and round and need one per live lane after its
+# group's first), from the structure of csrc/*.cuh;
 # tests/test_torch_csrc_host.py checks them against a count taken by the
 # host build.  A 12-limb CIOS Montgomery product issues 12 rows x
 # (4 x 12 multiply-adds + 1 multiply).
@@ -119,6 +143,9 @@ FP_MULS_PER_LANE = {
     "g2_decompress": 3656,
     "hash_g2": 41987,
     "agg_pk": 23,
+    "g1_keyvalidate": 5448,
+    "seg_sum_g1": 23,
+    "seg_sum_g2": 60,
 }
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 
@@ -157,10 +184,13 @@ def _shape(t: torch.Tensor, shape, what: str) -> None:
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, source: str, symbol: str, *args) -> None:
+def _launch(name: str, source: str, symbol: str, *args, launches: int = 1) -> None:
+    """Call a kernel's C entry point on the current stream; `launches` is
+    the number of kernel launches it makes (the segmented sums launch once
+    per round)."""
     fn = getattr(B.load(source), symbol)
     stream = torch.cuda.current_stream().cuda_stream
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += launches
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
@@ -565,6 +595,112 @@ def agg_pk(table_x: torch.Tensor, table_y: torch.Tensor, idx: torch.Tensor, kmas
 
 
 # ---------------------------------------------------------------------------
+# K14: G1 KeyValidate at pubkey registration (_k_g1_keyvalidate)
+# ---------------------------------------------------------------------------
+
+
+def g1_keyvalidate_plain(x, flags):
+    xm = C.mont_convert(LY.planes_to_digits(x))
+    (_, y), ok = IG.g1_keyvalidate(xm, flags[0] != 0)
+    ok = ok & (flags[1] == 0)
+    return LY.digits_to_planes(torch.stack([xm, y])), ok.to(torch.int32)[None, :]
+
+
+def g1_keyvalidate(x: torch.Tensor, flags: torch.Tensor):
+    """Compressed pubkeys' x as plain limb planes [12, N] and their (sign,
+    infinity) bits [2, N] -> (Montgomery affine (x, y) [2, 12, N], ok
+    [1, N]: 1 where the key is on the curve, in G1 and not flagged
+    infinity, blst KeyValidate).  y is the root of x^3 + 4 whose fp_sgn is
+    the sign bit."""
+    n = x.shape[-1]
+    _shape(x, (NL, n), "g1_keyvalidate x")
+    _shape(flags, (2, n), "g1_keyvalidate flags")
+    if _on_cpu(x, flags):
+        return g1_keyvalidate_plain(x, flags)
+    xy = torch.empty((2, NL, n), dtype=torch.int32, device=x.device)
+    ok = torch.empty((1, n), dtype=torch.int32, device=x.device)
+    _launch("g1_keyvalidate", "keyvalidate", "lt_g1_keyvalidate", x.data_ptr(), flags.data_ptr(),
+            xy.data_ptr(), ok.data_ptr(), n)
+    return xy, ok
+
+
+# ---------------------------------------------------------------------------
+# K15, K16: segmented prefix sums (_j_seg_sum_g1, _j_seg_sum_g2)
+# ---------------------------------------------------------------------------
+
+
+def seg_rounds(n: int) -> int:
+    """Rounds of the segmented scan at n lanes, s = 1, 2, 4, .. < n (one
+    round that adds nothing at n = 1): the kernel's launches."""
+    return max(1, (n - 1).bit_length())
+
+
+def _seg_scan(fo, pts, inf, group):
+    """JAX's scan (`_j_seg_sum_g1` `:686`): in round s every lane adds the
+    previous round's value of lane (l - s) mod n, which counts as infinity
+    unless l >= s and the two lanes share a group."""
+    n = group.shape[0]
+    lane = torch.arange(n, device=group.device)
+    s = 1
+    while s < n:
+        prev = tuple(torch.roll(a, s, dims=-1) for a in pts)
+        ok = (lane >= s) & (torch.roll(group, s) == group)
+        pts, inf = CV.jac_add_full(fo, pts, inf, prev, torch.roll(inf, s) | ~ok)
+        s *= 2
+    return pts, inf
+
+
+def seg_sum_g1_plain(pts, dead, group):
+    d = LY.planes_to_digits(pts)
+    s, s_inf = _seg_scan(CV.FP_OPS, (d[0], d[1], d[2]), dead[0] != 0, group)
+    return LY.digits_to_planes(torch.stack(s)), s_inf.to(torch.int32)[None, :]
+
+
+def seg_sum_g2_plain(xy, dead, group):
+    d = LY.planes_to_digits(xy)
+    one = CV.FP2_OPS.one(xy.shape[-1], xy.device)
+    s, s_inf = _seg_scan(CV.FP2_OPS, (d[0], d[1], one), dead[0] != 0, group)
+    return LY.digits_to_planes(torch.stack(s)), s_inf.to(torch.int32)[None, :]
+
+
+def _seg_sum(name, symbol, pts, dead, group, shape):
+    n = group.shape[0]
+    out = torch.empty(shape, dtype=torch.int32, device=pts.device)
+    scr = torch.empty_like(out)
+    out_inf = torch.empty((1, n), dtype=torch.int32, device=pts.device)
+    scr_inf = torch.empty_like(out_inf)
+    _launch(name, "segsum", symbol, pts.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(),
+            out_inf.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, launches=seg_rounds(n))
+    return out, out_inf
+
+
+def seg_sum_g1(pts: torch.Tensor, dead: torch.Tensor, group: torch.Tensor):
+    """Jacobian G1 [3, 12, N], dead flags [1, N] and nondecreasing group ids
+    [N] -> (the inclusive sum of each lane's group up to the lane, dead
+    lanes counted as infinity, Jacobian [3, 12, N], and its infinity flags
+    [1, N]); the last lane of a group holds the group's total."""
+    n = pts.shape[-1]
+    _shape(pts, (3, NL, n), "seg_sum_g1 pts")
+    _shape(dead, (1, n), "seg_sum_g1 dead")
+    _shape(group, (n,), "seg_sum_g1 group")
+    if _on_cpu(pts, dead, group):
+        return seg_sum_g1_plain(pts, dead, group)
+    return _seg_sum("seg_sum_g1", "lt_seg_sum_g1", pts, dead, group, (3, NL, n))
+
+
+def seg_sum_g2(xy: torch.Tensor, dead: torch.Tensor, group: torch.Tensor):
+    """`seg_sum_g1` over affine G2 points [2, 2, 12, N] (Z = 1) -> Jacobian
+    [3, 2, 12, N] and infinity flags [1, N]."""
+    n = xy.shape[-1]
+    _shape(xy, (2, 2, NL, n), "seg_sum_g2 xy")
+    _shape(dead, (1, n), "seg_sum_g2 dead")
+    _shape(group, (n,), "seg_sum_g2 group")
+    if _on_cpu(xy, dead, group):
+        return seg_sum_g2_plain(xy, dead, group)
+    return _seg_sum("seg_sum_g2", "lt_seg_sum_g2", xy, dead, group, (3, 2, NL, n))
+
+
+# ---------------------------------------------------------------------------
 # The per-set path
 # ---------------------------------------------------------------------------
 
@@ -743,14 +879,48 @@ def _batch_verdict(ok, sub, live, pk_inf, sig_bad, valid):
     return batch_ok, sub_ok
 
 
-def _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid):
+def _group_heads(pts, seg_inf, msg, head_lanes, glive):
+    """`_j_group_heads` (`:715`): each group's total (its last lane) and
+    its message gathered onto one BT-lane tile; dead group lanes (padding,
+    or a total at infinity, whose pairing is 1) get generator pairs and a
+    0 in the live row."""
+    h = head_lanes.to(torch.int64)
+    live = (seg_inf[0].index_select(0, h) == 0) & (glive != 0)
+    c = _const_planes(pts.device)
+    g1 = torch.stack([c["g1x"], c["g1y"], c["one"]])
+    g = torch.where(live, pts.index_select(-1, h), g1)
+    q = torch.where(live, msg.index_select(-1, h), c["g2"])
+    return g.contiguous(), q.contiguous(), live[None, :].to(torch.int32)
+
+
+def grouped_operands(ops, rpk, rpk_inf, group, head_lanes, glive) -> dict:
+    """The grouped G1 side's operands (`_batch_local_grouped` `:739`): the
+    randomized pubkeys of dead lanes count as infinity in their group's
+    segmented sum."""
+    return {"seg_sum_g1": (rpk, (~ops["live"])[None, :].to(torch.int32) | rpk_inf, group),
+            "heads": (ops["msg"], head_lanes, glive)}
+
+
+def _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid, grouping=None):
+    """The batch pipeline from Montgomery points on.  With `grouping`
+    (group [N], head_lanes [BT], glive [BT]; `_batch_local_grouped`
+    `:739`) the Miller side runs once per distinct message: a segmented
+    sum of the r_i pk_i by group, then ONE BT-lane Miller tile of the group
+    totals against their messages."""
     ops = batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords)
-    rpk, _ = g1_rpk(*ops["g1_rpk"])
+    rpk, rpk_inf = g1_rpk(*ops["g1_rpk"])
     rsig, rsig_inf, sub = g2_rsig_sub(*ops["g2_rsig_sub"])
     # the aggregate signature point: dead lanes excluded from the sum
     excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
     jsum, jsum_inf = sum_g2(rsig, excl)
-    fprod = prod12(ops["live_row"], miller_loop(rpk, ops["msg"]))
+    if grouping is None:
+        fprod = prod12(ops["live_row"], miller_loop(rpk, ops["msg"]))
+    else:
+        gops = grouped_operands(ops, rpk, rpk_inf, *grouping)
+        pts, seg_inf = seg_sum_g1(*gops["seg_sum_g1"])
+        msg_h, head_lanes, glive = gops["heads"]
+        g, q, live_row = _group_heads(pts, seg_inf, msg_h, head_lanes, glive)
+        fprod = prod12(live_row, miller_loop(g, q))
     ok = _batch_tail(fprod, jsum, jsum_inf)
     return _batch_verdict(ok, sub, ops["live"], ops["pk_inf"], sig_bad, valid)
 
@@ -779,3 +949,62 @@ def verify_batch_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, si
     _shape(rwords, (RAND_WORDS, n), "verify_batch_device_wire rwords")
     msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
     return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid)
+
+
+def _grouping_shapes(group, head_lanes, glive, n):
+    _shape(group, (n,), "group")
+    _shape(head_lanes, (BT,), "head_lanes")
+    _shape(glive, (BT,), "glive")
+
+
+def verify_batch_device_wire_grouped(table_x, table_y, idx, kmask, msg_planes, sig_x, sig_flags, group,
+                                     head_lanes, glive, rwords, valid):
+    """`verify_batch_device_wire` with distinct-message grouping (`:804`):
+    the Miller side runs per distinct signing root on one BT-lane tile
+    instead of per set.  group: int32 [N] nondecreasing ids, every lane of
+    one message in one contiguous run; head_lanes: int32 [BT] the last
+    lane of each group (padding entries arbitrary); glive: int32 [BT] 1
+    for real groups.  Needs at most BT groups.  Same verdicts as the
+    ungrouped path."""
+    n = valid.shape[0]
+    _shape(rwords, (RAND_WORDS, n), "verify_batch_device_wire_grouped rwords")
+    _grouping_shapes(group, head_lanes, glive, n)
+    msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
+    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid,
+                       (group, head_lanes, glive))
+
+
+# ---------------------------------------------------------------------------
+# Pre-verify signature aggregation (`aggregate_g2_sum_device` `:883`)
+# ---------------------------------------------------------------------------
+
+
+def _agg_heads(pts, seg_inf, head_lanes, glive):
+    """`_j_agg_heads` (`:870`): each group's Jacobian total (its last lane)
+    gathered onto one BT-lane tile, dead group lanes flagged infinity."""
+    h = head_lanes.to(torch.int64)
+    g_inf = (seg_inf[0].index_select(0, h) != 0) | (glive == 0)
+    return pts.index_select(-1, h).contiguous(), g_inf[None, :].to(torch.int32)
+
+
+def aggregate_g2_sum_device(sig_x, sig_flags, group, head_lanes, glive):
+    """The G2 sum of each group of wire signatures, on the device.
+
+    sig_x [2, 12, N] and sig_flags [2, N]: the `encode_wire_planes`
+    layout; group, head_lanes, glive as `verify_batch_device_wire_grouped`
+    (at most BT groups).  g2_decompress, then `seg_sum_g2` over the
+    decompressed points (an infinity or undecodable signature counts as
+    infinity), then the group totals onto one BT-lane tile and to affine
+    by `affine_g2`.  Returns (affine Montgomery planes [2, 2, 12, BT], one
+    aggregate per group, the generator where the total is infinity;
+    g_inf [1, BT]: the total is infinity; ok [1, N]: the input decoded,
+    so a group with a lane not ok has no aggregate)."""
+    n = sig_flags.shape[-1]
+    _shape(sig_x, (2, NL, n), "aggregate_g2_sum_device sig_x")
+    _grouping_shapes(group, head_lanes, glive, n)
+    xy, dec_ok = g2_decompress(sig_x, sig_flags)
+    bad = ((sig_flags[1] != 0) | (dec_ok[0] == 0))[None, :].to(torch.int32)
+    pts, seg_inf = seg_sum_g2(xy, bad, group)
+    heads, h_inf = _agg_heads(pts, seg_inf, head_lanes, glive)
+    a, g_inf = affine_g2(heads, h_inf)
+    return a, g_inf, 1 - bad

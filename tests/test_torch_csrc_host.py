@@ -298,3 +298,46 @@ def test_agg_pk_host_build_flags_rows_outside_the_table(libs):
     assert torch.equal(out[..., 3:], KV.agg_pk_plain(tx, ty, in_range, kmask[3:])[0])
     with pytest.raises(ValueError, match="V >= 1"):
         KV.agg_pk(tx[:, :0], ty[:, :0], idx, kmask)
+
+
+def test_keyvalidate_host_build_counts_and_equals_plain(libs):
+    """A key of G1, the order-3 key x = 0 and a lane flagged infinity:
+    (x, y) and ok bit-equal to the plain version; the Fp products per
+    lane are the cost model's (the oracle cases are in
+    tests/test_torch_keyvalidate.py)."""
+    pk = GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar())
+    x = torch.from_numpy(LY.encode_plain_batch([pk[0], 0, pk[0]])).contiguous()
+    flags = torch.tensor([[GT.fp_sgn(pk[1]), 0, GT.fp_sgn(pk[1])], [0, 0, 1]], dtype=torch.int32)
+    xy, ok = i32(2, LY.NL, 3), i32(1, 3)
+    lib = libs["keyvalidate"]
+    assert lib.lt_g1_keyvalidate(x.data_ptr(), flags.data_ptr(), xy.data_ptr(), ok.data_ptr(), 3, None) == 0
+    assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["g1_keyvalidate"]
+    want = KV.g1_keyvalidate_plain(x, flags)
+    assert torch.equal(xy, want[0]) and torch.equal(ok, want[1])
+    assert ok.tolist() == [[1, 0, 0]] and LY.decode_batch(xy[1, :, :1].numpy()) == [pk[1]]
+
+
+@pytest.mark.parametrize("n", [1, 5, 16])
+def test_segsum_host_build_counts_and_equals_plain(libs, n):
+    """One complete addition per lane and round, log2 n rounds (one for
+    n = 1), in G1 and G2; groups of 1..3 lanes, a dead lane; the host build
+    equals the plain version bit for bit."""
+    assert KV.seg_rounds(n) == max(1, (n - 1).bit_length())
+    group = torch.from_numpy(np.repeat(np.arange(n), 3)[:n].astype(np.int32))
+    dead = torch.from_numpy((np.arange(n) % 4 == 3).astype(np.int32)[None, :]).contiguous()
+    lib = libs["segsum"]
+    pts = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(n)]
+    p = g1_planes(pts, [scalar() for _ in range(n)])
+    out, out_inf, scr, scr_inf = i32(3, LY.NL, n), i32(1, n), i32(3, LY.NL, n), i32(1, n)
+    assert lib.lt_seg_sum_g1(p.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+                             scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
+    assert lib.lt_host_fp_muls() == KV.seg_rounds(n) * n * KV.FP_MULS_PER_LANE["seg_sum_g1"]
+    want = KV.seg_sum_g1_plain(p, dead, group)
+    assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
+    q = g2_planes([GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(n)])
+    out, scr = i32(3, 2, LY.NL, n), i32(3, 2, LY.NL, n)
+    assert lib.lt_seg_sum_g2(q.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+                             scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
+    assert lib.lt_host_fp_muls() == KV.seg_rounds(n) * n * KV.FP_MULS_PER_LANE["seg_sum_g2"]
+    want = KV.seg_sum_g2_plain(q, dead, group)
+    assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])

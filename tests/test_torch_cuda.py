@@ -95,11 +95,11 @@ def rlc(dev, points):
                 excl=excl, f=KV.miller_loop(rpk, q))
 
 
-def _equal(kernel, plain, *args, counter=None):
+def _equal(kernel, plain, *args, counter=None, launches=1):
     name = counter or kernel.__name__
     before = KV.LAUNCHES[name]
     got = kernel(*args)
-    assert KV.LAUNCHES[name] == before + 1
+    assert KV.LAUNCHES[name] == before + launches
     want = plain(*args)
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -230,3 +230,72 @@ def test_wire_verifier_on_card(dev):
     KV.reset_launches()
     assert v.verify_signature_sets(sets[:2], VerifyOptions(batchable=True)) is True
     assert (KV.LAUNCHES["final_one"], KV.LAUNCHES["each_final"], KV.LAUNCHES["hash_g2"]) == (1, 0, 0)
+
+
+def test_g1_keyvalidate_on_card(dev):
+    """Keys of G1 with both signs, the order-3 key x = 0, an on-curve key
+    outside G1, an x off the curve and a lane flagged infinity."""
+    from lodestar_tpu_torch.bls.ingest import encode_pubkey_planes
+
+    def x_key(x, sign=0):
+        out = bytearray(x.to_bytes(48, "big"))
+        out[0] |= 0x80 | (0x20 if sign else 0)
+        return bytes(out)
+
+    pks = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(N - 8)]
+    keys = [GC.g1_compress(p) for p in pks]
+    keys += [bytes([keys[0][0] ^ 0x20]) + keys[0][1:], x_key(0), x_key(0, 1), x_key(4), x_key(5),
+             GC.g1_compress(None), x_key(7), x_key(11)]
+    x, flags, host_bad = encode_pubkey_planes(keys)
+    assert not host_bad.any()
+    xy, ok = _equal(KV.g1_keyvalidate, KV.g1_keyvalidate_plain, planes(x, dev), planes(flags, dev))
+    want = [GC.g1_subgroup_check(GC.g1_decompress(k)) if k[0] & 0x40 == 0 and _on_curve(k) else False
+            for k in keys]
+    assert ok[0].tolist() == [int(w) for w in want] and ok[0, : N - 7].all() and not ok[0, N - 7 :].any()
+
+
+def _on_curve(key):
+    try:
+        GC.g1_decompress(key)
+    except ValueError:
+        return False
+    return True
+
+
+def test_seg_sums_on_card(dev, points):
+    """The G1 and G2 segmented scans over groups of 1..7 lanes with dead
+    lanes, one launch per round."""
+    p, q = points
+    group = planes(np.repeat(np.arange(N), RNG.integers(1, 8, size=N))[:N].astype(np.int32), dev)
+    dead = planes((RNG.random((1, N)) < 0.2).astype(np.int32), dev)
+    rounds = KV.seg_rounds(N)
+    _equal(KV.seg_sum_g1, KV.seg_sum_g1_plain, p, dead, group, launches=rounds)
+    _equal(KV.seg_sum_g2, KV.seg_sum_g2_plain, q, dead, group, launches=rounds)
+
+
+def test_grouped_wire_batch_and_aggregation_on_card(dev):
+    """Wire sets over two roots: the verifier takes the grouped entry (one
+    seg_sum_g1 scan, a 128-lane Miller tile and the one-lane tail) and
+    accepts; aggregate_wire_signatures equals the host sum byte for byte,
+    a group with a 95-byte member giving None."""
+    from lodestar_tpu_torch.bls.signature_set import WireSignatureSet
+
+    sks = [scalar() for _ in range(4)]
+    table = PubkeyTable()
+    table.register([GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, sk) for sk in sks])
+    roots = [b"on-card-group-a", b"on-card-group-b"]
+    hs = [GH.hash_to_g2(r) for r in roots]
+    sigs = {(k, r): GC.g2_compress(GC.scalar_mul(GC.FP2_OPS, hs[r], sks[k])) for k in range(4) for r in range(2)}
+    sets = [WireSignatureSet.single(k, roots[r], sigs[k, r]) for k in range(4) for r in range(2)]
+    v = TorchBlsVerifier(table)
+    v.messages.get_many(roots)
+    KV.reset_launches()
+    assert v.verify_signature_sets(sets, VerifyOptions(batchable=True)) is True
+    assert v.entries == {"batch_wire_grouped": 1}
+    assert (KV.LAUNCHES["seg_sum_g1"], KV.LAUNCHES["miller_loop"], KV.LAUNCHES["final_one"]) == (
+        KV.seg_rounds(128), 2, 1)
+    groups = [[sigs[k, 0] for k in range(4)], [sigs[1, 1], sigs[3, 1]], [sigs[0, 0], sigs[2, 0][:95]]]
+    KV.reset_launches()
+    assert v.aggregate_wire_signatures(groups) == [v._aggregate_wire_host(g) for g in groups]
+    assert v.aggregate_wire_signatures(groups)[2] is None
+    assert KV.LAUNCHES["seg_sum_g2"] > 0 and KV.LAUNCHES["g2_decompress"] > 0

@@ -177,16 +177,18 @@ def test_mixed_wire_job_per_set_equals_oracle(world, monkeypatch):
 
 def test_aggregate_batch_k16_and_k_buckets(world, monkeypatch):
     """A batchable wire job of aggregates in the K bucket 16 (and a
-    single) is ONE RLC batch that accepts; the verifier's K buckets and
-    kmask follow the JAX package's."""
+    single) is ONE RLC batch that accepts, through the grouped entry (two
+    of its three sets share a root); the verifier's K buckets and kmask
+    follow the JAX package's."""
     keys = [[0, 1, 2, 3, 0, 1, 2, 3, 0, 1], [3, 3, 1], [2]]
     sets = [WireSignatureSet.aggregate(ks, ROOTS[j % 2], GC.g2_compress(agg_sig(world, ks, j % 2)))
             for j, ks in enumerate(keys)]
     assert all(oracle(world, s) for s in sets)
     v = verifier(world)
-    calls = record(monkeypatch, "verify_each_device_wire", "verify_batch_device_wire", "agg_pk", "final_one")
+    calls = record(monkeypatch, "verify_each_device_wire", "verify_batch_device_wire",
+                   "verify_batch_device_wire_grouped", "agg_pk", "seg_sum_g1", "final_one")
     assert v.verify_signature_sets(sets, VR.VerifyOptions(batchable=True)) is True
-    assert calls == ["verify_batch_device_wire", "agg_pk", "final_one"]
+    assert calls == ["verify_batch_device_wire_grouped", "agg_pk", "seg_sum_g1", "final_one"]
     idx, kmask = v._kslots(sets, 8)
     assert idx.shape == (8, 16) and kmask.sum(1).tolist() == [10, 3, 1, 0, 0, 0, 0, 0]
     assert VR.K_BUCKETS == (1, 4, 16, 64, 512, 2048) and VR.MAX_AGG_INDICES == 2048
@@ -224,8 +226,9 @@ class _Oracle:
     """Records each dispatched batch (the set identities in lane order)
     and each per-set leaf; a batch passes iff all its sets are ok."""
 
-    def _record_batch(self, sets):
+    def _record_batch(self, sets, grouped):
         self.batch_calls.append([s.signature for s in sets])
+        self.grouped.append(grouped)
         return all(s.signature.startswith(b"ok") for s in sets)
 
     def _record_leaf(self, sets):
@@ -239,13 +242,13 @@ class _Oracle:
 class PortWireOracle(_Oracle, VR.TorchBlsVerifier):
     def __init__(self, leaf):
         super().__init__(PubkeyTable(capacity=2), device="cpu", bisect_leaf=leaf)
-        self.batch_calls, self.leaf_calls = [], []
+        self.batch_calls, self.leaf_calls, self.grouped = [], [], []
 
     def _prepare_wire(self, sets):
         return list(sets), np.zeros(len(sets), bool)
 
-    def _dispatch_rlc_batch(self, args):
-        return self._record_batch(args)
+    def _dispatch_rlc_batch(self, args, sets):
+        return self._record_batch(sets, self._grouping(sets, VR._bucket(len(sets))) is not None)
 
     def _per_set_verdicts(self, sets):
         return self._record_leaf(sets)
@@ -254,13 +257,13 @@ class PortWireOracle(_Oracle, VR.TorchBlsVerifier):
 class JaxWireOracle(_Oracle, TpuBlsVerifier):
     def __init__(self, leaf):
         super().__init__(JPubkeyTable(capacity=2), rng=np.random.default_rng(0), bisect_leaf=leaf)
-        self.batch_calls, self.leaf_calls = [], []
+        self.batch_calls, self.leaf_calls, self.grouped = [], [], []
 
     def _prepare_wire(self, sets):
         return None, None, len(sets), np.zeros(len(sets), bool)
 
     def _dispatch_rlc_batch(self, sets, args, valid, n, wire):
-        return self._record_batch(sets)
+        return self._record_batch(sets, self._grouping(sets, n) is not None)
 
     def _per_set_verdicts(self, sets, wire):
         return self._record_leaf(sets)
@@ -269,8 +272,9 @@ class JaxWireOracle(_Oracle, TpuBlsVerifier):
 @pytest.mark.parametrize("n,leaf,bad", [(37, 4, (3, 20)), (64, 8, (0,)), (9, 2, (1, 2, 8))])
 def test_wire_bisection_plan_equals_jax(n, leaf, bad):
     """begin_job / finish_job on a batchable wire job: the same sorted
-    batches and leaves in the same order, the same verdicts in submission
-    order and the same counters as the JAX verifier."""
+    batches and leaves in the same order, each batch grouped by message
+    exactly when the JAX verifier groups it, the same verdicts in
+    submission order and the same counters as the JAX verifier."""
     port, jx = PortWireOracle(leaf), JaxWireOracle(leaf)
     pjob = port.begin_job(_fake_wire(WireSignatureSet, n, bad, np.random.default_rng(n)), batchable=True)
     jjob = jx.begin_job(_fake_wire(JSS.WireSignatureSet, n, bad, np.random.default_rng(n)), batchable=True)
@@ -278,6 +282,7 @@ def test_wire_bisection_plan_equals_jax(n, leaf, bad):
     jx.close()
     assert pjob.verdicts.tolist() == jjob.verdicts.tolist() == [i not in bad for i in range(n)]
     assert port.batch_calls == jx.batch_calls and port.leaf_calls == jx.leaf_calls
+    assert port.grouped == jx.grouped and True in port.grouped
     assert (pjob.batch_retries, pjob.batch_sigs_success) == (jjob.batch_retries, jjob.batch_sigs_success)
     roots = [s.signing_root for s in pjob.sets]
     assert roots == sorted(roots) and len(port.batch_calls[0]) == n

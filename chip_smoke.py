@@ -397,7 +397,7 @@ def main() -> int:
     from lodestar_tpu_torch.bls.pubkey_table import PubkeyTable
     from lodestar_tpu_torch.bls.rand import make_rand_words
     from lodestar_tpu_torch.bls.signature_set import WireSignatureSet
-    from lodestar_tpu_torch.bls.verifier import K_BUCKETS, TorchBlsVerifier, VerifyOptions
+    from lodestar_tpu_torch.bls.verifier import K_BUCKETS, N_BUCKETS, TorchBlsVerifier, VerifyOptions
     from lodestar_tpu_torch.crypto import bls as GB
     from lodestar_tpu_torch.crypto import curves as GC
     from lodestar_tpu_torch.crypto import hash_to_curve as GH
@@ -649,11 +649,19 @@ def main() -> int:
         if min(counts[k] for k in names) == 0:
             raise AssertionError(f"{label}: a kernel of the path was never launched: {counts}")
 
-    def entries(fn):
-        """fn() counted, and the verifier's batch dispatches by entry in it."""
-        before = dict(verifier.entries)
-        out, counts = counted(fn)
-        return out, counts, {k: v - before.get(k, 0) for k, v in verifier.entries.items() if v != before.get(k, 0)}
+    def bucket(size):
+        return min(b for b in N_BUCKETS if b >= size)
+
+    def entry_of(counts):
+        """The RLC batch entry of a counted run, read from its launches (one
+        final_one per batch dispatch): the grouped entry scans (seg_sum_g1),
+        the ungrouped wire entry decompresses (g2_decompress) and does not
+        scan, the decoded entry does neither."""
+        if not counts["final_one"]:
+            return None
+        if counts["seg_sum_g1"]:
+            return "verify_batch_device_wire_grouped"
+        return "verify_batch_device_wire" if counts["g2_decompress"] else "verify_batch_device"
 
     def breakdown(label, n, prepare, ms, counts, names):
         """Kernel-phase medians at this N, or at the largest N where a
@@ -725,16 +733,23 @@ def main() -> int:
         bisected to the leaf, exact verdicts in submission order."""
         want = [i != BAD_SET for i in range(n)]
         t = time.perf_counter()
-        before = dict(verifier.entries)
         job, _ = counted(lambda: verifier.begin_job(bad_job, batchable=True))
         ok = verifier.finish_job(job)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
         counts = dict(KV.LAUNCHES)
-        took = {k: v - before.get(k, 0) for k, v in verifier.entries.items() if v != before.get(k, 0)}
-        grouped = want_entry == "batch_wire_grouped"
-        if took != {want_entry: counts["final_one"]} or grouped != (counts["seg_sum_g1"] > 0):
-            raise AssertionError(f"{label}: batch entries {took}, launches {counts}")
+        # the RLC batches: the job, then both halves of each failing half
+        # above the leaf (n a power of two); a grouped one scans
+        # seg_rounds of its bucket
+        sizes, m = [n], n
+        while m > verifier.bisect_leaf:
+            m //= 2
+            sizes += [m, m]
+        rounds = sum(KV.seg_rounds(bucket(size)) for size in sizes)
+        grouped = want_entry == "verify_batch_device_wire_grouped"
+        if (entry_of(counts) != want_entry or counts["final_one"] != len(sizes)
+                or counts["seg_sum_g1"] != (rounds if grouped else 0)):
+            raise AssertionError(f"{label}: not {len(sizes)} batches through {want_entry}: launches {counts}")
         if ok is not False or job.verdicts.tolist() != want:
             raise AssertionError(f"{label}: verdict {ok}, {int((job.verdicts != want).sum())} per-set verdicts wrong")
         leaf = verifier.bisect_leaf
@@ -748,14 +763,15 @@ def main() -> int:
         log(f"main path {label} N={n}: one wrong message at set {BAD_SET}: batch rejected, bisected "
             f"{n} -> {n // 2} -> ... -> {leaf} (depth {job.bisect_depth}), {job.batch_sigs_success} sets cleared by "
             f"passing halves, the {leaf}-set leaf verified per set; every verdict equals the ground truth; "
-            f"batch entries {json.dumps(took)}; launches {json.dumps(counts)}; {dt:.1f} ms (host clock, one run)")
+            f"{len(sizes)} batches through {want_entry}; launches {json.dumps(counts)}; {dt:.1f} ms (host clock, "
+            f"one run)")
         no_host_sets(label)
         return counts
 
     n = JOBS[-1]
     bad_job = list(valid_sets[:n])
     bad_job[BAD_SET] = sets[BAD_SET]
-    paths["bisection", n] = bisection("bisection", n, bad_job, "batch_decoded")
+    paths["bisection", n] = bisection("bisection", n, bad_job, "verify_batch_device")
 
     # the cold message cache: the 8 roots hashed in one 128-lane launch
     cache = MessageCache(device=dev)
@@ -777,13 +793,13 @@ def main() -> int:
         # the wire batch: the all-valid job as wire bytes
         job = wire_valid[:n]
         verifier.verify_signature_sets(job, batchable)  # warm-up
-        ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
+        ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
         if ok is not True:
             raise AssertionError(f"wire N={n}: the all-valid wire batch was rejected")
         if counts["miller_loop"] != 2 or counts["final_one"] != 1 or counts["each_final"] != 0 or counts["hash_g2"]:
             raise AssertionError(f"wire N={n}: the batch did not run as one multi-pairing: {counts}")
-        if took != {"batch_wire_grouped": 1} or counts["seg_sum_g1"] != KV.seg_rounds(n):
-            raise AssertionError(f"wire N={n}: entries {took}, seg_sum_g1 launches {counts['seg_sum_g1']}")
+        if entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(n):
+            raise AssertionError(f"wire N={n}: entry {entry_of(counts)}, seg_sum_g1 launches {counts['seg_sum_g1']}")
         require(f"wire batch N={n}", counts, GROUPED_BATCH)
         ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
         # the same job through the ungrouped entry, then grouped again: the
@@ -795,8 +811,8 @@ def main() -> int:
             del verifier._grouping
         ms_again = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
         log(f"main path wire-batch N={n}: accepted {n} of {n} wire sets as one RLC batch through the grouped "
-            f"entry ({n // N_KEYS} roots: one {KV.BT}-lane Miller tile and the one-lane tail); batch entries "
-            f"{json.dumps(took)}; launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host "
+            f"entry ({n // N_KEYS} roots: one {KV.BT}-lane Miller tile and the one-lane tail; one "
+            f"{entry_of(counts)}); launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host "
             f"clock, median of 3 after a warm-up); the same job through the ungrouped entry {ms_ungrouped:.3f} ms, "
             f"then grouped again {ms_again:.3f} ms (medians of 3)")
         breakdown("wire-batch", n, lambda: verifier._prepare_wire(job), ms, counts, GROUPED_BATCH)
@@ -820,41 +836,42 @@ def main() -> int:
         results["sets_per_s", "wire_per_set", n] = n / ms * 1e3
 
         # the wire mixed job sent batchable: malformed encodings void the batch
-        ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
-        if ok is not False or counts["each_final"] != 1 or counts["final_one"] != 0 or took:
-            raise AssertionError(f"wire N={n}: the mixed batchable job did not go per set: {ok}, {counts}, {took}")
+        ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+        if ok is not False or counts["each_final"] != 1 or entry_of(counts) is not None:
+            raise AssertionError(f"wire N={n}: the mixed batchable job did not go per set: {ok}, {counts}")
         log(f"main path wire-mixed-batchable N={n}: False, routed per set before any batch entry (its "
-            f"malformed encodings void the batch; batch entries {json.dumps(took)}; launches {json.dumps(counts)})")
+            f"malformed encodings void the batch; launches {json.dumps(counts)})")
     no_host_sets("wire paths")
 
     # 8 sets of 8 distinct roots: no root repeats, so the ungrouped entry
     job = [wire_valid[r * N_KEYS] for r in range(N_ROOTS)]
-    ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
-    if ok is not True or took != {"batch_wire": 1} or counts["seg_sum_g1"] or counts["miller_loop"] != 2:
-        raise AssertionError(f"ungrouped wire batch: verdict {ok}, entries {took}, launches {counts}")
+    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+    if (ok is not True or entry_of(counts) != "verify_batch_device_wire" or counts["final_one"] != 1
+            or counts["miller_loop"] != 2):
+        raise AssertionError(f"ungrouped wire batch: verdict {ok}, entry {entry_of(counts)}, launches {counts}")
     require("ungrouped wire batch", counts, WIRE_BATCH)
     log(f"main path wire-batch-ungrouped N={len(job)}: {N_ROOTS} distinct roots, accepted as one RLC batch "
-        f"through the ungrouped entry; batch entries {json.dumps(took)}; launches {json.dumps(counts)}")
+        f"through the ungrouped entry ({entry_of(counts)}); launches {json.dumps(counts)}")
     paths["wire_batch_ungrouped", len(job)] = counts
     no_host_sets("ungrouped wire batch")
 
     n = JOBS[-1]
     bad_job = list(wire_valid[:n])
     bad_job[BAD_SET] = wire_mixed[BAD_SET]
-    paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job, "batch_wire_grouped")
+    paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job, "verify_batch_device_wire_grouped")
 
     # the aggregate batch: 256 sets of K = 128 over one root
     job = d["wire_agg"]
     verifier.verify_signature_sets(job, batchable)  # warm-up
-    ok, counts, took = entries(lambda: verifier.verify_signature_sets(job, batchable))
+    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
     if ok is not True or counts["agg_pk"] != 1 or counts["final_one"] != 1 or counts["each_final"] != 0:
         raise AssertionError(f"aggregate batch: verdict {ok}, launches {counts}")
-    if took != {"batch_wire_grouped": 1}:
-        raise AssertionError(f"aggregate batch: entries {took}")
+    if entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(bucket(AGG_SETS)):
+        raise AssertionError(f"aggregate batch: entry {entry_of(counts)}, launches {counts}")
     require("aggregate batch", counts, AGG_BATCH)
     ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
     log(f"main path aggregate-batch N={AGG_SETS} K={AGG_K}: accepted as one RLC batch through agg_pk (K bucket "
-        f"{k_bucket}) and the grouped entry (one root); batch entries {json.dumps(took)}; launches "
+        f"{k_bucket}) and the grouped entry (one root; {entry_of(counts)}); launches "
         f"{json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
         f"{AGG_SETS * AGG_K / ms * 1e3:.1f} pubkeys (signers' signatures)/s (host clock, median of 3 after a "
         f"warm-up)")
@@ -900,14 +917,16 @@ def main() -> int:
                                          d["roots"][r], aggs[r]) for r in range(N_ROOTS)]
     merged_truth = [GB.fast_aggregate_verify([d["pks"][i % N_KEYS] for i in s.indices], s.signing_root,
                                              GC.g2_decompress(s.signature)) for s in merged]
-    ok, counts2, took = entries(lambda: verifier.verify_signature_sets(merged, batchable))
-    if not all(merged_truth) or ok is not True or counts2["agg_pk"] != 1 or took != {"batch_wire": 1}:
-        raise AssertionError(f"merged sets: truth {merged_truth}, verdict {ok}, entries {took}, launches {counts2}")
+    ok, counts2 = counted(lambda: verifier.verify_signature_sets(merged, batchable))
+    if (not all(merged_truth) or ok is not True or counts2["agg_pk"] != 1 or counts2["final_one"] != 1
+            or entry_of(counts2) != "verify_batch_device_wire"):
+        raise AssertionError(f"merged sets: truth {merged_truth}, verdict {ok}, entry {entry_of(counts2)}, "
+                             f"launches {counts2}")
     log(f"main path preagg N={n}: aggregate_wire_signatures of {N_ROOTS} groups of {N_KEYS} wire signatures: "
         f"every aggregate equals the host's bytes (_aggregate_wire_host); launches {json.dumps(counts)}; "
         f"{agg_ms:.1f} ms (host clock, one run, compression on the host included); a group with a 95-byte member "
         f"gave None; the {N_ROOTS} merged sets (K = {N_KEYS}, ground truth all True) accepted as one RLC batch "
-        f"(batch entries {json.dumps(took)}; launches {json.dumps(counts2)})")
+        f"({entry_of(counts2)}; launches {json.dumps(counts2)})")
     no_host_sets("merged sets")
 
     if not verifier._device_canary():
@@ -919,7 +938,7 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         path, n = MAIN_PATH[name]
         k_ms, p_ms, err = results[name, n]
-        # units of FP_MULS_PER_LANE and bytes of one launch
+        # units of FP_MULS_NEEDED and bytes of one launch
         lanes = n
         if name in TAIL:
             units = lanes = 1
@@ -933,7 +952,17 @@ def main() -> int:
             units = seg_units[name]  # one addition per live lane after its group's first
         else:
             units = n
-        ops_ms = KV.FP_MULS_PER_LANE[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
+        # the bound counts the products the function needs, not the ones
+        # the kernel makes (KV.FP_MULS_NEEDED against FP_MULS_PER_LANE)
+        ops_ms = KV.FP_MULS_NEEDED[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
+        if name in seg_units:
+            done = KV.seg_rounds(n) * n  # one addition per lane and round
+        elif name == "agg_pk":
+            done = n * (k_bucket - 1)  # every slot of the K bucket
+        elif name in ("sum_g2", "prod12"):
+            done = max(n, KV.BT) - 1
+        else:
+            done = units
         if name == "agg_pk":
             nbytes = agg_live_rows * 2 * 48 + n * (k_bucket * 8 + 3 * 48 + 4)
         else:
@@ -947,6 +976,7 @@ def main() -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "path": path, "n": n,
+            "fp_muls_needed": KV.FP_MULS_NEEDED[name] * units, "fp_muls_done": KV.FP_MULS_PER_LANE[name] * done,
             "launches_by_path": {f"{p} N={pn}": c[name] for (p, pn), c in paths.items()},
         }
         if name == "agg_pk":

@@ -49,7 +49,8 @@ class PubkeyTable:
                 raise ValueError("pubkey not on curve")
             if not C.g1_subgroup_check(pk):
                 raise ValueError("pubkey not in G1 subgroup")
-        return self._append([pk[0] for pk in pubkeys], [pk[1] for pk in pubkeys])
+        xs = LY.encode_batch([pk[0] for pk in pubkeys])
+        return self._append_planes(xs, LY.encode_batch([pk[1] for pk in pubkeys]))
 
     def register_compressed(self, keys: Sequence[bytes], device_batch: int = 65536, device=None) -> List[int]:
         """Register 48-byte compressed pubkeys with KeyValidate on the
@@ -78,24 +79,15 @@ class PubkeyTable:
                     f"pubkey {start + bad} failed KeyValidate (malformed, off-curve, infinity, or out of subgroup)"
                 )
             validated.append(xy[..., :n].cpu().numpy())
-        idxs: List[int] = []
-        for xy in validated:
-            n = xy.shape[-1]
-            while self._n + n > self._cap:
-                self._grow()
-            self._host_x[:, self._n : self._n + n] = xy[0]
-            self._host_y[:, self._n : self._n + n] = xy[1]
-            idxs.extend(range(self._n, self._n + n))
-            self._n += n
-        self._device = {}
-        return idxs
+        return [i for xy in validated for i in self._append_planes(xy[0], xy[1])]
 
-    def _append(self, xs, ys) -> List[int]:
-        k = len(xs)
+    def _append_planes(self, x_planes: np.ndarray, y_planes: np.ndarray) -> List[int]:
+        """Append Montgomery planes [12, k]; drops the device mirrors."""
+        k = x_planes.shape[-1]
         while self._n + k > self._cap:
             self._grow()
-        self._host_x[:, self._n : self._n + k] = LY.encode_batch(xs)
-        self._host_y[:, self._n : self._n + k] = LY.encode_batch(ys)
+        self._host_x[:, self._n : self._n + k] = x_planes
+        self._host_y[:, self._n : self._n + k] = y_planes
         idxs = list(range(self._n, self._n + k))
         self._n += k
         self._device = {}

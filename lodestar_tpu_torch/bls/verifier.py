@@ -20,8 +20,7 @@ Semantics kept:
     half of one, with at most 128 distinct signing roots and at least one
     repeated root takes `verify_batch_device_wire_grouped`, whose Miller
     side runs once per distinct root on one 128-lane tile; any other wire
-    batch takes `verify_batch_device_wire`.  `entries` counts the batch
-    entry each dispatch took.
+    batch takes `verify_batch_device_wire`.
   - Sets with more than MAX_AGG_INDICES = 2048 indices, and sets with
     external pubkeys, are verified on the host ground truth, as the JAX
     package routes them (a property of the set, not a fallback on a
@@ -59,7 +58,6 @@ the export cache.
 from __future__ import annotations
 
 import os
-from collections import Counter
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -206,9 +204,6 @@ class TorchBlsVerifier:
         # below one 128-lane tile every sub-job pads to the same bucket,
         # so bisection stops there and the leaf runs per-set verdicts
         self.bisect_leaf = KV.BT if bisect_leaf is None else bisect_leaf
-        # batch dispatches by entry: "batch_decoded", "batch_wire",
-        # "batch_wire_grouped" (the JAX package's dispatch names)
-        self.entries: Counter = Counter()
 
     def can_accept_work(self) -> bool:
         return self._pending_jobs < MAX_PENDING_JOBS
@@ -424,17 +419,14 @@ class TorchBlsVerifier:
         rwords = torch.from_numpy(make_rand_words(n, self.rng)).to(self.device)
         tx, ty = self.table.device_planes(self.device)
         if not isinstance(args, WireArgs):
-            self.entries["batch_decoded"] += 1
             batch_ok, _sub_ok = KV.verify_batch_device(tx, ty, *args[:-1], rwords, args.valid)
             return batch_ok
         grouping = self._grouping(sets, n)
         if grouping is not None:
-            self.entries["batch_wire_grouped"] += 1
             batch_ok, _sub_ok = KV.verify_batch_device_wire_grouped(
                 tx, ty, *args[:-1], *self._to_device(*grouping), rwords, args.valid
             )
             return batch_ok
-        self.entries["batch_wire"] += 1
         batch_ok, _sub_ok = KV.verify_batch_device_wire(tx, ty, *args[:-1], rwords, args.valid)
         return batch_ok
 
@@ -521,8 +513,14 @@ class TorchBlsVerifier:
         return C.g2_compress(C.multi_add(C.FP2_OPS, pts))
 
     def _aggregate_wire_device(self, groups: List[List[bytes]]) -> List[Optional[bytes]]:
-        """Chunks of at most BT groups and N_BUCKETS[-1] signatures (a group
-        larger than that alone in its chunk), one dispatch each."""
+        """The non-empty groups in chunks of at most BT groups and
+        N_BUCKETS[-1] signatures (a group larger than that alone in its
+        chunk), one dispatch each; an empty group sums to infinity, as on
+        the host path."""
+        sums = iter(self._aggregate_nonempty_device([g for g in groups if g]))
+        return [next(sums) if g else C.g2_compress(None) for g in groups]
+
+    def _aggregate_nonempty_device(self, groups: List[List[bytes]]) -> List[Optional[bytes]]:
         out: List[Optional[bytes]] = []
         start = 0
         while start < len(groups):

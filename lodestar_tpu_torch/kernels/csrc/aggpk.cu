@@ -18,9 +18,10 @@
 // points in the thread's stack frame (4.6 KB of local memory): the simple
 // choice, over a warp-shared tree, for a first version.
 //
-// Bound on this card: 32-bit integer multiplies, one complete addition
-// per live row after a lane's first at 23 Fp products each
-// (kernels/verify.py FP_MULS_PER_LANE, per addition).  Bytes: each lane
+// Bound on this card: 32-bit integer multiplies, one addition per live
+// row after a lane's first; the rows are affine, so a mixed addition of
+// 11 Fp products would do (kernels/verify.py FP_MULS_NEEDED), where the
+// kernel makes a complete one of 23 (FP_MULS_PER_LANE) per slot.  Bytes: each lane
 // reads its live rows of 96 bytes and K index and mask words, and writes
 // 148 bytes.
 #include "curve.cuh"

@@ -21,8 +21,11 @@
 // Bound on this card: 32-bit integer multiplies.  A lane makes 254
 // doublings (7 Fp products), 133 complete additions (23: the generic
 // addition and the doubling it may select), one square root (a 379-bit
-// power) and the conversions: 5,448 Fp products (kernels/verify.py
-// FP_MULS_PER_LANE, checked against the host build's count).  Bytes per
+// power, 606) and the conversions (5): 5,448 Fp products
+// (kernels/verify.py FP_MULS_PER_LANE, checked against the host build's
+// count).  The function needs 3,852 (FP_MULS_NEEDED): P is affine, so a
+// mixed addition (11) would do, and a key's chain never selects the
+// doubling (its last step is P + (-P), infinity without one).  Bytes per
 // lane: 56 in, 100 out.  Registration launches 65,536 lanes at a time,
 // 2,048 warps: the first kernel of the port with lanes enough to fill
 // the card, so its time is throughput, not one lane's latency.  The

@@ -19,9 +19,10 @@
 // coordinates depend on the order) equals the plain version bit for bit.
 //
 // Bound on this card: one block uses one SM, so the chain of 7 + N / 128 - 1
-// dependent combines (60 Fp products per G2 addition, 54 per Fp12
-// product) bounds it at the main path's sizes; the card-wide IMAD bound
-// counts all N - 1 combines.  Bytes: N lanes of 288 B (G2) or 576 B (Fp12).
+// dependent combines (60 Fp products per complete G2 addition, 54 per
+// Fp12 product) bounds it at the main path's sizes; the card-wide IMAD
+// bound counts all N - 1 combines at what the function needs (44 per G2
+// addition: the doubling beside it is never selected for distinct points).  Bytes: N lanes of 288 B (G2) or 576 B (Fp12).
 #include "curve.cuh"
 
 #define LT_RED_THREADS 128

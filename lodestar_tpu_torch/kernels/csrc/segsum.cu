@@ -23,10 +23,11 @@
 // sequence, the last writing the output.
 //
 // Bound on this card: 32-bit integer multiplies.  The function needs one
-// addition per live lane after its group's first (23 Fp products in G1,
-// 60 in G2); the scan makes n log2 n of them, n per round, so at n = 512
-// it does ~9x the needed work, in 9 dependent launches of one addition's
-// latency each.
+// addition per live lane after its group's first (16 Fp products in G1,
+// 44 in G2: kernels/verify.py FP_MULS_NEEDED); the scan makes n log2 n
+// complete additions, n per round, at 23 and 60 (the doubling beside
+// each), so at n = 512 it does ~13x the needed work, in 9 dependent
+// launches of one addition's latency each.
 #include "curve.cuh"
 
 LT_DEV void f_load(fp &r, const int32_t *base, int n, int lane) { fp_load(r, base, n, lane); }

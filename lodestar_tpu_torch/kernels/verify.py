@@ -126,8 +126,9 @@ LAUNCHES: Dict[str, int] = {
 # which make one per lane and round and need one per live lane after its
 # group's first), from the structure of csrc/*.cuh;
 # tests/test_torch_csrc_host.py checks them against a count taken by the
-# host build.  A 12-limb CIOS Montgomery product issues 12 rows x
-# (4 x 12 multiply-adds + 1 multiply).
+# host build: the work each kernel does (FP_MULS_NEEDED below is the
+# work its function needs).  A 12-limb CIOS Montgomery product takes 12
+# rows x (4 x 12 multiply-adds + 1 multiply).
 FP_MULS_PER_LANE = {
     "mont_convert": 1,
     "mont_convert_4": 1,
@@ -148,6 +149,30 @@ FP_MULS_PER_LANE = {
     "seg_sum_g2": 60,
 }
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
+
+# Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
+# is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
+# (12M + 4S) and jac_add_mixed (7M + 4S) over Fp, jac_dbl and
+# jac_add_core over Fp2.  jac_add_full makes a doubling beside its
+# addition and selects it only where P == Q.
+DBL_MULS, ADD_MULS, MADD_MULS = 7, 16, 11
+DBL2_MULS, ADD2_MULS = 16, 44
+# KeyValidate's [r]P chain: r's top bit starts it, 254 doublings, and one
+# addition of P for each of the 133 lower bits that are set
+R_DOUBLINGS, R_ADDITIONS = 254, 133
+
+# The Fp products the function needs where the kernel makes more; the
+# bound counts these.  A sum of distinct points never takes the doubling
+# jac_add_full makes, and a sum whose addend is affine (KeyValidate's P,
+# agg_pk's table rows) needs only the mixed addition.
+FP_MULS_NEEDED = dict(
+    FP_MULS_PER_LANE,
+    g1_keyvalidate=FP_MULS_PER_LANE["g1_keyvalidate"] - R_ADDITIONS * (ADD_MULS + DBL_MULS - MADD_MULS),
+    agg_pk=MADD_MULS,
+    sum_g2=ADD2_MULS,
+    seg_sum_g1=ADD_MULS,
+    seg_sum_g2=ADD2_MULS,
+)
 
 
 def reset_launches() -> None:

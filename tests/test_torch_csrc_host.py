@@ -6,7 +6,7 @@ instruction emulated (csrc/common.cuh), driven lane by lane through the
 same C entry points the CUDA build exports.  Each kernel's host build is
 held bit for bit against its plain torch version, on edge cases, and its
 count of Fp products per lane against `verify.FP_MULS_PER_LANE`, the
-cost model behind the kernels' bounds.  The CUDA build itself is held
+work behind `verify.FP_MULS_NEEDED`, which the kernels' bounds count.  The CUDA build itself is held
 against the plain versions on the card by chip_smoke.py and
 tests/test_torch_cuda.py.
 """
@@ -315,6 +315,27 @@ def test_keyvalidate_host_build_counts_and_equals_plain(libs):
     want = KV.g1_keyvalidate_plain(x, flags)
     assert torch.equal(xy, want[0]) and torch.equal(ok, want[1])
     assert ok.tolist() == [[1, 0, 0]] and LY.decode_batch(xy[1, :, :1].numpy()) == [pk[1]]
+
+
+def test_needed_products_decompose_the_host_counts():
+    """The bounds count `FP_MULS_NEEDED`: the host-build counts (checked
+    in the tests above) split into curve operations, less the doubling
+    that each complete addition makes beside it and, where the addend is
+    affine, the mixed addition's saving."""
+    assert (GT.R.bit_length() - 1, bin(GT.R).count("1") - 1) == (KV.R_DOUBLINGS, KV.R_ADDITIONS)
+    e = (GT.P + 1) // 4  # the square root's power: squarings and multiplies
+    sqrt = e.bit_length() - 1 + bin(e).count("1") - 1
+    chain = KV.R_DOUBLINGS * KV.DBL_MULS
+    full, full2 = KV.ADD_MULS + KV.DBL_MULS, KV.ADD2_MULS + KV.DBL2_MULS
+    # 5: x to Montgomery, x^3 (2), the square check, fp_sgn's conversion
+    assert KV.FP_MULS_PER_LANE["g1_keyvalidate"] == 5 + sqrt + chain + KV.R_ADDITIONS * full
+    assert KV.FP_MULS_NEEDED["g1_keyvalidate"] == 5 + sqrt + chain + KV.R_ADDITIONS * KV.MADD_MULS
+    assert KV.FP_MULS_PER_LANE["seg_sum_g1"] == KV.FP_MULS_PER_LANE["agg_pk"] == full
+    assert KV.FP_MULS_PER_LANE["seg_sum_g2"] == KV.FP_MULS_PER_LANE["sum_g2"] == full2
+    # an Fp2 product is 3 Fp products, an Fp2 square 2
+    assert (KV.DBL2_MULS, KV.ADD2_MULS) == (2 * 3 + 5 * 2, 12 * 3 + 4 * 2)
+    assert KV.FP_MULS_NEEDED.keys() == KV.FP_MULS_PER_LANE.keys()
+    assert all(KV.FP_MULS_NEEDED[k] <= v for k, v in KV.FP_MULS_PER_LANE.items())
 
 
 @pytest.mark.parametrize("n", [1, 5, 16])

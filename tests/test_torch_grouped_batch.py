@@ -101,8 +101,11 @@ def test_grouped_wire_batch_equals_ungrouped_and_oracle(world, monkeypatch):
     )
     ok_u, sub_u = KV.verify_batch_device_wire(tx, ty, *args[:-1], rwords, args.valid)
     assert bool(ok_g) is bool(ok_u) is False and torch.equal(sub_g, sub_u) and bool(sub_g.all())
+    calls = []
+    monkeypatch.setattr(KV, "verify_batch_device_wire_grouped",
+                        lambda *a, _r=KV.verify_batch_device_wire_grouped: calls.append(1) or _r(*a))
     assert v.verify_signature_sets(wire_job(world), VR.VerifyOptions(batchable=True)) is True
-    assert v.entries == {"batch_wire_grouped": 1}
+    assert calls == [1]
 
 
 def test_verifier_entries_follow_grouping(world, monkeypatch):
@@ -117,7 +120,9 @@ def test_verifier_entries_follow_grouping(world, monkeypatch):
     sig = world["sig"]
     distinct = [WireSignatureSet.single(0, ROOTS[r], GC.g2_compress(sig[0, r])) for r in range(2)]
     assert v.verify_signature_sets(distinct, VR.VerifyOptions(batchable=True)) is True
-    assert calls == ["verify_batch_device_wire"] and v.entries == {"batch_wire": 1}
+    assert calls == ["verify_batch_device_wire"]
+    assert v.verify_signature_sets(wire_job(world), VR.VerifyOptions(batchable=True)) is True
+    assert calls == ["verify_batch_device_wire", "verify_batch_device_wire_grouped"]
 
 
 def _sig_groups(world):
@@ -125,8 +130,10 @@ def _sig_groups(world):
     s = [c(sig[k, 0]) for k in range(N_KEYS)]
     neg = c(GC.affine_neg(GC.FP2_OPS, sig[1, 0]))
     return [
+        [],  # empty: the infinity encoding, first in its chunk
         s[:3],  # three signers of root a
         [c(sig[2, 1])],  # one
+        [],  # empty after a group: not that group's sum
         [s[1], neg],  # P + (-P): the infinity encoding
         [s[0], s[3][:95]],  # a 95-byte member: None
         s + [c(sig[0, 1])],  # five, across roots
@@ -135,11 +142,12 @@ def _sig_groups(world):
 
 def test_aggregate_wire_signatures_equal_jax_host(world, monkeypatch):
     """The device path (plain versions on the CPU) and the host path both
-    equal JAX's `_aggregate_wire_host` byte for byte; chunks of the
-    device path hold at most 128 groups."""
+    equal JAX's `_aggregate_wire_host` byte for byte, empty groups (the
+    infinity encoding) included; chunks of the device path hold at most
+    128 groups."""
     groups = _sig_groups(world)
     want = [TpuBlsVerifier._aggregate_wire_host(g) for g in groups]
-    assert want[3] is None and want[2] == GC.g2_compress(None)
+    assert want[5] is None and want[0] == want[3] == want[4] == GC.g2_compress(None)
     monkeypatch.setattr(VR, "N_BUCKETS", (8, 16, 512))
     v = verifier(world)
     monkeypatch.setenv("LODESTAR_TPU_AGG_DEVICE", "1")

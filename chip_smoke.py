@@ -33,10 +33,16 @@ Needs one CUDA device; exits non-zero without one.  In order:
      g1_keyvalidate on one 65,536-key registration chunk and on the fault
      job with 128 valid keys; seg_sum_g1 on the grouped wire batch's
      randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 512
-     decompressed signatures grouped by root.  CUDA-event times of kernel
-     (median of 5 after a warm-up) and plain version (median of 3; once,
-     without a warm-up, for agg_pk, hash_g2 and g1_keyvalidate, whose plain
-     versions take seconds);
+     decompressed signatures grouped by root; the warp-per-lane pairing
+     kernels at every lane count the paths give them: miller_loop at 1,
+     128, 129 and 512 lanes, each_final and final_one at 1, 128 and 512,
+     every verdict held against the ground truth, with the shape of each
+     one's N = 512 launch as its library reports it (threads and lanes per
+     block, dynamic shared memory, slots, phases and rounds per lane) and
+     its ptxas figures.  CUDA-event times of
+     kernel (median of 5 after a warm-up) and plain version (median of 3;
+     once, without a warm-up, for agg_pk, hash_g2, g1_keyvalidate and the
+     warp kernels' extra lane counts, whose plain versions take seconds);
   3. main paths, each driven with the launch counts set to 0 just before
      and read just after, every verdict held against the ground truth and
      every job's host-routed set count (`job.host_sets`) 0: decoded per
@@ -61,6 +67,7 @@ Any mismatch or error raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import multiprocessing as mp
 import os
@@ -130,6 +137,10 @@ GROUPED_BATCH = WIRE_BATCH + ("seg_sum_g1",)  # a wire batch with a repeated roo
 AGG_BATCH = GROUPED_BATCH + ("agg_pk",)
 PREAGG = ("g2_decompress", "seg_sum_g2", "affine_g2")
 TAIL = ("affine_g2", "final_one")  # one lane per launch on the batch path
+# lane counts of the warp-per-lane pairing kernels' own phase: the tail's
+# one lane, the 128-lane tile, one lane past it, N = 512
+WARP_LANES = (1, 128, 129, 512)
+FINAL_LANES = (1, 128, 512)
 # the path whose launch count is a row's "launches", and its lanes
 MAIN_PATH = {name: ("batch" if name in BATCH else "per_set", JOBS[-1]) for name in KERNELS}
 MAIN_PATH.update({"mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
@@ -371,21 +382,33 @@ def cuda_ms(fn, runs: int = TIMED_RUNS, warm: bool = True):
     return statistics.median(times), out
 
 
+def ptxas_entries(report: str) -> dict:
+    """Per kernel entry of a ptxas -v log: registers, static shared memory,
+    cumulative stack (0 where ptxas prints none), and the largest stack
+    frame and spills of its block of the log."""
+    out = {}
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        stack = re.search(r"(\d+) bytes cumulative stack size", block)
+        frames = [tuple(map(int, m)) for m in re.findall(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", block)]
+        out[name] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            "stack_bytes": int(stack.group(1)) if stack else 0,
+            "stack_frame_bytes": max((f[0] for f in frames), default=0),
+            "spill_bytes": max((f[1] + f[2] for f in frames), default=0),
+        }
+    return out
+
+
 def ptxas_summary(report: str) -> str:
-    """Registers and cumulative stack of each kernel entry and the largest
-    stack frame and spill of any function, from a ptxas -v log."""
-    regs = re.findall(
-        r"Compiling entry function '(\w+)'.*?Used (\d+) registers.*?(\d+) bytes cumulative stack size", report, re.S)
-    frames = [tuple(map(int, m)) for m in re.findall(
-        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", report)]
-    parts = [f"{name}: {r} registers, {st} B cumulative stack" for name, r, st in regs]
-    if frames:
-        parts.append(
-            f"largest stack frame {max(f[0] for f in frames)} B, largest spill "
-            f"{max(f[1] for f in frames)} B stores / {max(f[2] for f in frames)} B loads "
-            f"over {len(frames)} functions"
-        )
-    return "; ".join(parts)
+    return "; ".join(
+        f"{name}: {e['registers']} registers, {e['static_smem_bytes']} B static shared, {e['stack_bytes']} B "
+        f"cumulative stack, largest frame {e['stack_frame_bytes']} B, spills {e['spill_bytes']} B"
+        for name, e in ptxas_entries(report).items())
 
 
 def main() -> int:
@@ -425,8 +448,10 @@ def main() -> int:
         f"ground truth {sum(truth)} True; {len(valid_sets)} untampered sets all True; wire mixed job "
         f"{sum(wire_truth)} True with faults {sorted(WIRE_FAULTS.values())}; {AGG_SETS} aggregates of K = {AGG_K}: "
         f"{sum(d['agg_truth'])} True; {SYNC_SETS} of K = {SYNC_K}: {d['sync_truth']})")
-    for name, report in B.ptxas_report().items():
+    ptxas = B.ptxas_report()
+    for name, report in ptxas.items():
         log(f"ptxas {name}.cu: {ptxas_summary(report)}")
+    warp_info = {}  # the warp-per-lane kernels' schedules and ptxas figures
     for kind, ok in zip(kinds, truth):
         if ok != (kind == "valid"):
             raise AssertionError(f"ground truth disagrees with construction for a {kind} set")
@@ -505,8 +530,9 @@ def main() -> int:
     # -- 2. kernel phases --------------------------------------------------------
     results = {}  # (name, n) -> (kernel ms, plain ms, max abs err)
 
-    def plain_and_kernel(name, n, kernel, plain, *args, plain_runs=PLAIN_RUNS):
-        """plain_runs 0: the plain version timed once, without a warm-up."""
+    def plain_and_kernel(name, n, kernel, plain, *args, plain_runs=PLAIN_RUNS, tag=None):
+        """plain_runs 0: the plain version timed once, without a warm-up;
+        tag: a third key of the result (a row's extra shapes)."""
         k_ms, k_out = cuda_ms(lambda: kernel(*args))
         p_ms, p_out = cuda_ms(lambda: plain(*args), max(plain_runs, 1), warm=plain_runs > 0)
         k_outs = k_out if isinstance(k_out, tuple) else (k_out,)
@@ -514,7 +540,7 @@ def main() -> int:
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(k_outs, p_outs))
         if err != 0 or not all(torch.equal(a, b) for a, b in zip(k_outs, p_outs)):
             raise AssertionError(f"{name} at N={n}: kernel differs from plain version (max {err})")
-        results[name, n] = (k_ms, p_ms, err)
+        results[(name, n) if tag is None else (name, n, tag)] = (k_ms, p_ms, err)
         how = f"median of {plain_runs}" if plain_runs else "one run"
         log(f"kernel {name} N={n}: equal to plain bit for bit; kernel {k_ms:.3f} ms (median of {TIMED_RUNS}), "
             f"plain {p_ms:.3f} ms ({how}) (CUDA events)")
@@ -553,6 +579,7 @@ def main() -> int:
             raise AssertionError(f"miller_loop (-G1, sig) at N={n}: kernel differs from plain version")
         ok = plain_and_kernel("each_final", n, KV.each_final, KV.each_final_plain, ops["live_row"], f1, f2)
         log(f"kernel outputs N={n}: {int(sub.sum())} lanes in G2, {int(ok.sum())} final exps equal to one")
+        pairing_ops = (ops["miller_pk"], ops["miller_sig"], ops["live_row"])
 
         # the RLC batch path's kernels on the all-valid job
         idx, kmask, planes, sig_inf, valid = verifier._prepare(valid_sets[:n])
@@ -578,8 +605,7 @@ def main() -> int:
         group, head_lanes, glive = (torch.from_numpy(a).to(dev) for a in verifier._grouping(wire_valid[:n], n))
         gops = KV.grouped_operands(ops, rpk, rpk_inf, group, head_lanes, glive)
         pts, seg_inf = plain_and_kernel("seg_sum_g1", n, KV.seg_sum_g1, KV.seg_sum_g1_plain, *gops["seg_sum_g1"])
-        if n == JOBS[-1]:
-            seg_units["seg_sum_g1"] = seg_needed(*gops["seg_sum_g1"][1:])
+        seg_units["seg_sum_g1", n] = seg_needed(*gops["seg_sum_g1"][1:])
         g, q, live_row = KV._group_heads(pts, seg_inf, *gops["heads"])
         ok = KV._batch_tail(KV.prod12(live_row, KV.miller_loop(g, q)), jsum, jsum_inf)
         if int(ok[0, 0]) != 1 or int(live_row.sum()) != n // N_KEYS:
@@ -608,7 +634,7 @@ def main() -> int:
     bad = ((args.sig_flags[1] != 0) | (dec_ok[0] == 0))[None, :].to(torch.int32)
     group = torch.from_numpy(verifier._grouping(wire_valid[:n], n)[0]).to(dev)
     _, seg_inf = plain_and_kernel("seg_sum_g2", n, KV.seg_sum_g2, KV.seg_sum_g2_plain, xy, bad, group)
-    seg_units["seg_sum_g2"] = seg_needed(bad, group)
+    seg_units["seg_sum_g2", n] = seg_needed(bad, group)
     if bool(seg_inf.any()) or bool(bad.any()):
         raise AssertionError("seg_sum_g2: a valid signature's running sum at infinity")
 
@@ -629,6 +655,50 @@ def main() -> int:
     _, h_ok = plain_and_kernel("hash_g2", KV.BT, KV.hash_g2, KV.hash_g2_plain, u, sgn, plain_runs=0)
     if not bool(h_ok.all()):
         raise AssertionError("hash_g2: a lane flagged not ok")
+
+    # the warp-per-lane pairing kernels at every lane count the paths give
+    # them: the tail's one lane, the grouped 128-lane tile, one lane past
+    # it, and N = 512 (the per-set mixed job's operands, sliced)
+    (p1, q1), (p2, q2), live = pairing_ops
+    for n in WARP_LANES:
+        sl = lambda t: t[..., :n].contiguous()  # noqa: E731
+        pn1, qn1, pn2, qn2 = sl(p1), sl(q1), sl(p2), sl(q2)
+        f1 = plain_and_kernel("miller_loop", n, KV.miller_loop, KV.miller_loop_plain, pn1, qn1, plain_runs=0,
+                              tag="lanes")
+        f2 = KV.miller_loop(pn2, qn2)
+        if not torch.equal(f2, KV.miller_loop_plain(pn2, qn2)):
+            raise AssertionError(f"miller_loop (-G1, sig) at N={n}: kernel differs from plain version")
+        if n not in FINAL_LANES:
+            continue
+        ok = plain_and_kernel("each_final", n, KV.each_final, KV.each_final_plain, sl(live), f1, f2,
+                              plain_runs=0, tag="lanes")
+        a_inf = (torch.arange(n, device=dev) % 64 == 5).to(torch.int32)[None].contiguous()
+        ok1 = plain_and_kernel("final_one", n, KV.final_one, KV.final_one_plain, a_inf, f1, f2, plain_runs=0,
+                               tag="lanes")
+        rows = list(zip(truth[:n], live[0, :n].tolist(), ok[0].tolist(), ok1[0].tolist(), a_inf[0].tolist()))
+        if any(o != int(t or not lv) for t, lv, o, _, _ in rows):
+            raise AssertionError(f"each_final at N={n}: verdicts differ from the ground truth")
+        if any(o1 != (0 if a else o) for _, lv, o, o1, a in rows if lv or a):
+            raise AssertionError(f"final_one at N={n}: an A = O lane verified, or a verdict differs from each_final's")
+    for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail")):
+        # the shape and program figures of the library's last launch, the
+        # N = 512 one just made, as its C entry point launched it
+        shape = (ctypes.c_int * 8)()
+        B.load(source).lt_warp_last_launch(shape)
+        lanes, blocks, threads, lpb, smem, slots, phases, rounds = list(shape)
+        if lanes != WARP_LANES[-1] or blocks * lpb < lanes or threads % lpb or rounds != KV.ROUNDS_PER_LANE[name]:
+            raise AssertionError(f"{name}: last launch {list(shape)} is not {WARP_LANES[-1]} lanes of "
+                                 f"{KV.ROUNDS_PER_LANE[name]} rounds")
+        entry = next(e for k, e in ptxas_entries(ptxas[source]).items() if name.replace("_loop", "") in k)
+        warp_info[name] = {"rounds_per_lane": rounds, "fp_muls_per_lane": KV.FP_MULS_PER_LANE[name],
+                           "phases_per_lane": phases, "slots_per_lane": slots, "lanes_per_block": lpb,
+                           "threads_per_lane": threads // lpb, "dynamic_smem_bytes_per_block": smem,
+                           "ptxas": entry}
+        log(f"warp kernel {name} (its N = {lanes} launch: {blocks} blocks of {threads} threads): "
+            f"{threads // lpb} threads per lane, {lpb} lanes per block; {rounds} rounds "
+            f"({KV.FP_MULS_PER_LANE[name]} Fp products) in {phases} phases per lane, {slots} slots per lane, "
+            f"{smem} B dynamic shared memory per block; ptxas {entry}; card ms by lanes " + ", ".join(
+                f"{n}: {results[name, n, 'lanes'][0]:.3f}" for n in WARP_LANES if (name, n, "lanes") in results))
 
     # -- 3. main paths -------------------------------------------------------------
     def host_ms(fn, runs=3):
@@ -665,7 +735,8 @@ def main() -> int:
 
     def breakdown(label, n, prepare, ms, counts, names):
         """Kernel-phase medians at this N, or at the largest N where a
-        kernel was not timed at this one."""
+        kernel was not timed at this one, times the calls: a segmented
+        sum's median is one call of seg_rounds launches."""
         prep = host_ms(prepare)
         kern = 0.0
         at = {k: n if (k, n) in results else JOBS[-1] for k in names + ("miller_loop_1",)}
@@ -673,7 +744,8 @@ def main() -> int:
             per = results[k, at[k]][0]
             if k == "miller_loop" and "batch" in label:  # one N-lane and one 1-lane launch
                 per = (per + results["miller_loop_1", at[k]][0]) / 2
-            kern += per * counts[k]
+            calls = counts[k] / KV.seg_rounds(bucket(n)) if k in ("seg_sum_g1", "seg_sum_g2") else counts[k]
+            kern += per * calls
         elsewhere = sorted({f"{k} at N={m}" for k, m in at.items() if m != n and k in names})
         log(f"breakdown {label} N={n}: job {ms:.3f} ms = host preparation (encode + copy to the card) "
             f"{prep:.3f} ms + kernels {kern:.3f} ms (kernel-phase medians x launches"
@@ -934,11 +1006,12 @@ def main() -> int:
 
     # -- 4. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
-    kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        path, n = MAIN_PATH[name]
-        k_ms, p_ms, err = results[name, n]
-        # units of FP_MULS_NEEDED and bytes of one launch
+
+    def bound(name, n):
+        """(bound ms, what bounds it, units of FP_MULS_NEEDED, lanes) of one
+        launch at n lanes: the products the function needs (not the ones
+        the kernel makes: KV.FP_MULS_NEEDED against FP_MULS_PER_LANE) over
+        the card's IMAD rate, or its bytes over the memory rate."""
         lanes = n
         if name in TAIL:
             units = lanes = 1
@@ -948,14 +1021,24 @@ def main() -> int:
             units = (8 if name == "mont_convert" else 4) * n  # planes per lane
         elif name == "agg_pk":
             units = agg_live_rows - agg_live_lanes  # one addition per live row after a lane's first
-        elif name in seg_units:
-            units = seg_units[name]  # one addition per live lane after its group's first
+        elif name in ("seg_sum_g1", "seg_sum_g2"):
+            units = seg_units[name, n]  # one addition per live lane after its group's first
         else:
             units = n
-        # the bound counts the products the function needs, not the ones
-        # the kernel makes (KV.FP_MULS_NEEDED against FP_MULS_PER_LANE)
         ops_ms = KV.FP_MULS_NEEDED[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
-        if name in seg_units:
+        if name == "agg_pk":
+            nbytes = agg_live_rows * 2 * 48 + n * (k_bucket * 8 + 3 * 48 + 4)
+        else:
+            nbytes = BYTES_PER_LANE[name] * lanes + BYTES_PER_LAUNCH.get(name, 0)
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), units, lanes
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        path, n = MAIN_PATH[name]
+        k_ms, p_ms, err = results[name, n]
+        bound_ms, bound_by, units, _ = bound(name, n)
+        if name in ("seg_sum_g1", "seg_sum_g2"):
             done = KV.seg_rounds(n) * n  # one addition per lane and round
         elif name == "agg_pk":
             done = n * (k_bucket - 1)  # every slot of the K bucket
@@ -963,17 +1046,12 @@ def main() -> int:
             done = max(n, KV.BT) - 1
         else:
             done = units
-        if name == "agg_pk":
-            nbytes = agg_live_rows * 2 * 48 + n * (k_bucket * 8 + 3 * 48 + 4)
-        else:
-            nbytes = BYTES_PER_LANE[name] * lanes + BYTES_PER_LAUNCH.get(name, 0)
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths[path, n][name], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": None,
             "path": path, "n": n,
             "fp_muls_needed": KV.FP_MULS_NEEDED[name] * units, "fp_muls_done": KV.FP_MULS_PER_LANE[name] * done,
@@ -983,12 +1061,23 @@ def main() -> int:
             entry["live_rows"], entry["k_bucket"] = agg_live_rows, k_bucket
         if (name, JOBS[0]) in results and n != JOBS[0]:
             entry["ms_n128"], entry["plain_ms_n128"] = results[name, JOBS[0]][:2]
+            entry["bound_ms_n128"] = bound(name, JOBS[0])[0]
         if name == "miller_loop":
             entry["ms_1_lane"], entry["plain_ms_1_lane"] = results["miller_loop_1", n][:2]
+            entry["bound_ms_1_lane"] = bound(name, 1)[0]
         if name == "g1_keyvalidate":
             entry["ms_256"], entry["plain_ms_256"] = results[name, 256][:2]
-        if name in seg_units:
-            entry["additions_needed"] = seg_units[name]
+            entry["bound_ms_256"] = bound(name, 256)[0]
+        if name in ("seg_sum_g1", "seg_sum_g2"):
+            entry["additions_needed"] = seg_units[name, n]
+        if name in warp_info:  # the warp-per-lane kernels: every lane count of their own phase
+            entry.update(warp_info[name])
+            timed = [m for m in WARP_LANES if (name, m, "lanes") in results]
+            entry["ms_by_lanes"] = {m: results[name, m, "lanes"][0] for m in timed}
+            entry["plain_ms_by_lanes"] = {m: results[name, m, "lanes"][1] for m in timed}
+            entry["bound_ms_by_lanes"] = {m: bound("each_final" if name == "final_one" else name, m)[0]
+                                          for m in timed}
+            entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]
         kernels.append(entry)
     log("main path sets/s: " + ", ".join(
         f"{p} N={j}: {results['sets_per_s', p, j]:.1f}" for p in ("per_set", "batch", "wire_per_set", "wire_batch")

@@ -6,8 +6,13 @@ a shared library with a plain C interface and loaded with `ctypes`; no
 source includes PyTorch's headers, so a build takes seconds.  All sources
 are compiled at once, one `nvcc` process each, at the first launch of any
 kernel.  Libraries are cached in `lodestar_tpu_torch/_build/` under a
-hash of every file in `csrc/` and the flags, so an edit to any header
-rebuilds everything and an unchanged tree reuses the libraries.
+hash of every file in `csrc/`, the generated headers and the flags, so an
+edit to any header or to a generator rebuilds everything and an unchanged
+tree reuses the libraries.
+
+Generated headers: `warp_prog.cuh`, the pairing kernels' warp programs,
+is written by `kernels/warp_schedule.py cuda_programs()` into
+`_build/gen-<hash>/` at build time and found there through `-I`.
 
 `ptxas -v` output (registers, spills, stack frame) is kept beside each
 library as `<name>-<hash>.ptxas.txt`.
@@ -21,6 +26,7 @@ without a GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,11 +51,36 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+@functools.lru_cache(maxsize=None)
+def generated_headers() -> Dict[str, str]:
+    """Name -> text of the headers the generators write (once per process)."""
+    from . import warp_schedule
+
+    return {"warp_prog.cuh": warp_schedule.cuda_programs()}
+
+
+def include_dir() -> Path:
+    """The directory of the generated headers, written on first use."""
+    h = hashlib.sha256()
+    for name, text in sorted(generated_headers().items()):
+        h.update(name.encode())
+        h.update(text.encode())
+    out = BUILD_DIR / f"gen-{h.hexdigest()[:16]}"
+    out.mkdir(parents=True, exist_ok=True)
+    for name, text in generated_headers().items():
+        if not (out / name).exists():
+            tmp = out / f"{name}.{os.getpid()}.tmp"
+            tmp.write_text(text)
+            os.replace(tmp, out / name)
+    return out
+
+
 def source_hash(flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    h.update(include_dir().name.encode())
     return h.hexdigest()[:16]
 
 
@@ -97,7 +128,7 @@ def build_all() -> Dict[str, Path]:
     out_for = lambda name: BUILD_DIR / f"{name}-{digest}.so"  # noqa: E731
     cc = nvcc()
     _compile_all(
-        lambda name, tmp: [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        lambda name, tmp: [cc, *NVCC_FLAGS, "-I", str(include_dir()), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         out_for,
     )
     return {name: out_for(name) for name in SOURCES}
@@ -111,7 +142,7 @@ def build_host() -> Dict[str, Path]:
     if cxx is None:
         raise RuntimeError("no host C++ compiler")
     _compile_all(
-        lambda name, tmp: [cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        lambda name, tmp: [cxx, *HOST_FLAGS, "-I", str(include_dir()), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         out_for,
     )
     return {name: out_for(name) for name in SOURCES}
@@ -145,8 +176,13 @@ _ARGTYPES = {
     "lt_g1_keyvalidate": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    # host build only: the ingest building blocks for the tests
+    "lt_warp_last_launch": [_VP],
+    # host build only: the ingest building blocks and the pairing's
+    # inversions and final exponentiation for the tests
     "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],
+    "lt_host_final_exp": [_VP, _VP, _INT],
+    "lt_host_fp_inv_euclid": [_VP, _VP, _INT],
+    "lt_host_fp_inv": [_VP, _VP, _INT],
     "lt_host_signs": [_VP, _VP, _INT],
     "lt_host_sswu": [_VP, _VP, _VP, _INT],
 }
@@ -174,4 +210,9 @@ def load_host(name: str) -> ctypes.CDLL:
     lib = _bind(ctypes.CDLL(str(build_host()[name])))
     lib.lt_host_fp_muls.argtypes = []
     lib.lt_host_fp_muls.restype = ctypes.c_uint64
+    if hasattr(lib, "lt_host_rounds"):  # the warp-per-lane kernels
+        lib.lt_host_rounds.argtypes = []
+        lib.lt_host_rounds.restype = ctypes.c_uint64
+        lib.lt_host_warp_order.argtypes = [_INT]
+        lib.lt_host_warp_order.restype = None
     return lib

@@ -119,7 +119,9 @@ LT_DEV void fp_dbl(fp &r, const fp &a) { fp_add(r, a, a); }
 // Montgomery product a * b / R mod p (CIOS, one limb of b per row).
 // a must be canonical; b may be any integer below 2^384 (the row bound
 // t < 2p only needs a < p), which is what mont_convert relies on.
-LT_NOINL void fp_mul(fp &r, const fp &a, const fp &b) {
+// Inlined where it is called: the warp engine's one call site
+// (csrc/warp12.cuh); everything else calls fp_mul, a function of its own.
+LT_DEV void fp_mont_mul(fp &r, const fp &a, const fp &b) {
 #ifndef __CUDACC__
   lt_fp_muls++;
 #endif
@@ -154,6 +156,8 @@ LT_NOINL void fp_mul(fp &r, const fp &a, const fp &b) {
   }
   fp_reduce_once(r, t);
 }
+
+LT_NOINL void fp_mul(fp &r, const fp &a, const fp &b) { fp_mont_mul(r, a, b); }
 
 LT_DEV void fp_sqr(fp &r, const fp &a) { fp_mul(r, a, a); }
 

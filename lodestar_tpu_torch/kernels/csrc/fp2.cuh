@@ -74,18 +74,6 @@ LT_DEV void fp2_mul_xi(fp2 &r, const fp2 &a) {
   r.c1 = t1;
 }
 
-// a * k for a small static k (3, 4 or 8 in the curve formulas)
-LT_DEV void fp2_mul_small(fp2 &r, const fp2 &a, int k) {
-  fp2 acc = a;
-  if (k == 3) {
-    fp2_dbl(acc, a);
-    fp2_add(acc, acc, a);
-  } else {
-    for (int s = k; s > 1; s >>= 1) fp2_dbl(acc, acc);  // k a power of two
-  }
-  r = acc;
-}
-
 // Karatsuba: three Montgomery products
 LT_NOINL void fp2_mul(fp2 &r, const fp2 &a, const fp2 &b) {
   fp t0, t1, sa, sb, t2;
@@ -107,12 +95,6 @@ LT_NOINL void fp2_sqr(fp2 &r, const fp2 &a) {
   fp_mul(m, a.c0, a.c1);
   fp_mul(r.c0, s, d);
   fp_dbl(r.c1, m);
-}
-
-// a times an Fp element
-LT_DEV void fp2_mul_fp(fp2 &r, const fp2 &a, const fp &k) {
-  fp_mul(r.c0, a.c0, k);
-  fp_mul(r.c1, a.c1, k);
 }
 
 // A square root of a by the norm method, branch-free; returns whether r

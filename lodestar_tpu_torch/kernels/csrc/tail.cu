@@ -5,17 +5,21 @@
 //                 (flagged, or Z = 0) gives the generator and a flag
 //                 (replaces lodestar_tpu/kernels/verify.py _k_affine_g2)
 //   lt_final_one  prod * (a_inf ? 1 : fA) -> final exponentiation -> is-one
-//                 (replaces _k_final_one; K4's body with another prologue)
+//                 (replaces _k_final_one; K4's program, csrc/final.cu, with
+//                 another prologue)
 //
 // Between them the path runs the Miller loop of the aggregate pair
 // (-G1, A) on one lane (csrc/miller.cu).  The TPU kernels run all 128
 // lanes of a tile with the same value; here each kernel takes any number
-// of lanes, one thread each, and the path gives it one.
+// of lanes and the path gives it one.
 //
-// Bound on this card: one lane is one thread, so the time is one thread's
-// dependent chain: 623 Fp products (608 of them the Fp inversion) in
-// lt_affine_g2, one Fp12 product and the final exponentiation (8,337 Fp
-// products) in lt_final_one.  The card-wide IMAD bound is microseconds.
+// lt_affine_g2 runs one thread per lane: its time is one thread's chain of
+// 623 Fp products (608 of them the Fermat inversion).  lt_final_one runs
+// one warp per lane (csrc/warp12.cuh): the final exponentiation's 7,730
+// Fp products in 396 rounds of up to 32.  The card-wide IMAD bound of
+// either is microseconds.
+#include "curve.cuh"
+#define LT_WANT_FINAL
 #include "pairing.cuh"
 
 // p: Jacobian planes [3, 2, 12, n]; p_inf, a_inf: [n]; a: affine planes
@@ -43,16 +47,15 @@ LT_DEV void affine_g2_lane(const int32_t *p, const int32_t *p_inf, int32_t *a, i
 }
 
 // a_inf, ok: [n]; prod, fa: [12, 12, n]
-LT_DEV void final_one_lane(const int32_t *a_inf, const int32_t *prod, const int32_t *fa,
+LT_DEV void final_one_warp(const wmem &m, const int32_t *a_inf, const int32_t *prod, const int32_t *fa,
                            int32_t *ok, int n, int lane) {
-  fp12 a, b, one;
-  fp12_load(a, prod, n, lane);
-  fp12_load(b, fa, n, lane);
-  fp12_one(one);
-  fp12_select(b, a_inf[lane] != 0, one, b);  // A = O: e(-G1, O) = 1
-  fp12_mul(a, a, b);
-  final_exponentiation(b, a);
-  ok[lane] = fp12_is_one(b) ? 1 : 0;
+  w_load_planes(m, LT_FINAL_A, prod, 12, n, lane);
+  if (a_inf[lane] != 0)
+    w_load_one12(m, LT_FINAL_B);  // A = O: e(-G1, O) = 1
+  else
+    w_load_planes(m, LT_FINAL_B, fa, 12, n, lane);
+  const bool one = final_warp_is_one(m);
+  if (LT_T0 == 0) ok[lane] = one ? 1 : 0;
 }
 
 #ifdef __CUDACC__
@@ -66,11 +69,14 @@ __global__ void __launch_bounds__(LT_LANE_BLOCK)
   if (lane < n) affine_g2_lane(p, p_inf, a, a_inf, n, lane);
 }
 
-__global__ void __launch_bounds__(LT_LANE_BLOCK)
+__global__ void __launch_bounds__(LT_WARP * LT_LPB)
     lt_final_one_kernel(const int32_t *__restrict__ a_inf, const int32_t *__restrict__ prod,
                         const int32_t *__restrict__ fa, int32_t *__restrict__ ok, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) final_one_lane(a_inf, prod, fa, ok, n, lane);
+  extern __shared__ uint32_t lt_sm[];
+  const int warp = threadIdx.x / LT_WARP;
+  const wmem m = w_block(lt_sm, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_CONST, warp);
+  const int lane = blockIdx.x * LT_LPB + warp;
+  if (lane < n) final_one_warp(m, a_inf, prod, fa, ok, n, lane);
 }
 
 extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_inf, int n,
@@ -84,14 +90,18 @@ extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_i
 
 extern "C" int lt_final_one(const void *a_inf, const void *prod, const void *fa, void *ok, int n,
                             void *stream) {
-  if (n > 0)
-    lt_final_one_kernel<<<(n + LT_LANE_BLOCK - 1) / LT_LANE_BLOCK, LT_LANE_BLOCK, 0,
-                          (cudaStream_t)stream>>>((const int32_t *)a_inf, (const int32_t *)prod,
-                                                  (const int32_t *)fa, (int32_t *)ok, n);
+  if (n > 0) {
+    const wlaunch l = w_launch(n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
+    cudaFuncSetAttribute(lt_final_one_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    lt_final_one_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
+        (const int32_t *)a_inf, (const int32_t *)prod, (const int32_t *)fa, (int32_t *)ok, n);
+  }
   return (int)cudaGetLastError();
 }
 
 #else
+
+#include <stdlib.h>
 
 extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_inf, int n,
                             void *stream) {
@@ -105,9 +115,14 @@ extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_i
 extern "C" int lt_final_one(const void *a_inf, const void *prod, const void *fa, void *ok, int n,
                             void *stream) {
   (void)stream;
-  for (int lane = 0; lane < n; lane++)
-    final_one_lane((const int32_t *)a_inf, (const int32_t *)prod, (const int32_t *)fa,
-                   (int32_t *)ok, n, lane);
+  const wlaunch l = w_launch(n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
+  uint32_t *sm = (uint32_t *)malloc(l.smem);
+  for (int lane = 0; lane < n; lane++) {
+    const wmem m = w_block(sm, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_CONST, lane % LT_LPB);
+    final_one_warp(m, (const int32_t *)a_inf, (const int32_t *)prod, (const int32_t *)fa, (int32_t *)ok, n,
+                   lane);
+  }
+  free(sm);
   return 0;
 }
 

@@ -201,10 +201,6 @@ def cuda_constants() -> str:
     x_abs = -F.X_PARAM
     mont = lambda v: v % P * R_MOD_P % P  # noqa: E731
     mont2 = lambda v: (mont(v[0]), mont(v[1]))  # noqa: E731
-    frob = {
-        n: [mont2(F.fp2_pow(F.XI, k * (P**n - 1) // 6)) for k in range(6)]
-        for n in (1, 2, 3)
-    }
     u = (0, 1)
     cx = mont2(F.fp2_mul(u, F.fp2_pow(F.XI, 2 * (P - 1) // 3)))
     cy = mont2(F.fp2_mul(u, F.fp2_pow(F.XI, (P - 1) // 2)))
@@ -226,9 +222,6 @@ def cuda_constants() -> str:
         f"LT_CONST uint32_t LT_G2X[2][12] = {_fp2_words(mont2(CU.G2_GEN[0]))};",
         f"LT_CONST uint32_t LT_G2Y[2][12] = {_fp2_words(mont2(CU.G2_GEN[1]))};",
     ]
-    for n in (1, 2, 3):
-        body = ", ".join(_fp2_words(g) for g in frob[n])
-        lines.append(f"LT_CONST uint32_t LT_FROB{n}[6][2][12] = {{{body}}};")
     # ingest: square roots, signs, decompression, SSWU, iso3, cofactor
     sqrt_exp = (P + 1) // 4
     lines += [

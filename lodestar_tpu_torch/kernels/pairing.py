@@ -1,7 +1,8 @@
 """Optimal ate pairing: the plain torch engine and its CUDA twin.
 
-Counterpart of `lodestar_tpu/kernels/pairing.py`; the CUDA device
-functions are in `csrc/pairing.cuh`.  The formulas are the JAX
+Counterpart of `lodestar_tpu/kernels/pairing.py`; the CUDA kernels run
+the same formulas one warp per lane (`csrc/pairing.cuh`, programs from
+`kernels/warp_schedule.py`).  The formulas are the JAX
 package's: P (G1) stays Jacobian and enters through the planes
 (Y, X*Z, Z^3) of `_p_planes`, the accumulator T on the twist is
 Jacobian, Q stays affine, and the loop value is conjugated at the end

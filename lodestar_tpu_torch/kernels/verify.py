@@ -134,13 +134,13 @@ FP_MULS_PER_LANE = {
     "mont_convert_4": 1,
     "g2_subgroup_check": 1181,
     "miller_loop": 7834,
-    "each_final": 8337,
+    "each_final": 7730,
     "g1_rpk": 1569,
     "g2_rsig_sub": 5057,
     "sum_g2": 60,
     "prod12": 54,
     "affine_g2": 623,
-    "final_one": 8337,
+    "final_one": 7730,
     "g2_decompress": 3656,
     "hash_g2": 41987,
     "agg_pk": 23,
@@ -149,6 +149,11 @@ FP_MULS_PER_LANE = {
     "seg_sum_g2": 60,
 }
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
+# Rounds per lane of the warp-per-lane kernels (csrc/warp12.cuh): phases
+# of up to 32 independent Fp products, one per thread, and the final
+# exponentiation's one inversion (kernels/warp_schedule.py; the host
+# build counts them, tests/test_torch_warp_pairing.py)
+ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396}
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core

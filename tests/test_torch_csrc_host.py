@@ -334,6 +334,19 @@ def test_needed_products_decompose_the_host_counts():
     assert KV.FP_MULS_PER_LANE["seg_sum_g2"] == KV.FP_MULS_PER_LANE["sum_g2"] == full2
     # an Fp2 product is 3 Fp products, an Fp2 square 2
     assert (KV.DBL2_MULS, KV.ADD2_MULS) == (2 * 3 + 5 * 2, 12 * 3 + 4 * 2)
+    # the final exponentiation: A B and the easy part (one Fp12 inversion,
+    # a Frobenius p^2, two Fp12 products), five powers by |x| (63 cyclotomic
+    # squarings and 5 Fp12 products each) and the glue (7 Fp12 products, 2
+    # Frobenius maps, 1 cyclotomic squaring).  The Fp12 inversion's one Fp
+    # inversion makes one product (the Euclid's result times R^3), where
+    # the Fermat chain made 380 squarings and 228 products.
+    x = -GT.X_PARAM
+    mul12, cyclo, frob, fp6_mul, fp6_sqr = 54, 18, 18, 18, 12
+    fp6_inv = 3 * (2 + 3) + 3 * 3 + (2 + 1 + 2) + 3 * 3  # cofactors, norm, Fp2 inversion, outputs
+    inv12 = 2 * fp6_sqr + fp6_inv + 2 * fp6_mul
+    powers = 5 * ((x.bit_length() - 1) * cyclo + (bin(x).count("1") - 1) * mul12)
+    final = (3 + 7) * mul12 + inv12 + 3 * frob + cyclo + powers
+    assert KV.FP_MULS_PER_LANE["each_final"] == KV.FP_MULS_PER_LANE["final_one"] == final
     assert KV.FP_MULS_NEEDED.keys() == KV.FP_MULS_PER_LANE.keys()
     assert all(KV.FP_MULS_NEEDED[k] <= v for k, v in KV.FP_MULS_PER_LANE.items())
 

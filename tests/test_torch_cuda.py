@@ -11,6 +11,8 @@ and as an RLC batch, against the crypto oracle.  chip_smoke.py does the
 same at the main paths' shapes with a 1M-row table.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier, VerifyOptions
 from lodestar_tpu_torch.crypto import curves as GC
 from lodestar_tpu_torch.crypto import fields as GT
 from lodestar_tpu_torch.crypto import hash_to_curve as GH
+from lodestar_tpu_torch.kernels import build as B
 from lodestar_tpu_torch.kernels import layout as LY
 from lodestar_tpu_torch.kernels import verify as KV
 
@@ -298,3 +301,52 @@ def test_grouped_wire_batch_and_aggregation_on_card(dev):
     assert v.aggregate_wire_signatures(groups) == [v._aggregate_wire_host(g) for g in groups]
     assert v.aggregate_wire_signatures(groups)[3] is None
     assert KV.LAUNCHES["seg_sum_g2"] > 0 and KV.LAUNCHES["g2_decompress"] > 0
+
+
+@pytest.fixture(scope="module")
+def pairs(dev):
+    """Relations e(P_i, Q_i) e(-P_i, Q_i) = 1 on 8 points, P Jacobian
+    with Z != 1: planes of P, -P and Q."""
+    ps = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(8)]
+    qs = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(8)]
+
+    def jac(pts):
+        zs = [int.from_bytes(RNG.bytes(48), "little") % GT.P for _ in pts]
+        cols = [(x * z * z % GT.P, y * z * z * z % GT.P, z) for (x, y), z in zip(pts, zs)]
+        return planes(np.stack([LY.encode_batch([c[i] for c in cols]) for i in range(3)]), dev)
+
+    q = planes(np.stack([np.stack([LY.encode_batch([p[c][k] for p in qs]) for k in range(2)]) for c in range(2)]), dev)
+    return jac(ps), jac([GC.affine_neg(GC.FP_OPS, p) for p in ps]), q
+
+
+def assert_warp_launch(source, name, n):
+    """The library's last launch: n lanes, one warp of 32 threads each,
+    4 to a block, the program's rounds."""
+    shape = (ctypes.c_int * 8)()
+    assert B.load(source).lt_warp_last_launch(shape) == 0
+    assert list(shape[:4]) == [n, (n + 3) // 4, 128, 4] and shape[7] == KV.ROUNDS_PER_LANE[name]
+
+
+@pytest.mark.parametrize("n", [1, 128, 129, 512])
+def test_warp_pairing_lane_counts_on_card(dev, pairs, n):
+    """The warp-per-lane Miller loop at the main paths' lane counts (one
+    lane, a 128-lane tile, one lane past it, N = 512), and the final
+    exponentiations of both prologues: bit-equal to the plain versions,
+    every live relation equal to one, each launched one warp per lane."""
+    p, pn, q = pairs
+    idx = torch.arange(n, device=dev) % p.shape[-1]
+    p, pn, q = (t[..., idx].contiguous() for t in (p, pn, q))
+    (f1,) = _equal(KV.miller_loop, KV.miller_loop_plain, p, q)
+    f2 = KV.miller_loop(pn, q)
+    assert_warp_launch("miller", "miller_loop", n)
+    assert torch.equal(f2, KV.miller_loop_plain(pn, q))
+    if n == 129:
+        return
+    live = (torch.arange(n, device=dev) % 5 != 4).to(torch.int32)[None].contiguous()
+    (ok,) = _equal(KV.each_final, KV.each_final_plain, live, f1, f2)
+    assert_warp_launch("final", "each_final", n)
+    assert bool(ok.all())
+    a_inf = (torch.arange(n, device=dev) % 7 == 3).to(torch.int32)[None].contiguous()
+    (ok,) = _equal(KV.final_one, KV.final_one_plain, a_inf, f1, f2)
+    assert_warp_launch("tail", "final_one", n)
+    assert ok[0].tolist() == (a_inf[0] == 0).to(torch.int32).tolist()

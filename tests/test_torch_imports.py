@@ -10,7 +10,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "lodestar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "lodestar_tpu_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
 FORBIDDEN = ("jax", "jaxlib", "lodestar_tpu")
 
 

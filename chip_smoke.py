@@ -32,14 +32,17 @@ Needs one CUDA device; exits non-zero without one.  In order:
      K bucket 512) and hash_g2 on one 128-lane batch of the 8 roots;
      g1_keyvalidate on one 65,536-key registration chunk and on the fault
      job with 128 valid keys; seg_sum_g1 on the grouped wire batch's
-     randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 512
-     decompressed signatures grouped by root; the warp-per-lane pairing
+     randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 128 and
+     512 decompressed signatures grouped by root; the warp-per-lane pairing
      kernels at every lane count the paths give them: miller_loop at 1,
      128, 129 and 512 lanes, each_final and final_one at 1, 128 and 512,
      every verdict held against the ground truth, with the shape of each
      one's N = 512 launch as its library reports it (threads and lanes per
      block, dynamic shared memory, slots, phases and rounds per lane) and
-     its ptxas figures.  CUDA-event times of
+     its ptxas figures, the same for the warp-per-lane g2_rsig_sub; agg_pk
+     (one block per set) also on the K = 512 job, with its launch as its
+     library reports it (blocks, threads, shared memory, tree levels).
+     CUDA-event times of
      kernel (median of 5 after a warm-up) and plain version (median of 3;
      once, without a warm-up, for agg_pk, hash_g2, g1_keyvalidate and the
      warp kernels' extra lane counts, whose plain versions take seconds);
@@ -58,8 +61,11 @@ Needs one CUDA device; exits non-zero without one.  In order:
      then retried per set); pre-verify aggregation of the 512 wire
      signatures by root (one 512-lane dispatch, every aggregate equal to
      the host's bytes; a group with a 95-byte member gives None), then the
-     8 merged K = 64 sets verified as one batch; sets/s and a breakdown for
-     each timed path;
+     8 merged K = 64 sets verified as one batch; the grouped wire batch at
+     N = 1024 and 2048 (the 512 signatures repeated, one job each), with
+     each kernel's CUDA-event time inside the path and each of its kernel
+     calls held against the plain version on the same inputs; sets/s and
+     a breakdown for each timed path;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
@@ -89,6 +95,7 @@ N_KEYS = 64
 N_ROOTS = 8
 TABLE_ROWS = 1 << 20
 JOBS = (128, 512)
+WIDE_JOBS = (1024, 2048)  # the grouped wire batch at the larger N buckets, its kernel calls held in the path
 TIMED_RUNS = 5
 PLAIN_RUNS = 3
 BAD_SET = 323  # a wrong-message set of the mixed job (323 % 16 == 3)
@@ -137,6 +144,10 @@ GROUPED_BATCH = WIRE_BATCH + ("seg_sum_g1",)  # a wire batch with a repeated roo
 AGG_BATCH = GROUPED_BATCH + ("agg_pk",)
 PREAGG = ("g2_decompress", "seg_sum_g2", "affine_g2")
 TAIL = ("affine_g2", "final_one")  # one lane per launch on the batch path
+# the kernel wrappers of kernels/verify.py that the grouped wire batch calls
+# (mont_convert there on the 4 message planes)
+GROUPED_WRAPPERS = ("mont_convert", "g2_decompress", "g1_rpk", "g2_rsig_sub", "sum_g2", "seg_sum_g1", "miller_loop",
+                    "prod12", "affine_g2", "final_one")
 # lane counts of the warp-per-lane pairing kernels' own phase: the tail's
 # one lane, the 128-lane tile, one lane past it, N = 512
 WARP_LANES = (1, 128, 129, 512)
@@ -626,17 +637,18 @@ def main() -> int:
         log(f"kernel outputs N={n}: wire mixed job: {int(host_bad.sum())} encodings refused on the host, "
             f"{n - len(off)} lanes decompressed or flagged infinity, {len(off)} x off the curve")
 
-    # pre-verify aggregation's scan: the 512 wire signatures, decompressed,
-    # grouped by root as aggregate_wire_signatures groups them
-    n = JOBS[-1]
-    args, _ = verifier._prepare_wire(wire_valid[:n])
-    xy, dec_ok = KV.g2_decompress(args.sig_x, args.sig_flags)
-    bad = ((args.sig_flags[1] != 0) | (dec_ok[0] == 0))[None, :].to(torch.int32)
-    group = torch.from_numpy(verifier._grouping(wire_valid[:n], n)[0]).to(dev)
-    _, seg_inf = plain_and_kernel("seg_sum_g2", n, KV.seg_sum_g2, KV.seg_sum_g2_plain, xy, bad, group)
-    seg_units["seg_sum_g2", n] = seg_needed(bad, group)
-    if bool(seg_inf.any()) or bool(bad.any()):
-        raise AssertionError("seg_sum_g2: a valid signature's running sum at infinity")
+    # pre-verify aggregation's scan: the first 128 and all 512 wire
+    # signatures, decompressed, grouped by root as aggregate_wire_signatures
+    # groups them
+    for n in JOBS:
+        args, _ = verifier._prepare_wire(wire_valid[:n])
+        xy, dec_ok = KV.g2_decompress(args.sig_x, args.sig_flags)
+        bad = ((args.sig_flags[1] != 0) | (dec_ok[0] == 0))[None, :].to(torch.int32)
+        group = torch.from_numpy(verifier._grouping(wire_valid[:n], n)[0]).to(dev)
+        _, seg_inf = plain_and_kernel("seg_sum_g2", n, KV.seg_sum_g2, KV.seg_sum_g2_plain, xy, bad, group)
+        seg_units["seg_sum_g2", n] = seg_needed(bad, group)
+        if bool(seg_inf.any()) or bool(bad.any()):
+            raise AssertionError("seg_sum_g2: a valid signature's running sum at infinity")
 
     # pubkey aggregation on the K = 128 job (K bucket 512), hash on 8 roots
     args, _ = verifier._prepare_wire(d["wire_agg"])
@@ -647,6 +659,31 @@ def main() -> int:
                                  plain_runs=0)
     if bool(pk_inf[0, :AGG_SETS].any()) or k_bucket != min(b for b in K_BUCKETS if b >= AGG_K):
         raise AssertionError(f"agg_pk: K bucket {k_bucket}, {int(pk_inf.sum())} aggregates at infinity")
+    # one block per set: the launch as the library reports it (the last one,
+    # a timed plain_and_kernel launch on this job)
+    shape = (ctypes.c_int * 4)()
+    B.load("aggpk").lt_agg_last_launch(shape)
+    blocks, threads, smem, levels = list(shape)
+    kc, lanes = min(k_bucket, KV.AGG_CHUNK), args.idx.shape[0]
+    if list(shape) != KV.agg_launch_shape(lanes, k_bucket):
+        raise AssertionError(f"agg_pk: last launch {list(shape)}, not {KV.agg_launch_shape(lanes, k_bucket)}")
+    chunk_live = args.kmask.reshape(lanes, k_bucket // kc, kc).any(dim=2).sum(dim=1)
+    # every tree addition, and one accumulation per live chunk after a set's
+    # first (the accumulator of a valid aggregate is never infinity; an
+    # all-masked padding set adds every chunk)
+    made = torch.where(chunk_live > 0, chunk_live - 1, k_bucket // kc - 1)
+    agg_done = lanes * (k_bucket // kc) * (kc - 1) + int(made.sum())
+    entry_agg = next(e for k, e in ptxas_entries(ptxas["aggpk"]).items() if "agg_pk" in k)
+    agg_info = {"blocks": blocks, "threads_per_block": threads, "static_smem_bytes_per_block": smem,
+                "tree_levels_per_chunk": levels, "additions_done": agg_done, "ptxas": entry_agg}
+    log(f"agg_pk launch N={AGG_SETS} K bucket {k_bucket}: {blocks} blocks (one per set) of {threads} threads, "
+        f"{smem} B static shared memory, {levels} tree levels per chunk of {kc}; {agg_done} complete additions "
+        f"made ({int(chunk_live.sum())} live chunks of {lanes * (k_bucket // kc)}); ptxas {entry_agg}")
+    sargs, _ = verifier._prepare_wire(d["wire_sync"])
+    _, spk_inf = plain_and_kernel("agg_pk", SYNC_SETS, KV.agg_pk, KV.agg_pk_plain, tx, ty, sargs.idx,
+                                  sargs.kmask, plain_runs=0, tag="sync")
+    if sargs.idx.shape[1] != SYNC_K or bool(spk_inf[0, :SYNC_SETS].any()):
+        raise AssertionError(f"agg_pk on the K = {SYNC_K} job: K bucket {sargs.idx.shape[1]}")
     roots_p = d["roots"] + [d["roots"][-1]] * (KV.BT - N_ROOTS)  # padded as MessageCache pads
     us = [GH.hash_to_field_fp2(r, 2, GH.DST_G2) for r in roots_p]
     u = torch.from_numpy(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
@@ -680,9 +717,10 @@ def main() -> int:
             raise AssertionError(f"each_final at N={n}: verdicts differ from the ground truth")
         if any(o1 != (0 if a else o) for _, lv, o, o1, a in rows if lv or a):
             raise AssertionError(f"final_one at N={n}: an A = O lane verified, or a verdict differs from each_final's")
-    for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail")):
+    for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail"),
+                         ("g2_rsig_sub", "randmul")):
         # the shape and program figures of the library's last launch, the
-        # N = 512 one just made, as its C entry point launched it
+        # N = 512 one made above, as its C entry point launched it
         shape = (ctypes.c_int * 8)()
         B.load(source).lt_warp_last_launch(shape)
         lanes, blocks, threads, lpb, smem, slots, phases, rounds = list(shape)
@@ -698,7 +736,8 @@ def main() -> int:
             f"{threads // lpb} threads per lane, {lpb} lanes per block; {rounds} rounds "
             f"({KV.FP_MULS_PER_LANE[name]} Fp products) in {phases} phases per lane, {slots} slots per lane, "
             f"{smem} B dynamic shared memory per block; ptxas {entry}; card ms by lanes " + ", ".join(
-                f"{n}: {results[name, n, 'lanes'][0]:.3f}" for n in WARP_LANES if (name, n, "lanes") in results))
+                f"{n}: {results[key][0]:.3f}" for n in sorted(set(WARP_LANES + JOBS))
+                for key in ((name, n, "lanes"), (name, n)) if key in results and (key[2:] or name == "g2_rsig_sub")))
 
     # -- 3. main paths -------------------------------------------------------------
     def host_ms(fn, runs=3):
@@ -1001,6 +1040,94 @@ def main() -> int:
         f"({entry_of(counts2)}; launches {json.dumps(counts2)})")
     no_host_sets("merged sets")
 
+    def kernel_ms_in_path(fn):
+        """fn() once with each kernel wrapper of GROUPED_WRAPPERS timed by
+        CUDA events around its call, the card drained before each (so a
+        time is that call's launches alone); (result, name -> ms summed over
+        the wrapper's calls, the calls as (name, inputs, outputs), copied
+        after each call outside its timing).  Raises unless every wrapper
+        was called through the patch."""
+        real = {name: getattr(KV, name) for name in GROUPED_WRAPPERS}
+        times, calls = {}, []
+
+        def timed(name, f):
+            def run(*args):
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = f(*args)
+                b.record()
+                b.synchronize()
+                times[name] = times.get(name, 0.0) + a.elapsed_time(b)
+                outs = out if isinstance(out, tuple) else (out,)
+                calls.append((name, tuple(x.clone() if torch.is_tensor(x) else x for x in args),
+                              tuple(o.clone() for o in outs)))
+                return out
+            return run
+
+        try:
+            for name, f in real.items():
+                setattr(KV, name, timed(name, f))
+            out = fn()
+        finally:
+            for name, f in real.items():
+                setattr(KV, name, f)
+        if set(times) != set(GROUPED_WRAPPERS):
+            raise AssertionError(f"wrappers the timed run did not call through the patch: "
+                                 f"{sorted(set(GROUPED_WRAPPERS) - set(times))}")
+        return out, times, calls
+
+    def hold_calls(label, calls):
+        """Each recorded kernel call against its plain version on the same
+        inputs, bit for bit (one untimed plain run each); -> seconds."""
+        t = time.perf_counter()
+        for name, args, k_outs in calls:
+            p_out = getattr(KV, name + "_plain")(*args)
+            p_outs = p_out if isinstance(p_out, tuple) else (p_out,)
+            if len(p_outs) != len(k_outs) or not all(torch.equal(a, b) for a, b in zip(k_outs, p_outs)):
+                shapes = [tuple(x.shape) for x in args if torch.is_tensor(x)]
+                raise AssertionError(f"{label}: {name} on inputs {shapes} differs from its plain version")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # the grouped wire batch at the larger N buckets: the 512 signatures
+    # repeated, one job of n sets (max_job_sets raised to the largest bucket)
+    wide = TorchBlsVerifier(table, rng=np.random.default_rng(SEED + 1), max_job_sets=N_BUCKETS[-1])
+    wide.messages = cache
+    wide_begin = wide.begin_job
+
+    def wide_recording_begin_job(job_sets, batchable):
+        job = wide_begin(job_sets, batchable)
+        jobs_begun.append(job)
+        return job
+
+    wide.begin_job = wide_recording_begin_job
+    wide_ms = {}  # n -> {"ms", "sets_per_s", "kernel_ms"}
+    for n in WIDE_JOBS:
+        job = [wire_valid[i % JOBS[-1]] for i in range(n)]
+        wide.verify_signature_sets(job, batchable)  # warm-up
+        ok, counts = counted(lambda: wide.verify_signature_sets(job, batchable))
+        if (ok is not True or counts["final_one"] != 1 or counts["miller_loop"] != 2
+                or entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(n)):
+            raise AssertionError(f"wire N={n}: verdict {ok}, entry {entry_of(counts)}, launches {counts}")
+        require(f"wire batch N={n}", counts, GROUPED_BATCH)
+        ms = host_ms(lambda: wide.verify_signature_sets(job, batchable))
+        ok, kms, calls = kernel_ms_in_path(lambda: wide.verify_signature_sets(job, batchable))
+        if ok is not True:
+            raise AssertionError(f"wire N={n}: the instrumented run rejected the batch")
+        held_s = hold_calls(f"wire N={n}", calls)
+        wide_ms[n] = {"ms": ms, "sets_per_s": n / ms * 1e3, "kernel_ms": kms}
+        results["sets_per_s", "wire_batch", n] = n / ms * 1e3
+        paths["wire_batch", n] = counts
+        log(f"main path wire-batch N={n}: the 512 wire sets repeated, accepted as one RLC batch through the grouped "
+            f"entry; launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of "
+            f"3 after a warm-up); kernel ms in the path (one instrumented run, CUDA events, the card drained "
+            f"before each call; mont_convert on 4 planes; miller_loop the {KV.BT}-lane tile and the one-lane "
+            f"tail): " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items()) + f"; sum {sum(kms.values()):.3f}; "
+            f"each of its {len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
+            f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)")
+    no_host_sets("wide wire batches")
+
     if not verifier._device_canary():
         raise AssertionError("device canary failed")
 
@@ -1041,7 +1168,7 @@ def main() -> int:
         if name in ("seg_sum_g1", "seg_sum_g2"):
             done = KV.seg_rounds(n) * n  # one addition per lane and round
         elif name == "agg_pk":
-            done = n * (k_bucket - 1)  # every slot of the K bucket
+            done = agg_done  # every tree addition and the accumulations of live chunks
         elif name in ("sum_g2", "prod12"):
             done = max(n, KV.BT) - 1
         else:
@@ -1059,6 +1186,8 @@ def main() -> int:
         }
         if name == "agg_pk":
             entry["live_rows"], entry["k_bucket"] = agg_live_rows, k_bucket
+            entry.update(agg_info)
+            entry["ms_k512_job"], entry["plain_ms_k512_job"] = results[name, SYNC_SETS, "sync"][:2]
         if (name, JOBS[0]) in results and n != JOBS[0]:
             entry["ms_n128"], entry["plain_ms_n128"] = results[name, JOBS[0]][:2]
             entry["bound_ms_n128"] = bound(name, JOBS[0])[0]
@@ -1070,18 +1199,24 @@ def main() -> int:
             entry["bound_ms_256"] = bound(name, 256)[0]
         if name in ("seg_sum_g1", "seg_sum_g2"):
             entry["additions_needed"] = seg_units[name, n]
-        if name in warp_info:  # the warp-per-lane kernels: every lane count of their own phase
+        if name in warp_info:  # the warp-per-lane kernels
             entry.update(warp_info[name])
+        if (name, 1, "lanes") in results:  # the pairing kernels: every lane count of their own phase
             timed = [m for m in WARP_LANES if (name, m, "lanes") in results]
             entry["ms_by_lanes"] = {m: results[name, m, "lanes"][0] for m in timed}
             entry["plain_ms_by_lanes"] = {m: results[name, m, "lanes"][1] for m in timed}
             entry["bound_ms_by_lanes"] = {m: bound("each_final" if name == "final_one" else name, m)[0]
                                           for m in timed}
             entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]
+        elif name in warp_info:
+            entry["ms_per_round"] = k_ms / entry["rounds_per_lane"]
+        wrapper = "mont_convert" if name == "mont_convert_4" else name
+        if name in GROUPED_BATCH and wrapper in GROUPED_WRAPPERS:
+            entry["ms_in_grouped_wire_batch_by_n"] = {m: w["kernel_ms"].get(wrapper) for m, w in wide_ms.items()}
         kernels.append(entry)
     log("main path sets/s: " + ", ".join(
         f"{p} N={j}: {results['sets_per_s', p, j]:.1f}" for p in ("per_set", "batch", "wire_per_set", "wire_batch")
-        for j in JOBS)
+        for j in JOBS + (WIDE_JOBS if p == "wire_batch" else ()))
         + f", agg_batch N={AGG_SETS} K={AGG_K}: {results['sets_per_s', 'agg_batch', AGG_SETS]:.1f} "
         f"({results['pubkeys_per_s', 'agg_batch', AGG_SETS]:.1f} pubkeys/s); registration {TABLE_ROWS / reg_s:.1f} "
         f"keys/s ({card}); "

@@ -169,6 +169,14 @@ def _bucket(n: int, buckets=None) -> int:
     raise ValueError(f"size {n} exceeds largest bucket {buckets[-1]}")
 
 
+def _is_wire(s) -> bool:
+    """A wire set carries its signing root (and the signature as bytes), a
+    decoded one the hashed message.  Told apart by these fields, not by
+    class: the node hands over the JAX package's set classes, which the
+    port does not import."""
+    return hasattr(s, "signing_root")
+
+
 def _host_routed(s) -> bool:
     """Sets the JAX package verifies on the host: an aggregate beyond the
     largest K bucket, or keys outside the registry."""
@@ -235,7 +243,7 @@ class TorchBlsVerifier:
         be mixed (each kind runs in its own jobs)."""
         out: List[Optional[bool]] = [None] * len(sets)
         for wire in (False, True):
-            pos = [i for i, s in enumerate(sets) if isinstance(s, WireSignatureSet) == wire]
+            pos = [i for i, s in enumerate(sets) if _is_wire(s) == wire]
             jobs = [
                 (pos[i : i + MAX_JOB_SETS], self.begin_job([sets[j] for j in pos[i : i + MAX_JOB_SETS]], False))
                 for i in range(0, len(pos), MAX_JOB_SETS)
@@ -311,8 +319,8 @@ class TorchBlsVerifier:
         """Dispatch one job (<= max_job_sets sets) without syncing;
         `finish_job` syncs it.  Routing as `_begin_job` of the JAX package
         (`lodestar_tpu/bls/verifier.py:577-663`)."""
-        wire = bool(sets) and isinstance(sets[0], WireSignatureSet)
-        if any(isinstance(s, WireSignatureSet) != wire for s in sets):
+        wire = bool(sets) and _is_wire(sets[0])
+        if any(_is_wire(s) != wire for s in sets):
             raise ValueError("begin_job needs a job of only wire or only decoded sets")
         host = {i: self._verify_set_host(s) for i, s in enumerate(sets) if _host_routed(s)}
         pos = [i for i in range(len(sets)) if i not in host]
@@ -461,7 +469,7 @@ class TorchBlsVerifier:
 
     def _prepare_any(self, sets):
         """(operands, host-decodable mask) of a homogeneous sub-job."""
-        if isinstance(sets[0], WireSignatureSet):
+        if _is_wire(sets[0]):
             args, host_bad = self._prepare_wire(sets)
             return args, ~host_bad[: len(sets)]
         return self._prepare(sets), np.array([s.signature is not None for s in sets])
@@ -580,7 +588,7 @@ class TorchBlsVerifier:
 
     def _verify_set_host(self, s) -> bool:
         """Ground-truth verdict of one set, wire or decoded."""
-        return self._verify_set_cpu(s.decode() if isinstance(s, WireSignatureSet) else s)
+        return self._verify_set_cpu(s.decode() if _is_wire(s) else s)
 
     def _verify_set_cpu(self, s: SignatureSet) -> bool:
         """Ground-truth verification of one decoded set on the host CPU.

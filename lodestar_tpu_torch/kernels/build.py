@@ -177,6 +177,7 @@ _ARGTYPES = {
     "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_warp_last_launch": [_VP],
+    "lt_agg_last_launch": [_VP],
     # host build only: the ingest building blocks and the pairing's
     # inversions and final exponentiation for the tests
     "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],
@@ -210,9 +211,9 @@ def load_host(name: str) -> ctypes.CDLL:
     lib = _bind(ctypes.CDLL(str(build_host()[name])))
     lib.lt_host_fp_muls.argtypes = []
     lib.lt_host_fp_muls.restype = ctypes.c_uint64
+    lib.lt_host_warp_order.argtypes = [_INT]  # virtual threads forwards (0) or reversed (1)
+    lib.lt_host_warp_order.restype = None
     if hasattr(lib, "lt_host_rounds"):  # the warp-per-lane kernels
         lib.lt_host_rounds.argtypes = []
         lib.lt_host_rounds.restype = ctypes.c_uint64
-        lib.lt_host_warp_order.argtypes = [_INT]
-        lib.lt_host_warp_order.restype = None
     return lib

@@ -93,6 +93,13 @@ LT_DEV uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
 
 static uint32_t lt_cf;  // the carry (or borrow) flag
 
+// The kernels' cooperating threads (a warp's, a block's) run as virtual
+// threads one after another, forwards or (lt_host_warp_order(1))
+// reversed: a phase in which one thread read what another one writes
+// would differ between the two orders.
+static int lt_host_rev;
+extern "C" void lt_host_warp_order(int reversed) { lt_host_rev = reversed; }
+
 LT_DEV uint32_t lt_sum(uint64_t s, bool write) {
   if (write) lt_cf = (uint32_t)(s >> 32);
   return (uint32_t)s;

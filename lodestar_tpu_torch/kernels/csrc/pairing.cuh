@@ -11,13 +11,6 @@
 
 #include "warp12.cuh"
 
-// Load `count` Fp values of a lane from planes [count][12][n] into
-// consecutive slots from `slot`, the warp's threads sharing the words.
-LT_DEV void w_load_planes(const wmem &m, int slot, const int32_t *planes, int count, int n, int lane) {
-  for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP)
-    m.sm[(i % LT_NL) * m.cols + m.base + slot + i / LT_NL] = (uint32_t)planes[(size_t)i * n + lane];
-}
-
 // The twelve slots from `slot` set to one (dead or infinity lanes).
 LT_DEV void w_load_one12(const wmem &m, int slot) {
   for (int i = LT_T0; i < 12 * LT_NL; i += LT_TSTEP)
@@ -33,8 +26,7 @@ LT_DEV void miller_warp(const wmem &m, const int32_t *p, const int32_t *q, int32
   w_load_planes(m, LT_MILLER_Q, q, 4, n, lane);
   LT_SYNCWARP();
   w_run(m, LT_MILLER_PHASE, LT_MILLER_PHASES, LT_MILLER_INS);
-  for (int i = LT_T0; i < 12 * LT_NL; i += LT_TSTEP)
-    f[(size_t)i * n + lane] = (int32_t)m.sm[(i % LT_NL) * m.cols + m.base + LT_MILLER_F + i / LT_NL];
+  w_store_planes(m, LT_MILLER_F, f, 12, n, lane);
 }
 #endif
 

@@ -1,4 +1,4 @@
-// The warp engine of the pairing kernels: one warp per pairing lane.
+// The warp engine of the pairing kernels and of r sig: one warp per lane.
 //
 // A lane's values are Fp "slots" in shared memory, stored limb-major: the
 // block's memory is [12][cols], slot s of warp w in column w * slots + s
@@ -14,7 +14,7 @@
 // where one thread per lane ran one after another.
 //
 // In the host build a warp is a loop over its 32 virtual threads, forwards
-// or (lt_host_warp_order(1)) reversed, shared memory a plain array and
+// or reversed (common.cuh lt_host_warp_order), shared memory a plain array and
 // __syncwarp() nothing; lt_host_rounds() counts the rounds it ran.
 #pragma once
 
@@ -45,9 +45,7 @@
 #define LT_T0 0
 #define LT_TSTEP 1
 #define LT_SYNCWARP() ((void)0)
-static int lt_warp_rev;
 static uint64_t lt_rounds;
-extern "C" void lt_host_warp_order(int reversed) { lt_warp_rev = reversed; }
 extern "C" uint64_t lt_host_rounds(void) {
   const uint64_t c = lt_rounds;
   lt_rounds = 0;
@@ -265,12 +263,35 @@ LT_DEV void w_run(const wmem &m, const uint32_t *phase, int nphase, const uint32
     }
     lt_rounds += round;
     for (int j = 0; j < LT_WARP; j++) {  // virtual threads, forwards or reversed
-      const int t = lt_warp_rev ? LT_WARP - 1 - j : j;
+      const int t = lt_host_rev ? LT_WARP - 1 - j : j;
       for (int i = t; i < cnt; i += LT_WARP)
         if (ins[off + i] != LT_NOP) w_exec(m, ins[off + i]);
     }
   }
 #endif
+}
+
+// Load `count` Fp values of a lane from planes [count][12][n] into
+// consecutive slots from `slot`, the warp's threads sharing the words.
+LT_DEV void w_load_planes(const wmem &m, int slot, const int32_t *planes, int count, int n, int lane) {
+  for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP)
+    m.sm[(i % LT_NL) * m.cols + m.base + slot + i / LT_NL] = (uint32_t)planes[(size_t)i * n + lane];
+}
+
+// Store `count` consecutive slots from `slot` into planes [count][12][n].
+LT_DEV void w_store_planes(const wmem &m, int slot, int32_t *planes, int count, int n, int lane) {
+  for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP)
+    planes[(size_t)i * n + lane] = (int32_t)m.sm[(i % LT_NL) * m.cols + m.base + slot + i / LT_NL];
+}
+
+// Copy `count` consecutive slots from `src` to `dst` (ranges apart), the
+// warp's threads sharing the words; the warp meets after it.
+LT_DEV void w_copy(const wmem &m, int dst, int src, int count) {
+  for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP) {
+    uint32_t *row = m.sm + (i % LT_NL) * m.cols + m.base;
+    row[dst + i / LT_NL] = row[src + i / LT_NL];
+  }
+  LT_SYNCWARP();
 }
 
 // The block's dynamic shared memory for a program of `slots` and `nconst`.

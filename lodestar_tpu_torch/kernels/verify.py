@@ -98,6 +98,8 @@ RAND_WORDS = RAND_BITS // 32
 WINDOW = 4  # scalar-multiplication window; divides 32
 BT = 128  # slots of the lane reductions (csrc/reduce.cu), the JAX lane tile
 AGG_CHUNK = 32  # rows of one tree of the pubkey aggregation (csrc/aggpk.cu)
+AGG_BATCH = 16  # chunks whose trees one agg_pk block runs at once
+AGG_THREADS = 256  # most threads of an agg_pk block
 
 LAUNCHES: Dict[str, int] = {
     "mont_convert": 0,
@@ -136,7 +138,7 @@ FP_MULS_PER_LANE = {
     "miller_loop": 7834,
     "each_final": 7730,
     "g1_rpk": 1569,
-    "g2_rsig_sub": 5057,
+    "g2_rsig_sub": 5045,
     "sum_g2": 60,
     "prod12": 54,
     "affine_g2": 623,
@@ -152,8 +154,9 @@ IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 # Rounds per lane of the warp-per-lane kernels (csrc/warp12.cuh): phases
 # of up to 32 independent Fp products, one per thread, and the final
 # exponentiation's one inversion (kernels/warp_schedule.py; the host
-# build counts them, tests/test_torch_warp_pairing.py)
-ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396}
+# build counts them, tests/test_torch_warp_pairing.py and
+# tests/test_torch_warp_rsig.py)
+ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533}
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
@@ -622,6 +625,20 @@ def agg_pk(table_x: torch.Tensor, table_y: torch.Tensor, idx: torch.Tensor, kmas
     _launch("agg_pk", "aggpk", "lt_agg_pk", table_x.data_ptr(), table_y.data_ptr(), table_x.shape[1],
             idx.data_ptr(), kmask.data_ptr(), k, out.data_ptr(), out_inf.data_ptr(), n)
     return out, out_inf
+
+
+def agg_launch_shape(n: int, k: int):
+    """The launch `csrc/aggpk.cu` makes for agg_pk on [n, k] rows, as
+    its lt_agg_last_launch reports it: n blocks (one per set), the
+    threads of one batch's first tree level in whole warps (at most
+    AGG_THREADS), the static shared bytes (x, y, z limbs and a flag per
+    point a batch keeps, a live word per chunk), and a chunk's tree
+    levels."""
+    kc = min(k, AGG_CHUNK)
+    items = min(k // kc, AGG_BATCH) * ((kc + 1) // 2)
+    pts = AGG_BATCH * (AGG_CHUNK // 2)
+    smem = (3 * NL + 1) * pts * 4 + AGG_BATCH * 4
+    return [n, min(AGG_THREADS, -(-items // 32) * 32), smem, (kc - 1).bit_length()]
 
 
 # ---------------------------------------------------------------------------

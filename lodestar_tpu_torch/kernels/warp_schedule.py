@@ -1,7 +1,9 @@
-"""Warp-per-lane schedules of the Miller loop and the final exponentiation.
+"""Warp-per-lane schedules of the Miller loop, the final exponentiation
+and the RLC batch's r sig with its G2 subgroup check.
 
 The CUDA pairing kernels (`csrc/miller.cu`, `csrc/final.cu`, `csrc/tail.cu`
-`lt_final_one`) give each pairing lane one warp.  The lane's values live
+`lt_final_one`) and `csrc/randmul.cu lt_g2_rsig_sub` give each lane one
+warp.  The lane's values live
 in shared memory as Fp "slots"; a kernel runs a program of *phases*, and
 in each phase every thread of the warp that has work performs one Fp
 operation from operand slots to a result slot, then the warp meets at
@@ -12,10 +14,11 @@ inversion phase runs the one Fp inversion of the final exponentiation on
 one thread.
 
 This module writes those programs.  It traces the formulas of the JAX
-package's tower, Miller steps and final exponentiation
-(`lodestar_tpu/kernels/tower.py` and `pairing.py`: Karatsuba products,
-CH-SQR2, Granger-Scott squarings, the doubling and addition steps with
-their line scalings) into a graph of Fp operations, rebuilds each sum
+package's tower, Miller steps, final exponentiation and G2 curve
+operations (`lodestar_tpu/kernels/tower.py`, `pairing.py` and
+`curve.py`: Karatsuba products, CH-SQR2, Granger-Scott squarings, the
+doubling and addition steps with their line scalings, the Jacobian
+doubling and additions) into a graph of Fp operations, rebuilds each sum
 as a shallow tree (`rebalance`), packs the graph into phases (list
 scheduling, the longest chain of products first), gives every value a
 slot (a value written in a phase never takes a slot that any operation
@@ -24,14 +27,16 @@ header that `kernels/build.py` writes from `cuda_programs()` at every
 build.
 Every Fp value is canonical, so any schedule of the same field
 operations gives the same limbs: the formulas fix the Miller value
-(which is defined only up to the line scalings) and nothing here can
-change it.
+(which is defined only up to the line scalings) and the Jacobian
+triples, and nothing here can change them.
 
 A program is a list of *segments* (straight-line code on fixed slots,
 named registers) in the order they run: the final exponentiation
 repeats two segments, a cyclotomic squaring and a product by the base,
 315 and 25 times; the Miller loop pipelines each bit's line products
-with the next bit's doubling step.
+with the next bit's doubling step; the r sig kernel's window loop runs it a
+segment (a window) at a time and moves the digit's table entry between
+them.
 """
 
 from __future__ import annotations
@@ -332,6 +337,59 @@ class Tower:
         oy = self.sub2(self.mul2(rr, self.sub2(V, ox)), self.dbl2(self.mul2(Y, JJ)))
         oz = self.sub2(self.sub2(self.sqr2(self.add2(Z, H)), Z1Z1), HH)
         return self.line_eval(e0, e1, e2, pw), (ox, oy, oz)
+
+    # G2 curve formulas (lodestar_tpu/kernels/curve.py over FP2_OPS): they
+    # fix the Jacobian triples, so they are traced as written there
+    def jac_dbl(self, p):  # curve.py jac_dbl
+        X, Y, Z = p
+        A, B = self.sqr2(X), self.sqr2(Y)
+        CC = self.sqr2(B)
+        D = self.dbl2(self.sub2(self.sub2(self.sqr2(self.add2(X, B)), A), CC))
+        E = self.small2(A, 3)
+        X3 = self.sub2(self.sqr2(E), self.dbl2(D))
+        Y3 = self.sub2(self.mul2(E, self.sub2(D, X3)), self.small2(CC, 8))
+        return (X3, Y3, self.dbl2(self.mul2(Y, Z)))
+
+    def jac_add(self, p, q):  # curve.py jac_add_mixed_or_full: no dispatch
+        (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+        Z1Z1, Z2Z2 = self.sqr2(Z1), self.sqr2(Z2)
+        U1, U2 = self.mul2(X1, Z2Z2), self.mul2(X2, Z1Z1)
+        S1 = self.mul2(self.mul2(Y1, Z2), Z2Z2)
+        S2 = self.mul2(self.mul2(Y2, Z1), Z1Z1)
+        H, R = self.sub2(U2, U1), self.sub2(S2, S1)
+        HH = self.sqr2(H)
+        HHH, V = self.mul2(H, HH), self.mul2(U1, HH)
+        X3 = self.sub2(self.sub2(self.sqr2(R), HHH), self.dbl2(V))
+        Y3 = self.sub2(self.mul2(R, self.sub2(V, X3)), self.mul2(S1, HHH))
+        return (X3, Y3, self.mul2(self.mul2(Z1, Z2), H))
+
+    def jac_add_mixed(self, p, q):  # curve.py jac_add_mixed, q affine
+        (X1, Y1, Z1), (X2, Y2) = p, q
+        Z1Z1 = self.sqr2(Z1)
+        U2 = self.mul2(X2, Z1Z1)
+        S2 = self.mul2(self.mul2(Y2, Z1), Z1Z1)
+        H = self.sub2(U2, X1)
+        HH = self.sqr2(H)
+        I = self.small2(HH, 4)  # noqa: E741
+        J = self.mul2(H, I)
+        rr = self.dbl2(self.sub2(S2, Y1))
+        V = self.mul2(X1, I)
+        X3 = self.sub2(self.sub2(self.sqr2(rr), J), self.dbl2(V))
+        Y3 = self.sub2(self.mul2(rr, self.sub2(V, X3)), self.dbl2(self.mul2(Y1, J)))
+        return (X3, Y3, self.sub2(self.sub2(self.sqr2(self.add2(Z1, H)), Z1Z1), HH))
+
+    def psi(self, p):  # curve.py g2_psi
+        X, Y, Z = p
+        return (self.mul2(self.conj2(X), self.const2("psi_cx")), self.mul2(self.conj2(Y), self.const2("psi_cy")),
+                self.conj2(Z))
+
+    def jac_eq_terms(self, p, q):
+        """curve.py jac_eq's cross products (X1 Z2^2, X2 Z1^2, Y1 Z2^3,
+        Y2 Z1^3): the points are equal iff the pairs are."""
+        (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+        Z1Z1, Z2Z2 = self.sqr2(Z1), self.sqr2(Z2)
+        return (self.mul2(X1, Z2Z2), self.mul2(X2, Z1Z1), self.mul2(self.mul2(Y1, Z2), Z2Z2),
+                self.mul2(self.mul2(Y2, Z1), Z1Z1))
 
 
 def flat12(f) -> List[int]:
@@ -846,8 +904,94 @@ def final_program() -> Program:
     return sg.program("FINAL", order, {"A": "A", "B": "B", "OUT": "OUT", "R3": list(consts).index("r3")})
 
 
+RAND_BITS, WINDOW = 128, 4  # the RLC scalars (kernels/verify.py)
+WINDOWS = RAND_BITS // WINDOW
+# the r sig program's registers: the affine signature Q, the table
+# {Q .. 15 Q}, the accumulator T (two sets, alternating), the window's
+# addend, T after the window's doublings, the subgroup check's chain S
+# (alternating) and jac_eq's cross products
+RSIG_LAYOUT = {"Q": (0, 4), "TBL": (4, 90), "T0": (94, 6), "T1": (100, 6), "ADD": (106, 6), "DBL": (112, 6),
+               "S0": (118, 6), "S1": (124, 6), "EQ": (130, 8)}
+
+
+def _psi_consts() -> Dict[str, int]:
+    u = (0, 1)
+    c = {}
+    for name, e in (("psi_cx", 2 * (P - 1) // 3), ("psi_cy", (P - 1) // 2)):
+        v = GT.fp2_mul(u, GT.fp2_pow(GT.XI, e))
+        c[name + ".0"], c[name + ".1"] = mont(v[0]), mont(v[1])
+    return c
+
+
+def subgroup_bits(t: int) -> List[int]:
+    """The bits of |x| whose steps (a doubling, then a mixed addition of Q
+    where the bit is set) window t of the r sig program runs: two per
+    window from bit 62 down, the last window bit 0 alone."""
+    return [b for b in (62 - 2 * t, 61 - 2 * t) if b >= 0]
+
+
+def rsig_program() -> Program:
+    """r Q for a lane's 128-bit scalar r (lodestar_tpu/kernels/curve.py
+    scalar_mul_window_jac over Fp2, 4-bit windows) and the G2 subgroup
+    check of Q (g2_subgroup_check), as segments that the kernel's
+    window loop (csrc/randmul.cu) runs one at a time: the table {Q .. 15 Q}, then for
+    each of the 32 windows one segment of four doublings of T and the
+    addition of the window's entry (which the loop copies into ADD
+    beforehand, by the lane's digit), writing T doubled to DBL and the sum
+    to the other T register; the loop then keeps DBL (digit 0), ADD (the
+    accumulator still infinity) or the sum.  The subgroup check's static
+    chain by |x| (63 doublings, 5 mixed additions) rides in the windows'
+    idle threads, two steps per window (`subgroup_bits`); the last window
+    adds psi(Q) and jac_eq's cross products against -[|x|] Q, which the
+    kernel compares."""
+    sg = _Segments(dict(_consts(False), **_psi_consts()), RSIG_LAYOUT)
+
+    def q_jac(tw, r):
+        x, y = _pairs(r["Q"])
+        return (x, y, (tw.one, tw.zero))
+
+    def table(tw, r):
+        q = q_jac(tw, r)
+        tbl = [q]
+        for m in range(2, 1 << WINDOW):
+            tbl.append(tw.jac_dbl(tbl[m // 2 - 1]) if m % 2 == 0 else tw.jac_add(tbl[m - 2], q))
+        return {"TBL": [x for e in tbl for x in _flat(e)], "T0": _flat(q), "S0": _flat(q)}
+
+    def window(src, dst, bits, last):
+        def body(tw, r):
+            T = _pairs(r["T" + src])
+            for _ in range(WINDOW):
+                T = tw.jac_dbl(T)
+            out = {"DBL": _flat(T), "T" + dst: _flat(tw.jac_add(T, _pairs(r["ADD"])))}
+            S, qa = _pairs(r["S" + src]), _pairs(r["Q"])
+            for b in bits:
+                S = tw.jac_dbl(S)
+                if (X_ABS >> b) & 1:
+                    S = tw.jac_add_mixed(S, qa)
+            if last:
+                neg = (S[0], tw.neg2(S[1]), S[2])
+                out["EQ"] = _flat(tw.jac_eq_terms(tw.psi(q_jac(tw, r)), neg))
+            else:
+                out["S" + dst] = _flat(S)
+            return out
+        return body
+
+    sg.add("table", table, ("Q",), ("TBL", "T0", "S0"))
+    order = ["table"]
+    for t in range(WINDOWS):
+        src, dst = str(t % 2), str(1 - t % 2)
+        bits, last = subgroup_bits(t), t == WINDOWS - 1
+        name = f"win{src}_" + ("fin" if last else "".join("a" if (X_ABS >> b) & 1 else "d" for b in bits))
+        if name not in sg.index:
+            outs = ("DBL", "T" + dst) + (("EQ",) if last else ("S" + dst,))
+            sg.add(name, window(src, dst, bits, last), ("T" + src, "ADD", "S" + src, "Q"), outs)
+        order.append(name)
+    assert X_ABS >> 63 == 1 and sum(len(subgroup_bits(t)) for t in range(WINDOWS)) == 63
+    return sg.program("RSIG", order, {r: r for r in RSIG_LAYOUT})
+
+
 def programs() -> List[Program]:
-    return [miller_program(), final_program()]
+    return [miller_program(), final_program(), rsig_program()]
 
 
 # ---------------------------------------------------------------------------
@@ -892,8 +1036,9 @@ def _words(ws, per_line=8) -> str:
 
 def cuda_programs() -> str:
     """Text of warp_prog.cuh (`kernels/build.py` writes it beside the
-    build).  A kernel source defines LT_WANT_MILLER or LT_WANT_FINAL
-    before including it and compiles that program's tables only."""
+    build).  A kernel source defines LT_WANT_MILLER, LT_WANT_FINAL or
+    LT_WANT_RSIG before including it and compiles that program's tables
+    only."""
     lines = [
         "// Written at build time by kernels/build.py from",
         "// kernels/warp_schedule.py cuda_programs().",
@@ -918,8 +1063,11 @@ def cuda_programs() -> str:
             f"LT_PROG uint32_t LT_{n}_CONST[{len(prog.consts)}][12] = {{{body}}};",
             f"LT_PROG uint32_t LT_{n}_PHASE[{len(phases)}] = {_words(phases)};",
             f"LT_PROG uint32_t LT_{n}_INS[{len(ins)}] = {_words(ins)};",
-            f"#endif  // LT_WANT_{n}",
-            "",
         ]
+        starts = [0]  # where each segment's phases start, in the order they run, and the end
+        for i in prog.order:
+            starts.append(starts[-1] + len(prog.segs[i].phases))
+        lines.append(f"LT_PROG uint32_t LT_{n}_SEG[{len(starts)}] = {_words(starts)};")
+        lines += [f"#endif  // LT_WANT_{n}", ""]
     return "\n".join(lines)
 

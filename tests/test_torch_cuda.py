@@ -350,3 +350,82 @@ def test_warp_pairing_lane_counts_on_card(dev, pairs, n):
     (ok,) = _equal(KV.final_one, KV.final_one_plain, a_inf, f1, f2)
     assert_warp_launch("tail", "final_one", n)
     assert ok[0].tolist() == (a_inf[0] == 0).to(torch.int32).tolist()
+
+
+@pytest.mark.parametrize("n", [1, 5, 128, 512])
+def test_g2_rsig_sub_lane_counts_on_card(dev, points, n):
+    """The warp-per-lane r sig and subgroup check at 1, 5 (a block's lanes
+    1..3 idle), 128 and 512 lanes, bit-equal to the plain version: lanes
+    cycle through random scalars, the zero scalar, a scalar with leading
+    zero windows, a signature flagged infinity and a point outside G2.
+    The launch, as the library reports it, is the generated program's."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    _, q = points
+    u = GH.hash_to_field_fp2(b"rsig-on-card", 1, b"torch-cuda")[0]
+    out = GH.map_to_curve_svdw(GC.FP2_OPS, u)
+    out_q = planes(np.stack([np.stack([LY.encode_batch([out[c][k]]) for k in range(2)]) for c in range(2)]), dev)
+    idx = torch.arange(n, device=dev) % q.shape[-1]
+    qn = q[..., idx].contiguous()
+    ks = [int.from_bytes(RNG.bytes(16), "big") for _ in range(n)]
+    for j in range(n):
+        if j % 5 == 1:
+            ks[j] = 0
+        elif j % 5 == 2:
+            ks[j] >>= 72
+        elif j % 5 == 4:
+            qn[..., j] = out_q[..., 0]
+    w = np.array([[(k >> (32 * (3 - i))) & 0xFFFFFFFF for k in ks] for i in range(4)], np.uint32)
+    rw = planes(w.view(np.int32), dev)
+    inf = (torch.arange(n, device=dev) % 5 == 3).to(torch.int32)[None].contiguous()
+    _, rinf, sub = _equal(KV.g2_rsig_sub, KV.g2_rsig_sub_plain, qn, inf, rw)
+    assert sub[0].tolist() == [int(j % 5 != 4) for j in range(n)]
+    assert rinf[0].tolist() == [int(j % 5 in (1, 3)) for j in range(n)]
+    prog = W.rsig_program()
+    shape = (ctypes.c_int * 8)()
+    assert B.load("randmul").lt_warp_last_launch(shape) == 0
+    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
+    assert prog.rounds == KV.ROUNDS_PER_LANE["g2_rsig_sub"]
+
+
+@pytest.fixture(scope="module")
+def neg_table(dev):
+    """Table planes of 6 keys and, at rows 6..8, the negations of keys 0..2."""
+    keys = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(6)]
+    keys += [GC.affine_neg(GC.FP_OPS, keys[i]) for i in range(3)]
+    return planes(LY.encode_batch([x for x, _ in keys]), dev), planes(LY.encode_batch([y for _, y in keys]), dev)
+
+
+@pytest.mark.parametrize("k", [4, 64, 512, 2048])
+def test_agg_tree_on_card(dev, neg_table, k):
+    """The block-per-set aggregation at the K buckets 4 to 2048 (2048:
+    four batches of 16 trees on 256 threads): duplicate rows (P == Q in the
+    tree and between chunk sums), a row beside its negation (P == -Q:
+    chunks summing to infinity), a packed live prefix with masked chunks
+    after it, infinity followed by masked chunks, an all-masked set and a
+    live row past the table; bit-equal to the plain version, the launch
+    as designed."""
+    tx, ty = neg_table
+    v = tx.shape[1]
+    n = 7
+    kc = min(k, KV.AGG_CHUNK)
+    half = kc // 2
+    idx = RNG.integers(0, v, size=(n, k)).astype(np.int32)
+    kmask = np.ones((n, k), np.int32)
+    chunk = RNG.integers(0, 6, size=kc)
+    chunk[half : 2 * half] = chunk[:half]
+    idx[0] = np.tile(chunk, k // kc)
+    pm = RNG.integers(0, 3, size=(k // kc, half))
+    idx[1] = np.concatenate([np.concatenate([c, c + 6]) for c in pm])
+    kmask[2, max(1, (4 * k) // 10) :] = 0
+    idx[3] = idx[1]
+    kmask[3, kc:] = 0
+    kmask[4] = 0
+    idx[5, 0] = v + 7
+    idx, kmask = planes(idx, dev), planes(kmask, dev)
+    _, inf = _equal(KV.agg_pk, KV.agg_pk_plain, tx, ty, idx, kmask)
+    assert inf[0].tolist() == [0, 1, 0, 1, 1, 1, 0]
+    shape = (ctypes.c_int * 4)()
+    assert B.load("aggpk").lt_agg_last_launch(shape) == 0
+    assert list(shape) == KV.agg_launch_shape(n, k)

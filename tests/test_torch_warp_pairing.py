@@ -51,7 +51,7 @@ def libs():
 
 @pytest.fixture(scope="module")
 def progs():
-    mil, fin = W.programs()
+    mil, fin, _ = W.programs()
     return {"miller": mil, "final": fin, "tail": fin}
 
 
@@ -192,7 +192,8 @@ def test_euclid_inverse_equals_fermat(libs):
 def test_round_counts_are_the_schedules():
     """ROUNDS_PER_LANE and FP_MULS_PER_LANE are the generated programs'
     counts."""
-    mil, fin = W.programs()
+    mil, fin, rsig = W.programs()
+    assert (rsig.rounds, rsig.fp_muls) == (KV.ROUNDS_PER_LANE["g2_rsig_sub"], KV.FP_MULS_PER_LANE["g2_rsig_sub"])
     assert (mil.rounds, mil.fp_muls) == (KV.ROUNDS_PER_LANE["miller_loop"], KV.FP_MULS_PER_LANE["miller_loop"])
     for name in ("each_final", "final_one"):
         assert (fin.rounds, fin.fp_muls) == (KV.ROUNDS_PER_LANE[name], KV.FP_MULS_PER_LANE[name])
@@ -203,7 +204,7 @@ def test_schedule_simulation_equals_plain(reverse):
     """The programs run on Python integers, thread by thread in either
     order, give the plain torch engine's Miller value and final
     exponentiation."""
-    mil, fin = W.programs()
+    mil, fin, _ = W.programs()
     pk = GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar())
     q = GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar())
     z = rand_fp()

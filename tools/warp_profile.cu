@@ -1,14 +1,17 @@
-// Cycle profile of the warp-per-lane pairing programs on the card (built
-// and run by warp_profile.py; not part of any kernel).
+// Cycle profile of the warp-per-lane programs on the card (built and run
+// by warp_profile.py; not part of any kernel).
 //
-//   lt_prof_program  one lane of the Miller loop (which = 0) or the final
-//                    exponentiation (1), clock64() around every phase
+//   lt_prof_program  one lane of the Miller loop (which = 0), the final
+//                    exponentiation (1) or r sig with the subgroup check
+//                    (2: its segments back to back, without the window loop's
+//                    copies between them), clock64() around every phase
 //   lt_prof_op       256 dependent Fp operations on each thread of one warp
 //                    (0 Montgomery product, 1 fp_add, 2 fp_sub, 3 an
 //                    interpreter add from shared memory, 4 an interpreter
 //                    product from shared memory)
 #define LT_WANT_MILLER
 #define LT_WANT_FINAL
+#define LT_WANT_RSIG
 #include "pairing.cuh"
 
 template <int SLOTS, int NCONST>
@@ -35,6 +38,11 @@ __global__ void lt_prof_miller(long long *cyc, const uint32_t *init) {
 __global__ void lt_prof_final(long long *cyc, const uint32_t *init) {
   prof_program<LT_FINAL_SLOTS, LT_FINAL_CONSTS>(LT_FINAL_CONST, LT_FINAL_PHASE, LT_FINAL_PHASES, LT_FINAL_INS,
                                                 cyc, init, 24);
+}
+
+__global__ void lt_prof_rsig(long long *cyc, const uint32_t *init) {
+  prof_program<LT_RSIG_SLOTS, LT_RSIG_CONSTS>(LT_RSIG_CONST, LT_RSIG_PHASE, LT_RSIG_PHASES, LT_RSIG_INS, cyc, init,
+                                              LT_RSIG_EQ + 8);
 }
 
 __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out, long long *cyc) {
@@ -69,14 +77,18 @@ __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out
 }
 
 extern "C" int lt_prof_program(int which, void *cyc, const void *init) {
-  const size_t smem = which == 0 ? w_smem_bytes(LT_MILLER_SLOTS, LT_MILLER_CONSTS)
-                                 : w_smem_bytes(LT_FINAL_SLOTS, LT_FINAL_CONSTS);
   if (which == 0) {
+    const size_t smem = w_smem_bytes(LT_MILLER_SLOTS, LT_MILLER_CONSTS);
     cudaFuncSetAttribute(lt_prof_miller, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_miller<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
-  } else {
+  } else if (which == 1) {
+    const size_t smem = w_smem_bytes(LT_FINAL_SLOTS, LT_FINAL_CONSTS);
     cudaFuncSetAttribute(lt_prof_final, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_final<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else {
+    const size_t smem = w_smem_bytes(LT_RSIG_SLOTS, LT_RSIG_CONSTS);
+    cudaFuncSetAttribute(lt_prof_rsig, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_rsig<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
   }
   return (int)cudaDeviceSynchronize();
 }

@@ -1,4 +1,4 @@
-"""Where a warp-per-lane pairing lane spends its cycles, on the card.
+"""Where a warp-per-lane lane spends its cycles, on the card.
 
     python3 tools/warp_profile.py
 
@@ -8,10 +8,11 @@ generated ones), then prints
   * the latency in cycles of one Fp operation on a thread (256 dependent
     ones on each thread of a warp): the Montgomery product, fp_add, fp_sub,
     and the interpreter's add and product with operands in shared memory;
-  * one lane of the Miller loop and of the final exponentiation with
-    clock64() around every phase, summed by kind of phase (products,
-    linear only, the inversion) and by rows (the longest queue of
-    operations on one thread).
+  * one lane of the Miller loop, of the final exponentiation and of r sig
+    with the subgroup check (its segments back to back, without the
+    window loop's copies between windows) with clock64() around every phase,
+    summed by kind of phase (products, linear only, the inversion) and by
+    rows (the longest queue of operations on one thread).
 Values are random field elements: the programs' cost does not depend on
 them, except the inversion's few percent.  Needs one CUDA card.
 """
@@ -69,7 +70,7 @@ def main() -> int:
     for which, prog in enumerate(W.programs()):
         phases = [ph for i in prog.order for ph in prog.segs[i].phases]
         cyc = torch.zeros(len(phases), dtype=torch.int64, device="cuda")
-        init = _values(7 if which == 0 else 24, rng)
+        init = _values(prog.nfix if prog.name == "RSIG" else (7, 24)[which], rng)
         for _ in range(2):
             assert lib.lt_prof_program(which, cyc.data_ptr(), init.data_ptr()) == 0
         c = cyc.cpu().numpy()

@@ -37,9 +37,13 @@ Needs one CUDA device; exits non-zero without one.  In order:
      kernels at every lane count the paths give them: miller_loop at 1,
      128, 129 and 512 lanes, each_final and final_one at 1, 128 and 512,
      every verdict held against the ground truth, with the shape of each
-     one's N = 512 launch as its library reports it (threads and lanes per
-     block, dynamic shared memory, slots, phases and rounds per lane) and
-     its ptxas figures, the same for the warp-per-lane g2_rsig_sub; agg_pk
+     one's N = 512 launch as its library reports it under the kernel's
+     name (threads and lanes per block, dynamic shared memory, slots,
+     phases and rounds per lane) and its ptxas figures, the same for the
+     warp-per-lane g2_rsig_sub, and for the warp-per-lane g1_rpk and
+     g2_decompress also at 1, 128, 129 and 512 lanes (the batch's and the
+     wire mixed job's operands, sliced), g1_rpk also on agg_pk's Jacobian
+     aggregates (Z != 1) with lanes at infinity and zero scalars; agg_pk
      (one block per set) also on the K = 512 job, with its launch as its
      library reports it (blocks, threads, shared memory, tree levels).
      CUDA-event times of
@@ -62,10 +66,15 @@ Needs one CUDA device; exits non-zero without one.  In order:
      signatures by root (one 512-lane dispatch, every aggregate equal to
      the host's bytes; a group with a 95-byte member gives None), then the
      8 merged K = 64 sets verified as one batch; the grouped wire batch at
-     N = 1024 and 2048 (the 512 signatures repeated, one job each), with
-     each kernel's CUDA-event time inside the path and each of its kernel
-     calls held against the plain version on the same inputs; sets/s and
-     a breakdown for each timed path;
+     N = 1024 and 2048 (the 512 signatures repeated, one job each); the
+     aggregate batch, the K = 512 job, the aggregation, the merged sets and
+     the N = 1024 and 2048 batches each run once more with each kernel's
+     CUDA-event time inside the path and each of its kernel calls held
+     against the plain version on the same inputs; every call of g1_rpk
+     and g2_decompress that a main-path run or a bisection makes is
+     copied and, after the last path, held against the plain versions
+     (one plain run per kernel over all the calls' lanes); sets/s and a
+     breakdown for each timed path;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
@@ -148,6 +157,9 @@ TAIL = ("affine_g2", "final_one")  # one lane per launch on the batch path
 # (mont_convert there on the 4 message planes)
 GROUPED_WRAPPERS = ("mont_convert", "g2_decompress", "g1_rpk", "g2_rsig_sub", "sum_g2", "seg_sum_g1", "miller_loop",
                     "prod12", "affine_g2", "final_one")
+AGG_WRAPPERS = GROUPED_WRAPPERS + ("agg_pk",)  # the aggregate batch (one root)
+MERGED_WRAPPERS = tuple(w for w in AGG_WRAPPERS if w != "seg_sum_g1")  # the merged sets (distinct roots)
+PER_SET_WRAPPERS = ("g2_subgroup_check", "each_final")  # besides mont_convert, g2_decompress, miller_loop
 # lane counts of the warp-per-lane pairing kernels' own phase: the tail's
 # one lane, the 128-lane tile, one lane past it, N = 512
 WARP_LANES = (1, 128, 129, 512)
@@ -474,11 +486,36 @@ def main() -> int:
     dev = torch.device("cuda")
     paths = {}  # (path, n) -> launch counts
 
+    # every call of the redesigned warp kernels that a main-path run makes
+    # (inputs and outputs copied on the stream), held at the end of the
+    # main paths against the plain versions
+    path_calls = {"g1_rpk": [], "g2_decompress": []}
+    recording = [False]
+
+    def recorder(name, f):
+        def run(*args):
+            out = f(*args)
+            if recording[0]:
+                path_calls[name].append((tuple(a.clone() for a in args), tuple(o.clone() for o in out)))
+            return out
+        return run
+
+    for name in path_calls:
+        setattr(KV, name, recorder(name, getattr(KV, name)))
+
+    def recorded(fn):
+        """fn() with the main-path calls of path_calls' kernels recorded."""
+        was, recording[0] = recording[0], True
+        try:
+            return fn()
+        finally:
+            recording[0] = was
+
     def counted(fn):
         """fn() with every launch count set to 0 just before; (result, counts)."""
         torch.cuda.synchronize()
         KV.reset_launches()
-        out = fn()
+        out = recorded(fn)
         torch.cuda.synchronize()
         return out, dict(KV.LAUNCHES)
 
@@ -576,6 +613,7 @@ def main() -> int:
         live = dead[0] == 0
         return int(live.sum()) - int(torch.unique(group[live]).numel())
 
+    sweep = {}  # name -> (operands, flag output) at N = 512, for the lane sweep of g1_rpk and g2_decompress
     for n in JOBS:
         # the per-set path's kernels on the mixed job
         idx, kmask, planes, sig_inf, valid = verifier._prepare(sets[:n])
@@ -599,6 +637,7 @@ def main() -> int:
         rwords = torch.from_numpy(make_rand_words(n, np.random.default_rng(SEED + n))).to(dev)
         ops = KV.batch_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid, rwords)
         rpk, rpk_inf = plain_and_kernel("g1_rpk", n, KV.g1_rpk, KV.g1_rpk_plain, *ops["g1_rpk"])
+        sweep["g1_rpk"] = (ops["g1_rpk"], rpk_inf)
         rsig, rsig_inf, sub = plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain,
                                                *ops["g2_rsig_sub"])
         excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
@@ -631,6 +670,7 @@ def main() -> int:
         args, host_bad = verifier._prepare_wire(wire_mixed[:n])
         _, dec_ok = plain_and_kernel("g2_decompress", n, KV.g2_decompress, KV.g2_decompress_plain,
                                      args.sig_x, args.sig_flags)
+        sweep["g2_decompress"] = ((args.sig_x, args.sig_flags), dec_ok)
         off = [i for i in range(n) if dec_ok[0, i] == 0]
         if off != [i for i in WIRE_FAULTS if WIRE_FAULTS[i] == "x_off_curve"]:
             raise AssertionError(f"g2_decompress at N={n}: lanes off the curve {off}")
@@ -684,6 +724,17 @@ def main() -> int:
                                   sargs.kmask, plain_runs=0, tag="sync")
     if sargs.idx.shape[1] != SYNC_K or bool(spk_inf[0, :SYNC_SETS].any()):
         raise AssertionError(f"agg_pk on the K = {SYNC_K} job: K bucket {sargs.idx.shape[1]}")
+    # r pk on agg_pk's Jacobian aggregates (Z != 1, the aggregate batch's
+    # input), with lanes at infinity and zero scalars among them
+    agg_p, _ = KV.agg_pk(tx, ty, args.idx, args.kmask)
+    lane = torch.arange(agg_p.shape[-1], device=dev)
+    e_inf = (lane % 37 == 3).to(torch.int32)[None].contiguous()
+    e_r = sweep["g1_rpk"][0][2][:, :agg_p.shape[-1]].clone()
+    e_r[:, lane % 41 == 7] = 0
+    _, e_out_inf = plain_and_kernel("g1_rpk", agg_p.shape[-1], KV.g1_rpk, KV.g1_rpk_plain, agg_p, e_inf, e_r,
+                                    plain_runs=0, tag="jacobian")
+    if not torch.equal(e_out_inf, (e_inf | (e_r == 0).all(dim=0, keepdim=True)).to(torch.int32)):
+        raise AssertionError("g1_rpk on agg_pk's aggregates: a lane's infinity flag is not p_inf or r == 0")
     roots_p = d["roots"] + [d["roots"][-1]] * (KV.BT - N_ROOTS)  # padded as MessageCache pads
     us = [GH.hash_to_field_fp2(r, 2, GH.DST_G2) for r in roots_p]
     u = torch.from_numpy(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
@@ -717,12 +768,26 @@ def main() -> int:
             raise AssertionError(f"each_final at N={n}: verdicts differ from the ground truth")
         if any(o1 != (0 if a else o) for _, lv, o, o1, a in rows if lv or a):
             raise AssertionError(f"final_one at N={n}: an A = O lane verified, or a verdict differs from each_final's")
+    # r pk on the all-valid batch's operands and the decompression on the
+    # wire mixed job's (every kind of lane: points, infinity, x off the
+    # curve), sliced to the same lane counts; the verdicts of the slices
+    # are the N = 512 run's
+    for n in WARP_LANES:
+        sl = lambda t: t[..., :n].contiguous()  # noqa: E731
+        for name, (kernel, plain) in (("g1_rpk", (KV.g1_rpk, KV.g1_rpk_plain)),
+                                      ("g2_decompress", (KV.g2_decompress, KV.g2_decompress_plain))):
+            operands, flags = sweep[name]
+            _, flags_n = plain_and_kernel(name, n, kernel, plain, *map(sl, operands), plain_runs=0, tag="lanes")
+            if not torch.equal(flags_n, sl(flags)):
+                raise AssertionError(f"{name} at N={n}: flags differ from the N = {JOBS[-1]} run's")
     for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail"),
-                         ("g2_rsig_sub", "randmul")):
-        # the shape and program figures of the library's last launch, the
-        # N = 512 one made above, as its C entry point launched it
+                         ("g2_rsig_sub", "randmul"), ("g1_rpk", "randmul"), ("g2_decompress", "ingest")):
+        # the shape and program figures of the last launch of the
+        # library's kernel `name`, the N = 512 one made above, as its C
+        # entry point launched it
         shape = (ctypes.c_int * 8)()
-        B.load(source).lt_warp_last_launch(shape)
+        if B.load(source).lt_warp_last_launch(name.encode(), shape) != 0:
+            raise AssertionError(f"{name}: {source} reports no launch of it")
         lanes, blocks, threads, lpb, smem, slots, phases, rounds = list(shape)
         if lanes != WARP_LANES[-1] or blocks * lpb < lanes or threads % lpb or rounds != KV.ROUNDS_PER_LANE[name]:
             raise AssertionError(f"{name}: last launch {list(shape)} is not {WARP_LANES[-1]} lanes of "
@@ -737,7 +802,8 @@ def main() -> int:
             f"({KV.FP_MULS_PER_LANE[name]} Fp products) in {phases} phases per lane, {slots} slots per lane, "
             f"{smem} B dynamic shared memory per block; ptxas {entry}; card ms by lanes " + ", ".join(
                 f"{n}: {results[key][0]:.3f}" for n in sorted(set(WARP_LANES + JOBS))
-                for key in ((name, n, "lanes"), (name, n)) if key in results and (key[2:] or name == "g2_rsig_sub")))
+                for key in ((name, n, "lanes"), (name, n))
+                if key in results and (key[2:] or (name, n, "lanes") not in results)))
 
     # -- 3. main paths -------------------------------------------------------------
     def host_ms(fn, runs=3):
@@ -845,7 +911,7 @@ def main() -> int:
         want = [i != BAD_SET for i in range(n)]
         t = time.perf_counter()
         job, _ = counted(lambda: verifier.begin_job(bad_job, batchable=True))
-        ok = verifier.finish_job(job)
+        ok = recorded(lambda: verifier.finish_job(job))
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
         counts = dict(KV.LAUNCHES)
@@ -971,83 +1037,14 @@ def main() -> int:
     bad_job[BAD_SET] = wire_mixed[BAD_SET]
     paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job, "verify_batch_device_wire_grouped")
 
-    # the aggregate batch: 256 sets of K = 128 over one root
-    job = d["wire_agg"]
-    verifier.verify_signature_sets(job, batchable)  # warm-up
-    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
-    if ok is not True or counts["agg_pk"] != 1 or counts["final_one"] != 1 or counts["each_final"] != 0:
-        raise AssertionError(f"aggregate batch: verdict {ok}, launches {counts}")
-    if entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(bucket(AGG_SETS)):
-        raise AssertionError(f"aggregate batch: entry {entry_of(counts)}, launches {counts}")
-    require("aggregate batch", counts, AGG_BATCH)
-    ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
-    log(f"main path aggregate-batch N={AGG_SETS} K={AGG_K}: accepted as one RLC batch through agg_pk (K bucket "
-        f"{k_bucket}) and the grouped entry (one root; {entry_of(counts)}); launches "
-        f"{json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
-        f"{AGG_SETS * AGG_K / ms * 1e3:.1f} pubkeys (signers' signatures)/s (host clock, median of 3 after a "
-        f"warm-up)")
-    breakdown("aggregate-batch", AGG_SETS, lambda: verifier._prepare_wire(job), ms, counts, AGG_BATCH)
-    paths["agg_batch", AGG_SETS] = counts
-    results["sets_per_s", "agg_batch", AGG_SETS] = AGG_SETS / ms * 1e3
-    results["pubkeys_per_s", "agg_batch", AGG_SETS] = AGG_SETS * AGG_K / ms * 1e3
-
-    # the K = 512 job: one set misses a signer, so the batch fails and the
-    # 4-set job (under the bisection leaf) is retried per set
-    job, want = d["wire_sync"], d["sync_truth"]
-    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
-    sync_job = verifier.begin_job(job, batchable=True)
-    verifier.finish_job(sync_job)
-    if (ok is not False or sync_job.verdicts.tolist() != want or sync_job.batch_retries != 1
-            or counts["final_one"] != 1 or counts["each_final"] != 1 or counts["agg_pk"] != 2):
-        raise AssertionError(f"K = {SYNC_K} job: verdict {ok}, per set {sync_job.verdicts}, launches {counts}")
-    if verifier.verify_signature_sets_individually(job) != want:
-        raise AssertionError(f"K = {SYNC_K} job: per-set verdicts differ from the ground truth")
-    log(f"main path sync-aggregate N={SYNC_SETS} K={SYNC_K}: batch rejected, retried per set: verdicts {want} "
-        f"equal the ground truth; launches {json.dumps(counts)}")
-    paths["sync_aggregate", SYNC_SETS] = counts
-    no_host_sets("aggregate paths")
-
-    # pre-verify aggregation: the 512 wire signatures by root, one dispatch
-    n = JOBS[-1]
-    groups = [[s.signature for s in wire_valid[r * N_KEYS:(r + 1) * N_KEYS]] for r in range(N_ROOTS)]
-    host_aggs = [verifier._aggregate_wire_host(g) for g in groups]
-    t = time.perf_counter()
-    aggs, counts = counted(lambda: verifier.aggregate_wire_signatures(groups))
-    agg_ms = (time.perf_counter() - t) * 1e3
-    if aggs != host_aggs or None in aggs:
-        raise AssertionError(f"pre-verify aggregation: {sum(a == b for a, b in zip(aggs, host_aggs))} of "
-                             f"{N_ROOTS} aggregates equal the host's")
-    if (counts["g2_decompress"], counts["seg_sum_g2"], counts["affine_g2"]) != (1, KV.seg_rounds(n), 1):
-        raise AssertionError(f"pre-verify aggregation: not one {n}-lane dispatch: {counts}")
-    require("pre-verify aggregation", counts, PREAGG)
-    paths["preagg", n] = counts
-    bad_group = [wire_valid[0].signature, wire_valid[1].signature[:95]]
-    if verifier.aggregate_wire_signatures([bad_group]) != [None]:
-        raise AssertionError("pre-verify aggregation: a group with a 95-byte member was aggregated")
-    merged = [WireSignatureSet.aggregate([s.indices[0] for s in wire_valid[r * N_KEYS:(r + 1) * N_KEYS]],
-                                         d["roots"][r], aggs[r]) for r in range(N_ROOTS)]
-    merged_truth = [GB.fast_aggregate_verify([d["pks"][i % N_KEYS] for i in s.indices], s.signing_root,
-                                             GC.g2_decompress(s.signature)) for s in merged]
-    ok, counts2 = counted(lambda: verifier.verify_signature_sets(merged, batchable))
-    if (not all(merged_truth) or ok is not True or counts2["agg_pk"] != 1 or counts2["final_one"] != 1
-            or entry_of(counts2) != "verify_batch_device_wire"):
-        raise AssertionError(f"merged sets: truth {merged_truth}, verdict {ok}, entry {entry_of(counts2)}, "
-                             f"launches {counts2}")
-    log(f"main path preagg N={n}: aggregate_wire_signatures of {N_ROOTS} groups of {N_KEYS} wire signatures: "
-        f"every aggregate equals the host's bytes (_aggregate_wire_host); launches {json.dumps(counts)}; "
-        f"{agg_ms:.1f} ms (host clock, one run, compression on the host included); a group with a 95-byte member "
-        f"gave None; the {N_ROOTS} merged sets (K = {N_KEYS}, ground truth all True) accepted as one RLC batch "
-        f"({entry_of(counts2)}; launches {json.dumps(counts2)})")
-    no_host_sets("merged sets")
-
-    def kernel_ms_in_path(fn):
-        """fn() once with each kernel wrapper of GROUPED_WRAPPERS timed by
-        CUDA events around its call, the card drained before each (so a
-        time is that call's launches alone); (result, name -> ms summed over
-        the wrapper's calls, the calls as (name, inputs, outputs), copied
-        after each call outside its timing).  Raises unless every wrapper
-        was called through the patch."""
-        real = {name: getattr(KV, name) for name in GROUPED_WRAPPERS}
+    def kernel_ms_in_path(fn, wrappers=GROUPED_WRAPPERS):
+        """fn() once with each kernel wrapper of `wrappers` timed by CUDA
+        events around its call, the card drained before each (so a time is
+        that call's launches alone); (result, name -> ms summed over the
+        wrapper's calls, the calls as (name, inputs, outputs), copied after
+        each call outside its timing).  Raises unless every wrapper was
+        called through the patch."""
+        real = {name: getattr(KV, name) for name in wrappers}
         times, calls = {}, []
 
         def timed(name, f):
@@ -1072,9 +1069,9 @@ def main() -> int:
         finally:
             for name, f in real.items():
                 setattr(KV, name, f)
-        if set(times) != set(GROUPED_WRAPPERS):
+        if set(times) != set(wrappers):
             raise AssertionError(f"wrappers the timed run did not call through the patch: "
-                                 f"{sorted(set(GROUPED_WRAPPERS) - set(times))}")
+                                 f"{sorted(set(wrappers) - set(times))}")
         return out, times, calls
 
     def hold_calls(label, calls):
@@ -1089,6 +1086,101 @@ def main() -> int:
                 raise AssertionError(f"{label}: {name} on inputs {shapes} differs from its plain version")
         torch.cuda.synchronize()
         return time.perf_counter() - t
+
+    def held_in_path(label, fn, wrappers):
+        """fn() once more through kernel_ms_in_path, then each of its kernel
+        calls held against its plain version; -> (fn's result, the log's
+        words on it)."""
+        out, kms, calls = kernel_ms_in_path(fn, wrappers)
+        held_s = hold_calls(label, calls)
+        return out, (f"kernel ms in the path (one instrumented run, CUDA events, the card drained before each "
+                     f"call): " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items()) + f"; each of its "
+                     f"{len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
+                     f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)")
+
+    # the aggregate batch: 256 sets of K = 128 over one root
+    job = d["wire_agg"]
+    verifier.verify_signature_sets(job, batchable)  # warm-up
+    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+    if ok is not True or counts["agg_pk"] != 1 or counts["final_one"] != 1 or counts["each_final"] != 0:
+        raise AssertionError(f"aggregate batch: verdict {ok}, launches {counts}")
+    if entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(bucket(AGG_SETS)):
+        raise AssertionError(f"aggregate batch: entry {entry_of(counts)}, launches {counts}")
+    require("aggregate batch", counts, AGG_BATCH)
+    ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
+    ok, held = held_in_path("aggregate batch", lambda: verifier.verify_signature_sets(job, batchable), AGG_WRAPPERS)
+    if ok is not True:
+        raise AssertionError("aggregate batch: the instrumented run rejected the batch")
+    log(f"main path aggregate-batch N={AGG_SETS} K={AGG_K}: accepted as one RLC batch through agg_pk (K bucket "
+        f"{k_bucket}) and the grouped entry (one root; {entry_of(counts)}); launches "
+        f"{json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
+        f"{AGG_SETS * AGG_K / ms * 1e3:.1f} pubkeys (signers' signatures)/s (host clock, median of 3 after a "
+        f"warm-up); " + held)
+    breakdown("aggregate-batch", AGG_SETS, lambda: verifier._prepare_wire(job), ms, counts, AGG_BATCH)
+    paths["agg_batch", AGG_SETS] = counts
+    results["sets_per_s", "agg_batch", AGG_SETS] = AGG_SETS / ms * 1e3
+    results["pubkeys_per_s", "agg_batch", AGG_SETS] = AGG_SETS * AGG_K / ms * 1e3
+
+    # the K = 512 job: one set misses a signer, so the batch fails and the
+    # 4-set job (under the bisection leaf) is retried per set
+    job, want = d["wire_sync"], d["sync_truth"]
+    ok, counts = counted(lambda: verifier.verify_signature_sets(job, batchable))
+    sync_job = verifier.begin_job(job, batchable=True)
+    verifier.finish_job(sync_job)
+    if (ok is not False or sync_job.verdicts.tolist() != want or sync_job.batch_retries != 1
+            or counts["final_one"] != 1 or counts["each_final"] != 1 or counts["agg_pk"] != 2):
+        raise AssertionError(f"K = {SYNC_K} job: verdict {ok}, per set {sync_job.verdicts}, launches {counts}")
+    if verifier.verify_signature_sets_individually(job) != want:
+        raise AssertionError(f"K = {SYNC_K} job: per-set verdicts differ from the ground truth")
+    ok, held = held_in_path(f"K = {SYNC_K} job", lambda: verifier.verify_signature_sets(job, batchable),
+                            AGG_WRAPPERS + PER_SET_WRAPPERS)
+    if ok is not False:
+        raise AssertionError(f"K = {SYNC_K} job: the instrumented run gave {ok}")
+    log(f"main path sync-aggregate N={SYNC_SETS} K={SYNC_K}: batch rejected, retried per set: verdicts {want} "
+        f"equal the ground truth; launches {json.dumps(counts)}; " + held)
+    paths["sync_aggregate", SYNC_SETS] = counts
+    no_host_sets("aggregate paths")
+
+    # pre-verify aggregation: the 512 wire signatures by root, one dispatch
+    n = JOBS[-1]
+    groups = [[s.signature for s in wire_valid[r * N_KEYS:(r + 1) * N_KEYS]] for r in range(N_ROOTS)]
+    host_aggs = [verifier._aggregate_wire_host(g) for g in groups]
+    t = time.perf_counter()
+    aggs, counts = counted(lambda: verifier.aggregate_wire_signatures(groups))
+    agg_ms = (time.perf_counter() - t) * 1e3
+    if aggs != host_aggs or None in aggs:
+        raise AssertionError(f"pre-verify aggregation: {sum(a == b for a, b in zip(aggs, host_aggs))} of "
+                             f"{N_ROOTS} aggregates equal the host's")
+    if (counts["g2_decompress"], counts["seg_sum_g2"], counts["affine_g2"]) != (1, KV.seg_rounds(n), 1):
+        raise AssertionError(f"pre-verify aggregation: not one {n}-lane dispatch: {counts}")
+    require("pre-verify aggregation", counts, PREAGG)
+    paths["preagg", n] = counts
+    aggs2, held_agg = held_in_path("pre-verify aggregation", lambda: verifier.aggregate_wire_signatures(groups),
+                                   PREAGG)
+    if aggs2 != host_aggs:
+        raise AssertionError("pre-verify aggregation: the instrumented run's aggregates differ from the host's")
+    bad_group = [wire_valid[0].signature, wire_valid[1].signature[:95]]
+    if verifier.aggregate_wire_signatures([bad_group]) != [None]:
+        raise AssertionError("pre-verify aggregation: a group with a 95-byte member was aggregated")
+    merged = [WireSignatureSet.aggregate([s.indices[0] for s in wire_valid[r * N_KEYS:(r + 1) * N_KEYS]],
+                                         d["roots"][r], aggs[r]) for r in range(N_ROOTS)]
+    merged_truth = [GB.fast_aggregate_verify([d["pks"][i % N_KEYS] for i in s.indices], s.signing_root,
+                                             GC.g2_decompress(s.signature)) for s in merged]
+    ok, counts2 = counted(lambda: verifier.verify_signature_sets(merged, batchable))
+    if (not all(merged_truth) or ok is not True or counts2["agg_pk"] != 1 or counts2["final_one"] != 1
+            or entry_of(counts2) != "verify_batch_device_wire"):
+        raise AssertionError(f"merged sets: truth {merged_truth}, verdict {ok}, entry {entry_of(counts2)}, "
+                             f"launches {counts2}")
+    ok, held_merged = held_in_path("merged sets", lambda: verifier.verify_signature_sets(merged, batchable),
+                                   MERGED_WRAPPERS)
+    if ok is not True:
+        raise AssertionError("merged sets: the instrumented run rejected the batch")
+    log(f"main path preagg N={n}: aggregate_wire_signatures of {N_ROOTS} groups of {N_KEYS} wire signatures: "
+        f"every aggregate equals the host's bytes (_aggregate_wire_host); launches {json.dumps(counts)}; "
+        f"{agg_ms:.1f} ms (host clock, one run, compression on the host included); {held_agg}; a group with a "
+        f"95-byte member gave None; the {N_ROOTS} merged sets (K = {N_KEYS}, ground truth all True) accepted as one "
+        f"RLC batch ({entry_of(counts2)}; launches {json.dumps(counts2)}; {held_merged})")
+    no_host_sets("merged sets")
 
     # the grouped wire batch at the larger N buckets: the 512 signatures
     # repeated, one job of n sets (max_job_sets raised to the largest bucket)
@@ -1127,6 +1219,32 @@ def main() -> int:
             f"each of its {len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
             f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)")
     no_host_sets("wide wire batches")
+
+    # every recorded main-path call of g1_rpk and g2_decompress against its
+    # plain version: the calls' lanes side by side in one plain run per
+    # kernel (a lane's result depends on that lane's inputs alone)
+    t = time.perf_counter()
+    for name, recs in path_calls.items():
+        if not recs:
+            raise AssertionError(f"{name}: no main-path run called it")
+        sizes = [r[0][0].shape[-1] for r in recs]
+        args = [torch.cat([r[0][i] for r in recs], dim=-1) for i in range(len(recs[0][0]))]
+        k_outs = [torch.cat([r[1][i] for r in recs], dim=-1) for i in range(len(recs[0][1]))]
+        p_outs = getattr(KV, name + "_plain")(*args)
+        bad = torch.zeros(sum(sizes), dtype=torch.bool, device=dev)
+        for k, p_out in zip(k_outs, p_outs):
+            bad |= (k != p_out).reshape(-1, k.shape[-1]).any(dim=0)
+        if bool(bad.any()):
+            lane = int(bad.nonzero()[0])
+            call = int(np.searchsorted(np.cumsum(sizes), lane, side="right"))
+            raise AssertionError(f"{name}: main-path call {call} of {len(recs)} (N = {sizes[call]}) differs from "
+                                 f"its plain version")
+        warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes)}
+    log("main path calls of the redesigned warp kernels: " + ", ".join(
+        f"{name} {len(recs)} calls ({sum(r[0][0].shape[-1] for r in recs)} lanes)" for name, recs in
+        path_calls.items()) + f", every one made by a counted main-path run or a bisection, each equal to its "
+        f"plain version bit for bit (one plain run per kernel over the calls' lanes side by side; "
+        f"{time.perf_counter() - t:.1f} s)")
 
     if not verifier._device_canary():
         raise AssertionError("device canary failed")

@@ -10,7 +10,7 @@ hash of every file in `csrc/`, the generated headers and the flags, so an
 edit to any header or to a generator rebuilds everything and an unchanged
 tree reuses the libraries.
 
-Generated headers: `warp_prog.cuh`, the pairing kernels' warp programs,
+Generated headers: `warp_prog.cuh`, the warp-per-lane kernels' programs,
 is written by `kernels/warp_schedule.py cuda_programs()` into
 `_build/gen-<hash>/` at build time and found there through `-I`.
 
@@ -176,7 +176,7 @@ _ARGTYPES = {
     "lt_g1_keyvalidate": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    "lt_warp_last_launch": [_VP],
+    "lt_warp_last_launch": [ctypes.c_char_p, _VP],
     "lt_agg_last_launch": [_VP],
     # host build only: the ingest building blocks and the pairing's
     # inversions and final exponentiation for the tests

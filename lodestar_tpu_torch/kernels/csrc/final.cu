@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(LT_WARP * LT_LPB)
 extern "C" int lt_each_final(const void *live, const void *f1, const void *f2, void *ok, int n,
                              void *stream) {
   if (n > 0) {
-    const wlaunch l = w_launch(n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
+    const wlaunch l = w_launch("each_final", n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
     cudaFuncSetAttribute(lt_each_final_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     lt_each_final_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
         (const int32_t *)live, (const int32_t *)f1, (const int32_t *)f2, (int32_t *)ok, n);
@@ -61,7 +61,7 @@ extern "C" int lt_each_final(const void *live, const void *f1, const void *f2, v
 extern "C" int lt_each_final(const void *live, const void *f1, const void *f2, void *ok, int n,
                              void *stream) {
   (void)stream;
-  const wlaunch l = w_launch(n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
+  const wlaunch l = w_launch("each_final", n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
   uint32_t *sm = (uint32_t *)malloc(l.smem);
   for (int lane = 0; lane < n; lane++) {
     const wmem m = w_block(sm, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_CONST, lane % LT_LPB);

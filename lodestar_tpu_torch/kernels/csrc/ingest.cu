@@ -9,56 +9,78 @@
 //                     clearing by H_EFF -> Jacobian G2, and ok = both iso3
 //                     denominators nonzero (replaces _k_hash_g2)
 //
-// One thread per lane, as the other kernels: a lane runs its whole chain.
 // The values and selects are those of the JAX package's value-level
 // functions (g2_decompress_y, sswu_map_g2, iso3_map,
 // clear_cofactor_g2_jac, hash_to_g2_values), so the outputs equal the
 // plain versions in kernels/ingest.py bit for bit.
 //
-// Bound on this card: 32-bit integer multiplies.  g2_decompress is one
-// Fp2 square root (five exponentiations by (p + 1) / 4 and one by p - 2)
-// plus the conversions and the sign: 3,656 Fp products per lane.  hash_g2
-// is four square roots, four Fp2 inversions and the 636-bit H_EFF chain
-// (635 doublings, 304 additions): 41,987 Fp products per lane
-// (kernels/verify.py FP_MULS_PER_LANE, checked against the host build's
-// count).  Bytes per lane are under 0.5 KB.  The long static-exponent
-// loops (fp_pow_words, g2_mul_words) are not inlined, against the nvcc
-// miscompile of force-inlined loops seen with the windowed scalar
-// multiplication (csrc/curve.cuh); the H_EFF bits come from a constant
-// table, not an unrolled body.
+// Bound on this card: 32-bit integer multiplies.  Bytes per lane are under
+// 0.5 KB.
+//
+// g2_decompress: one warp per lane (csrc/warp12.cuh).  One thread per lane
+// ran its Fp2 square root as six exponentiations back to back (five by
+// (p + 1) / 4, one by p - 2: 3,656 products in one chain).  The program
+// (warp_prog.cuh, from kernels/warp_schedule.py decompress_program) runs
+// the independent chains in the same rounds (d and sp; then rp and rm,
+// whose chain by (p - 3) / 4 also gives their inverses), each a fixed
+// sliding-window chain: 899 rounds and 1,864 products per lane
+// (kernels/verify.py ROUNDS_PER_LANE, FP_MULS_PER_LANE).  Its four segments
+// are the norm method's straight-line parts; between them the segment loop
+// below makes the method's per-lane selects (p_ok, sp_ok, a1 == 0, the
+// sign) on comparisons the warp votes on, moving slots with w_copy, so the
+// warp never diverges.
+//
+// hash_g2: one thread per lane, a lane's whole chain: four square roots,
+// four Fp2 inversions and the 636-bit H_EFF chain (635 doublings, 304
+// additions): 41,987 Fp products per lane.  The long static-exponent loops
+// (fp_pow_words, g2_mul_words) are not inlined, against the nvcc
+// miscompile of force-inlined loops seen with the one-thread windowed
+// scalar multiplication of earlier versions; the H_EFF bits come from a
+// constant table, not an unrolled body.
 #include "canonical.cuh"
 #include "curve.cuh"
+#define LT_WANT_DECOMP
+#include "warp12.cuh"
 
 // ---------------------------------------------------------------------------
-// Decompression (lodestar_tpu/kernels/ingest.py g2_decompress_y)
+// Decompression (lodestar_tpu/kernels/ingest.py g2_decompress_y and
+// sqrt.py fp2_sqrt): segments A-D of warp_schedule.decompress_program
 // ---------------------------------------------------------------------------
-
-// y with y^2 = x^3 + 4(1 + i) and fp2_sgn(y) == sign; returns on-curve
-LT_NOINL bool g2_decompress_y(fp2 &y, const fp2 &x, bool sign) {
-  fp2 rhs, b, ny;
-  fp2_sqr(rhs, x);
-  fp2_mul(rhs, rhs, x);
-  fp2_const(b, LT_G2_B);
-  fp2_add(rhs, rhs, b);
-  const bool ok = fp2_sqrt(y, rhs);
-  fp2_neg(ny, y);
-  fp2_select(y, fp2_sgn(y) == sign, y, ny);
-  return ok;
-}
 
 // x: plain planes [2, 12, n]; flags: [2, n] (sign, inf); xy: Montgomery
-// affine planes [2, 2, 12, n] (x, y); ok: [n]
-LT_DEV void g2_decompress_lane(const int32_t *x, const int32_t *flags, int32_t *xy, int32_t *ok,
+// affine planes [2, 2, 12, n] (x, y); ok: [n].  One warp.
+LT_DEV void g2_decompress_warp(const wmem &m, const int32_t *x, const int32_t *flags, int32_t *xy, int32_t *ok,
                                int n, int lane) {
-  fp2 xp, xm, y;
-  fp2_load(xp, x, n, lane);
-  fp_mont_convert(xm.c0, xp.c0);
-  fp_mont_convert(xm.c1, xp.c1);
-  const bool on_curve = g2_decompress_y(y, xm, flags[lane] != 0);
-  fp2_store(xy, n, lane, xm);
-  fp2_store(xy + 2 * LT_NL * n, n, lane, y);
+  const wprog prog = {LT_DECOMP_SEG, LT_DECOMP_PHASE, LT_DECOMP_INS};
+  w_load_planes(m, LT_DECOMP_XIN, x, 2, n, lane);
+  LT_SYNCWARP();
+  w_segment(m, prog, 0);  // A: x, rhs, d, sp, sm, xp, xm
+  const bool sp_ok = w_eq(m, LT_DECOMP_SP2, LT_DECOMP_RHS, 1);  // sp^2 == rhs0
+  const bool a1z = w_eq(m, LT_DECOMP_RHS + 1, -1, 1);  // rhs1 == 0
+  w_segment(m, prog, 1);  // B: rp, rm, their inverses, rp^2
+  const bool p_ok = w_eq(m, LT_DECOMP_RP2, LT_DECOMP_XP, 1);
+  w_copy(m, LT_DECOMP_Y, p_ok ? LT_DECOMP_RP : LT_DECOMP_RM, 1);  // x0
+  w_copy(m, LT_DECOMP_IX0, p_ok ? LT_DECOMP_IP : LT_DECOMP_IM, 1);  // 1 / x0 (0 for x0 = 0)
+  w_segment(m, prog, 2);  // C: x1 = rhs1 / (2 x0)
+  if (a1z) {  // the root is (sqrt(rhs0), 0) or (0, sqrt(-rhs0))
+    if (sp_ok) {
+      w_copy(m, LT_DECOMP_Y, LT_DECOMP_SP, 1);
+      w_zero(m, LT_DECOMP_Y1, 1);
+    } else {
+      w_zero(m, LT_DECOMP_Y, 1);
+      w_copy(m, LT_DECOMP_Y1, LT_DECOMP_SM, 1);
+    }
+  }
+  w_segment(m, prog, 3);  // D: r^2, -r, r out of Montgomery form
+  const bool on_curve = w_eq(m, LT_DECOMP_S, LT_DECOMP_RHS, 2);
+  fp v0, v1;  // every thread reads both: the sign is uniform across the warp
+  w_get(v0, m, LT_DECOMP_RAW);
+  w_get(v1, m, LT_DECOMP_RAW + 1);
+  const bool sgn = fp_is_zero(v1) ? fp_gt_words(v0, LT_HALF_P) : fp_gt_words(v1, LT_HALF_P);  // fp2_sgn
+  if (sgn != (flags[lane] != 0)) w_copy(m, LT_DECOMP_Y, LT_DECOMP_NY, 2);
+  w_store_planes(m, LT_DECOMP_X, xy, 4, n, lane);  // X and Y are consecutive
   // an infinity encoding skips the curve check: the path masks it
-  ok[lane] = (on_curve || flags[n + lane] != 0) ? 1 : 0;
+  if (LT_T0 == 0) ok[lane] = on_curve || flags[n + lane] != 0 ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -184,11 +206,14 @@ LT_DEV void hash_g2_lane(const int32_t *u, const int32_t *sgn, int32_t *out, int
 
 #define LT_LANE_BLOCK 32
 
-__global__ void __launch_bounds__(LT_LANE_BLOCK)
+__global__ void __launch_bounds__(LT_WARP * LT_LPB)
     lt_g2_decompress_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ flags,
                             int32_t *__restrict__ xy, int32_t *__restrict__ ok, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) g2_decompress_lane(x, flags, xy, ok, n, lane);
+  extern __shared__ uint32_t lt_sm[];
+  const int warp = threadIdx.x / LT_WARP;
+  const wmem m = w_block(lt_sm, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_CONST, warp);
+  const int lane = blockIdx.x * LT_LPB + warp;
+  if (lane < n) g2_decompress_warp(m, x, flags, xy, ok, n, lane);
 }
 
 __global__ void __launch_bounds__(LT_LANE_BLOCK)
@@ -200,10 +225,13 @@ __global__ void __launch_bounds__(LT_LANE_BLOCK)
 
 extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void *ok, int n,
                                 void *stream) {
-  if (n > 0)
-    lt_g2_decompress_kernel<<<(n + LT_LANE_BLOCK - 1) / LT_LANE_BLOCK, LT_LANE_BLOCK, 0,
-                              (cudaStream_t)stream>>>((const int32_t *)x, (const int32_t *)flags,
-                                                      (int32_t *)xy, (int32_t *)ok, n);
+  if (n > 0) {
+    const wlaunch l = w_launch("g2_decompress", n, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_PHASES,
+                               LT_DECOMP_ROUNDS);
+    cudaFuncSetAttribute(lt_g2_decompress_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    lt_g2_decompress_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
+        (const int32_t *)x, (const int32_t *)flags, (int32_t *)xy, (int32_t *)ok, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -218,12 +246,19 @@ extern "C" int lt_hash_g2(const void *u, const void *sgn, void *out, void *ok, i
 
 #else  // host build: the same lane functions over every lane
 
+#include <stdlib.h>
+
 extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void *ok, int n,
                                 void *stream) {
   (void)stream;
-  for (int lane = 0; lane < n; lane++)
-    g2_decompress_lane((const int32_t *)x, (const int32_t *)flags, (int32_t *)xy, (int32_t *)ok,
-                       n, lane);
+  const wlaunch l = w_launch("g2_decompress", n, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_PHASES,
+                             LT_DECOMP_ROUNDS);
+  uint32_t *sm = (uint32_t *)malloc(l.smem);
+  for (int lane = 0; lane < n; lane++) {  // warp lane % LT_LPB of block lane / LT_LPB
+    const wmem m = w_block(sm, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_CONST, lane % LT_LPB);
+    g2_decompress_warp(m, (const int32_t *)x, (const int32_t *)flags, (int32_t *)xy, (int32_t *)ok, n, lane);
+  }
+  free(sm);
   return 0;
 }
 

@@ -37,7 +37,7 @@ __global__ void __launch_bounds__(LT_WARP * LT_LPB)
 
 extern "C" int lt_miller_loop(const void *p, const void *q, void *f, int n, void *stream) {
   if (n > 0) {
-    const wlaunch l = w_launch(n, LT_MILLER_SLOTS, LT_MILLER_CONSTS, LT_MILLER_PHASES, LT_MILLER_ROUNDS);
+    const wlaunch l = w_launch("miller_loop", n, LT_MILLER_SLOTS, LT_MILLER_CONSTS, LT_MILLER_PHASES, LT_MILLER_ROUNDS);
     cudaFuncSetAttribute(lt_miller_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     lt_miller_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
         (const int32_t *)p, (const int32_t *)q, (int32_t *)f, n);
@@ -51,7 +51,7 @@ extern "C" int lt_miller_loop(const void *p, const void *q, void *f, int n, void
 
 extern "C" int lt_miller_loop(const void *p, const void *q, void *f, int n, void *stream) {
   (void)stream;
-  const wlaunch l = w_launch(n, LT_MILLER_SLOTS, LT_MILLER_CONSTS, LT_MILLER_PHASES, LT_MILLER_ROUNDS);
+  const wlaunch l = w_launch("miller_loop", n, LT_MILLER_SLOTS, LT_MILLER_CONSTS, LT_MILLER_PHASES, LT_MILLER_ROUNDS);
   uint32_t *sm = (uint32_t *)malloc(l.smem);
   for (int lane = 0; lane < n; lane++) {  // warp lane % LT_LPB of block lane / LT_LPB
     const wmem m = w_block(sm, LT_MILLER_SLOTS, LT_MILLER_CONSTS, LT_MILLER_CONST, lane % LT_LPB);

@@ -91,7 +91,7 @@ extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_i
 extern "C" int lt_final_one(const void *a_inf, const void *prod, const void *fa, void *ok, int n,
                             void *stream) {
   if (n > 0) {
-    const wlaunch l = w_launch(n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
+    const wlaunch l = w_launch("final_one", n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
     cudaFuncSetAttribute(lt_final_one_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     lt_final_one_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
         (const int32_t *)a_inf, (const int32_t *)prod, (const int32_t *)fa, (int32_t *)ok, n);
@@ -115,7 +115,7 @@ extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_i
 extern "C" int lt_final_one(const void *a_inf, const void *prod, const void *fa, void *ok, int n,
                             void *stream) {
   (void)stream;
-  const wlaunch l = w_launch(n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
+  const wlaunch l = w_launch("final_one", n, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_PHASES, LT_FINAL_ROUNDS);
   uint32_t *sm = (uint32_t *)malloc(l.smem);
   for (int lane = 0; lane < n; lane++) {
     const wmem m = w_block(sm, LT_FINAL_SLOTS, LT_FINAL_CONSTS, LT_FINAL_CONST, lane % LT_LPB);

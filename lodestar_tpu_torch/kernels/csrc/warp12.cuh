@@ -1,4 +1,5 @@
-// The warp engine of the pairing kernels and of r sig: one warp per lane.
+// The warp engine of the pairing kernels, r sig, r pk and the G2 decompression:
+// one warp per lane.
 //
 // A lane's values are Fp "slots" in shared memory, stored limb-major: the
 // block's memory is [12][cols], slot s of warp w in column w * slots + s
@@ -19,6 +20,7 @@
 #pragma once
 
 #include <stddef.h>
+#include <string.h>
 
 #include "fp.cuh"
 
@@ -294,32 +296,82 @@ LT_DEV void w_copy(const wmem &m, int dst, int src, int count) {
   LT_SYNCWARP();
 }
 
+// Zero `count` consecutive slots from `dst`; the warp meets after it.
+LT_DEV void w_zero(const wmem &m, int dst, int count) {
+  for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP) m.sm[(i % LT_NL) * m.cols + m.base + dst + i / LT_NL] = 0;
+  LT_SYNCWARP();
+}
+
+// Whether `count` consecutive slots from `a` equal those from `b` (b < 0:
+// zero).  Values are canonical, so equal limbs are equal elements.  The
+// threads share the words and vote: every thread of the warp gets the
+// same answer, so a select on it never diverges.
+LT_DEV bool w_eq(const wmem &m, int a, int b, int count) {
+  uint32_t diff = 0;
+  for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP) {
+    const uint32_t *row = m.sm + (i % LT_NL) * m.cols + m.base;
+    diff |= row[a + i / LT_NL] ^ (b < 0 ? 0u : row[b + i / LT_NL]);
+  }
+#ifdef __CUDACC__
+  const bool eq = !__any_sync(0xffffffffu, diff != 0);
+#else
+  const bool eq = diff == 0;
+#endif
+  LT_SYNCWARP();  // every read is done before a select writes
+  return eq;
+}
+
+// A program's tables, for the segment loops that run it a segment at a time:
+// the phase starts of its segments in the order they run (LT_<name>_SEG),
+// its phase words and its instruction words.
+struct wprog {
+  const uint32_t *seg, *phase, *ins;
+};
+
+// segment k of the program's order
+LT_DEV void w_segment(const wmem &m, const wprog &p, int k) {
+  const uint32_t a = p.seg[k], b = p.seg[k + 1];
+  w_run(m, p.phase + a, (int)(b - a), p.ins);
+}
+
 // The block's dynamic shared memory for a program of `slots` and `nconst`.
 static inline size_t w_smem_bytes(int slots, int nconst) {
   return (size_t)LT_NL * (LT_LPB * slots + nconst) * sizeof(uint32_t);
 }
 
 // Launch shape of a warp-per-lane kernel over n lanes: LT_LPB lanes (one
-// warp each) per block.  The library keeps its last launch's shape and
-// program figures for lt_warp_last_launch.
+// warp each) per block.  The library keeps each kernel's last launch
+// (shape and program figures), by the kernel's name, for
+// lt_warp_last_launch: a library may hold two warp kernels.
 struct wlaunch {
   int blocks, threads;
   size_t smem;
 };
 
-static int lt_last_launch[8];
+#define LT_LAUNCH_KERNELS 4  // warp kernels one library may hold
+static const char *lt_launch_name[LT_LAUNCH_KERNELS];
+static int lt_launch_shape[LT_LAUNCH_KERNELS][8];
 
-static inline wlaunch w_launch(int n, int slots, int nconst, int phases, int rounds) {
+static inline wlaunch w_launch(const char *name, int n, int slots, int nconst, int phases, int rounds) {
   const wlaunch l = {(n + LT_LPB - 1) / LT_LPB, LT_WARP * LT_LPB, w_smem_bytes(slots, nconst)};
   const int shape[8] = {n, l.blocks, l.threads, LT_LPB, (int)l.smem, slots, phases, rounds};
-  for (int i = 0; i < 8; i++) lt_last_launch[i] = shape[i];
+  int k = 0;
+  while (k < LT_LAUNCH_KERNELS - 1 && lt_launch_name[k] && strcmp(lt_launch_name[k], name)) k++;
+  lt_launch_name[k] = name;
+  for (int i = 0; i < 8; i++) lt_launch_shape[k][i] = shape[i];
   return l;
 }
 
 // out[8]: lanes, blocks, threads per block, lanes per block, dynamic shared
-// bytes per block, slots per lane, phases and rounds per lane of the
-// library's last warp-per-lane launch (zeros before the first)
-extern "C" int lt_warp_last_launch(int *out) {
-  for (int i = 0; i < 8; i++) out[i] = lt_last_launch[i];
-  return 0;
+// bytes per block, slots per lane, phases and rounds per lane of the last
+// launch of the library's warp kernel `name` (kernels/verify.py's name:
+// "miller_loop", "g1_rpk", ...); returns 1 and zeros if it has none
+extern "C" int lt_warp_last_launch(const char *name, int *out) {
+  for (int k = 0; k < LT_LAUNCH_KERNELS; k++)
+    if (lt_launch_name[k] && !strcmp(lt_launch_name[k], name)) {
+      for (int i = 0; i < 8; i++) out[i] = lt_launch_shape[k][i];
+      return 0;
+    }
+  for (int i = 0; i < 8; i++) out[i] = 0;
+  return 1;
 }

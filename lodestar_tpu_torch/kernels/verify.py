@@ -137,13 +137,13 @@ FP_MULS_PER_LANE = {
     "g2_subgroup_check": 1181,
     "miller_loop": 7834,
     "each_final": 7730,
-    "g1_rpk": 1569,
+    "g1_rpk": 1563,
     "g2_rsig_sub": 5045,
     "sum_g2": 60,
     "prod12": 54,
     "affine_g2": 623,
     "final_one": 7730,
-    "g2_decompress": 3656,
+    "g2_decompress": 1864,
     "hash_g2": 41987,
     "agg_pk": 23,
     "g1_keyvalidate": 5448,
@@ -154,9 +154,9 @@ IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 # Rounds per lane of the warp-per-lane kernels (csrc/warp12.cuh): phases
 # of up to 32 independent Fp products, one per thread, and the final
 # exponentiation's one inversion (kernels/warp_schedule.py; the host
-# build counts them, tests/test_torch_warp_pairing.py and
-# tests/test_torch_warp_rsig.py)
-ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533}
+# build counts them, tests/test_torch_warp_{pairing,rsig,rpk,decompress}.py)
+ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533, "g1_rpk": 533,
+                   "g2_decompress": 899}
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
@@ -345,8 +345,8 @@ def each_final(live: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor) -> torch.
 def _word_digit(rwords: torch.Tensor, t: int) -> torch.Tensor:
     """Window digit t (MSB-first) of each lane's scalar, from the packed
     big-endian words int32 [RAND_WORDS, N] -> int64 [N].  WINDOW divides
-    32, so a digit never straddles two words (`csrc/curve.cuh
-    word_digit`, JAX `_word_digit` `:130`)."""
+    32, so a digit never straddles two words (`csrc/randmul.cu
+    w_digit`, JAX `_word_digit` `:130`)."""
     pos = RAND_BITS - WINDOW - WINDOW * t  # LSB offset of the digit
     word = rwords[RAND_WORDS - 1 - (pos >> 5)].to(torch.int64) & 0xFFFFFFFF
     return (word >> (pos & 31)) & ((1 << WINDOW) - 1)

@@ -1,9 +1,11 @@
-"""Warp-per-lane schedules of the Miller loop, the final exponentiation
-and the RLC batch's r sig with its G2 subgroup check.
+"""Warp-per-lane schedules of the Miller loop, the final exponentiation,
+the RLC batch's r sig with its G2 subgroup check and r pk, and the wire
+signature's decompression.
 
 The CUDA pairing kernels (`csrc/miller.cu`, `csrc/final.cu`, `csrc/tail.cu`
-`lt_final_one`) and `csrc/randmul.cu lt_g2_rsig_sub` give each lane one
-warp.  The lane's values live
+`lt_final_one`), `csrc/randmul.cu lt_g2_rsig_sub` and `lt_g1_rpk`, and
+`csrc/ingest.cu lt_g2_decompress` give each lane one warp.  The lane's
+values live
 in shared memory as Fp "slots"; a kernel runs a program of *phases*, and
 in each phase every thread of the warp that has work performs one Fp
 operation from operand slots to a result slot, then the warp meets at
@@ -14,11 +16,12 @@ inversion phase runs the one Fp inversion of the final exponentiation on
 one thread.
 
 This module writes those programs.  It traces the formulas of the JAX
-package's tower, Miller steps, final exponentiation and G2 curve
-operations (`lodestar_tpu/kernels/tower.py`, `pairing.py` and
-`curve.py`: Karatsuba products, CH-SQR2, Granger-Scott squarings, the
-doubling and addition steps with their line scalings, the Jacobian
-doubling and additions) into a graph of Fp operations, rebuilds each sum
+package's tower, Miller steps, final exponentiation, curve operations
+and square root (`lodestar_tpu/kernels/tower.py`, `pairing.py`,
+`curve.py` and `sqrt.py`: Karatsuba products, CH-SQR2, Granger-Scott
+squarings, the doubling and addition steps with their line scalings, the
+Jacobian doubling and additions over Fp or Fp2, the norm method's
+exponentiations as sliding-window chains) into a graph of Fp operations, rebuilds each sum
 as a shallow tree (`rebalance`), packs the graph into phases (list
 scheduling, the longest chain of products first), gives every value a
 slot (a value written in a phase never takes a slot that any operation
@@ -34,9 +37,10 @@ A program is a list of *segments* (straight-line code on fixed slots,
 named registers) in the order they run: the final exponentiation
 repeats two segments, a cyclotomic squaring and a product by the base,
 315 and 25 times; the Miller loop pipelines each bit's line products
-with the next bit's doubling step; the r sig kernel's window loop runs it a
-segment (a window) at a time and moves the digit's table entry between
-them.
+with the next bit's doubling step; the r sig and r pk kernels' window
+loop runs them a segment (a window) at a time and moves the digit's table
+entry between them; the decompression's segment loop runs its four segments
+and makes the square root's per-lane selects between them.
 """
 
 from __future__ import annotations
@@ -133,6 +137,7 @@ class Tower:
         self.t = t
         self.zero = t.const("zero")
         self.one = t.const("one")
+        self.fp, self.fp2 = FpOps(self), Fp2Ops(self)  # the curve formulas' fields
 
     # Fp2
     def add2(self, a, b):
@@ -154,12 +159,7 @@ class Tower:
         return (self.t.sub(a[0], a[1]), self.t.add(a[0], a[1]))
 
     def small2(self, a, k):
-        if k == 3:
-            return self.add2(self.dbl2(a), a)
-        acc = a
-        while k > 1:
-            acc, k = self.dbl2(acc), k >> 1
-        return acc
+        return self.fp2.small(a, k)
 
     def mul2(self, a, b):
         t = self.t
@@ -338,58 +338,117 @@ class Tower:
         oz = self.sub2(self.sub2(self.sqr2(self.add2(Z, H)), Z1Z1), HH)
         return self.line_eval(e0, e1, e2, pw), (ox, oy, oz)
 
-    # G2 curve formulas (lodestar_tpu/kernels/curve.py over FP2_OPS): they
-    # fix the Jacobian triples, so they are traced as written there
-    def jac_dbl(self, p):  # curve.py jac_dbl
-        X, Y, Z = p
-        A, B = self.sqr2(X), self.sqr2(Y)
-        CC = self.sqr2(B)
-        D = self.dbl2(self.sub2(self.sub2(self.sqr2(self.add2(X, B)), A), CC))
-        E = self.small2(A, 3)
-        X3 = self.sub2(self.sqr2(E), self.dbl2(D))
-        Y3 = self.sub2(self.mul2(E, self.sub2(D, X3)), self.small2(CC, 8))
-        return (X3, Y3, self.dbl2(self.mul2(Y, Z)))
-
-    def jac_add(self, p, q):  # curve.py jac_add_mixed_or_full: no dispatch
-        (X1, Y1, Z1), (X2, Y2, Z2) = p, q
-        Z1Z1, Z2Z2 = self.sqr2(Z1), self.sqr2(Z2)
-        U1, U2 = self.mul2(X1, Z2Z2), self.mul2(X2, Z1Z1)
-        S1 = self.mul2(self.mul2(Y1, Z2), Z2Z2)
-        S2 = self.mul2(self.mul2(Y2, Z1), Z1Z1)
-        H, R = self.sub2(U2, U1), self.sub2(S2, S1)
-        HH = self.sqr2(H)
-        HHH, V = self.mul2(H, HH), self.mul2(U1, HH)
-        X3 = self.sub2(self.sub2(self.sqr2(R), HHH), self.dbl2(V))
-        Y3 = self.sub2(self.mul2(R, self.sub2(V, X3)), self.mul2(S1, HHH))
-        return (X3, Y3, self.mul2(self.mul2(Z1, Z2), H))
-
-    def jac_add_mixed(self, p, q):  # curve.py jac_add_mixed, q affine
-        (X1, Y1, Z1), (X2, Y2) = p, q
-        Z1Z1 = self.sqr2(Z1)
-        U2 = self.mul2(X2, Z1Z1)
-        S2 = self.mul2(self.mul2(Y2, Z1), Z1Z1)
-        H = self.sub2(U2, X1)
-        HH = self.sqr2(H)
-        I = self.small2(HH, 4)  # noqa: E741
-        J = self.mul2(H, I)
-        rr = self.dbl2(self.sub2(S2, Y1))
-        V = self.mul2(X1, I)
-        X3 = self.sub2(self.sub2(self.sqr2(rr), J), self.dbl2(V))
-        Y3 = self.sub2(self.mul2(rr, self.sub2(V, X3)), self.dbl2(self.mul2(Y1, J)))
-        return (X3, Y3, self.sub2(self.sub2(self.sqr2(self.add2(Z1, H)), Z1Z1), HH))
-
     def psi(self, p):  # curve.py g2_psi
         X, Y, Z = p
         return (self.mul2(self.conj2(X), self.const2("psi_cx")), self.mul2(self.conj2(Y), self.const2("psi_cy")),
                 self.conj2(Z))
 
-    def jac_eq_terms(self, p, q):
-        """curve.py jac_eq's cross products (X1 Z2^2, X2 Z1^2, Y1 Z2^3,
-        Y2 Z1^3): the points are equal iff the pairs are."""
-        (X1, Y1, Z1), (X2, Y2, Z2) = p, q
-        Z1Z1, Z2Z2 = self.sqr2(Z1), self.sqr2(Z2)
-        return (self.mul2(X1, Z2Z2), self.mul2(X2, Z1Z1), self.mul2(self.mul2(Y1, Z2), Z2Z2),
-                self.mul2(self.mul2(Y2, Z1), Z1Z1))
+
+# ---------------------------------------------------------------------------
+# The curve formulas over either field (lodestar_tpu/kernels/curve.py over
+# FP_OPS or FP2_OPS): they fix the Jacobian triples, so they are traced as
+# written there
+# ---------------------------------------------------------------------------
+
+
+class FpOps:
+    """The curve formulas' field operations on Fp value ids (G1)."""
+
+    def __init__(self, tw: "Tower"):
+        self.t, self.zero = tw.t, tw.zero
+
+    def add(self, a, b):
+        return self.t.add(a, b)
+
+    def sub(self, a, b):
+        return self.t.sub(a, b)
+
+    def mul(self, a, b):
+        return self.t.mul(a, b)
+
+    def sqr(self, a):
+        return self.t.mul(a, a)
+
+    def dbl(self, a):
+        return self.t.add(a, a)
+
+    def neg(self, a):
+        return self.t.sub(self.zero, a)
+
+    def small(self, a, k):
+        return _small(self, a, k)
+
+
+class Fp2Ops:
+    """The same on Fp2 pairs (G2): the tower's Karatsuba product and
+    CH-SQR2 square."""
+
+    def __init__(self, tw: "Tower"):
+        self.one = (tw.one, tw.zero)
+        self.add, self.sub, self.mul, self.sqr = tw.add2, tw.sub2, tw.mul2, tw.sqr2
+        self.dbl, self.neg = tw.dbl2, tw.neg2
+
+    def small(self, a, k):
+        return _small(self, a, k)
+
+
+def _small(f, a, k):
+    """a * k for k in {3, 4, 8}, by doublings and an addition."""
+    if k == 3:
+        return f.add(f.dbl(a), a)
+    acc = a
+    while k > 1:
+        acc, k = f.dbl(acc), k >> 1
+    return acc
+
+
+def jac_dbl(f, p):  # curve.py jac_dbl
+    X, Y, Z = p
+    A, B = f.sqr(X), f.sqr(Y)
+    CC = f.sqr(B)
+    D = f.dbl(f.sub(f.sub(f.sqr(f.add(X, B)), A), CC))
+    E = f.small(A, 3)
+    X3 = f.sub(f.sqr(E), f.dbl(D))
+    Y3 = f.sub(f.mul(E, f.sub(D, X3)), f.small(CC, 8))
+    return (X3, Y3, f.dbl(f.mul(Y, Z)))
+
+
+def jac_add(f, p, q):  # curve.py jac_add_mixed_or_full: no dispatch
+    (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+    Z1Z1, Z2Z2 = f.sqr(Z1), f.sqr(Z2)
+    U1, U2 = f.mul(X1, Z2Z2), f.mul(X2, Z1Z1)
+    S1 = f.mul(f.mul(Y1, Z2), Z2Z2)
+    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
+    H, R = f.sub(U2, U1), f.sub(S2, S1)
+    HH = f.sqr(H)
+    HHH, V = f.mul(H, HH), f.mul(U1, HH)
+    X3 = f.sub(f.sub(f.sqr(R), HHH), f.dbl(V))
+    Y3 = f.sub(f.mul(R, f.sub(V, X3)), f.mul(S1, HHH))
+    return (X3, Y3, f.mul(f.mul(Z1, Z2), H))
+
+
+def jac_add_mixed(f, p, q):  # curve.py jac_add_mixed, q affine
+    (X1, Y1, Z1), (X2, Y2) = p, q
+    Z1Z1 = f.sqr(Z1)
+    U2 = f.mul(X2, Z1Z1)
+    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
+    H = f.sub(U2, X1)
+    HH = f.sqr(H)
+    I = f.small(HH, 4)  # noqa: E741
+    J = f.mul(H, I)
+    rr = f.dbl(f.sub(S2, Y1))
+    V = f.mul(X1, I)
+    X3 = f.sub(f.sub(f.sqr(rr), J), f.dbl(V))
+    Y3 = f.sub(f.mul(rr, f.sub(V, X3)), f.dbl(f.mul(Y1, J)))
+    return (X3, Y3, f.sub(f.sub(f.sqr(f.add(Z1, H)), Z1Z1), HH))
+
+
+def jac_eq_terms(f, p, q):
+    """curve.py jac_eq's cross products (X1 Z2^2, X2 Z1^2, Y1 Z2^3,
+    Y2 Z1^3): the points are equal iff the pairs are."""
+    (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+    Z1Z1, Z2Z2 = f.sqr(Z1), f.sqr(Z2)
+    return (f.mul(X1, Z2Z2), f.mul(X2, Z1Z1), f.mul(f.mul(Y1, Z2), Z2Z2), f.mul(f.mul(Y2, Z1), Z1Z1))
 
 
 def flat12(f) -> List[int]:
@@ -706,7 +765,7 @@ def simulate(segs: Sequence[Segment], order: Sequence[int], nslots: int, consts:
 
 
 # ---------------------------------------------------------------------------
-# The two programs
+# The programs
 # ---------------------------------------------------------------------------
 
 
@@ -930,6 +989,23 @@ def subgroup_bits(t: int) -> List[int]:
     return [b for b in (62 - 2 * t, 61 - 2 * t) if b >= 0]
 
 
+def _table(f, q):
+    """{Q .. 15 Q}: even entries double the half entry, odd ones add Q by
+    the full addition (csrc/randmul.cu's table, curve.py
+    scalar_mul_window_jac's)."""
+    tbl = [q]
+    for m in range(2, 1 << WINDOW):
+        tbl.append(jac_dbl(f, tbl[m // 2 - 1]) if m % 2 == 0 else jac_add(f, tbl[m - 2], q))
+    return tbl
+
+
+def _window(f, T, add):
+    """One window: T doubled WINDOW times, and that plus the addend."""
+    for _ in range(WINDOW):
+        T = jac_dbl(f, T)
+    return T, jac_add(f, T, add)
+
+
 def rsig_program() -> Program:
     """r Q for a lane's 128-bit scalar r (lodestar_tpu/kernels/curve.py
     scalar_mul_window_jac over Fp2, 4-bit windows) and the G2 subgroup
@@ -948,29 +1024,25 @@ def rsig_program() -> Program:
 
     def q_jac(tw, r):
         x, y = _pairs(r["Q"])
-        return (x, y, (tw.one, tw.zero))
+        return (x, y, tw.fp2.one)
 
     def table(tw, r):
         q = q_jac(tw, r)
-        tbl = [q]
-        for m in range(2, 1 << WINDOW):
-            tbl.append(tw.jac_dbl(tbl[m // 2 - 1]) if m % 2 == 0 else tw.jac_add(tbl[m - 2], q))
-        return {"TBL": [x for e in tbl for x in _flat(e)], "T0": _flat(q), "S0": _flat(q)}
+        return {"TBL": [x for e in _table(tw.fp2, q) for x in _flat(e)], "T0": _flat(q), "S0": _flat(q)}
 
     def window(src, dst, bits, last):
         def body(tw, r):
-            T = _pairs(r["T" + src])
-            for _ in range(WINDOW):
-                T = tw.jac_dbl(T)
-            out = {"DBL": _flat(T), "T" + dst: _flat(tw.jac_add(T, _pairs(r["ADD"])))}
+            f = tw.fp2
+            T, T1 = _window(f, _pairs(r["T" + src]), _pairs(r["ADD"]))
+            out = {"DBL": _flat(T), "T" + dst: _flat(T1)}
             S, qa = _pairs(r["S" + src]), _pairs(r["Q"])
             for b in bits:
-                S = tw.jac_dbl(S)
+                S = jac_dbl(f, S)
                 if (X_ABS >> b) & 1:
-                    S = tw.jac_add_mixed(S, qa)
+                    S = jac_add_mixed(f, S, qa)
             if last:
-                neg = (S[0], tw.neg2(S[1]), S[2])
-                out["EQ"] = _flat(tw.jac_eq_terms(tw.psi(q_jac(tw, r)), neg))
+                neg = (S[0], f.neg(S[1]), S[2])
+                out["EQ"] = _flat(jac_eq_terms(f, tw.psi(q_jac(tw, r)), neg))
             else:
                 out["S" + dst] = _flat(S)
             return out
@@ -990,8 +1062,151 @@ def rsig_program() -> Program:
     return sg.program("RSIG", order, {r: r for r in RSIG_LAYOUT})
 
 
+# the r pk program's registers: the Jacobian pubkey P, the table
+# {P .. 15 P}, the accumulator T (two sets, alternating), the window's
+# addend and T after the window's doublings
+RPK_LAYOUT = {"P": (0, 3), "TBL": (3, 45), "T0": (48, 3), "T1": (51, 3), "ADD": (54, 3), "DBL": (57, 3)}
+
+
+def rpk_program() -> Program:
+    """r P for a lane's 128-bit scalar r and Jacobian P in G1
+    (scalar_mul_window_jac over Fp): `rsig_program`'s table and windows
+    over Fp, without the subgroup chain, under the same window loop
+    (csrc/randmul.cu).  P comes from the table or from agg_pk, so its Z
+    is not 1: the table's odd entries take the full addition."""
+    sg = _Segments(_consts(False), RPK_LAYOUT)
+
+    def table(tw, r):
+        return {"TBL": [x for e in _table(tw.fp, tuple(r["P"])) for x in e], "T0": r["P"]}
+
+    def window(src, dst):
+        def body(tw, r):
+            T, T1 = _window(tw.fp, tuple(r["T" + src]), tuple(r["ADD"]))
+            return {"DBL": list(T), "T" + dst: list(T1)}
+        return body
+
+    sg.add("table", table, ("P",), ("TBL", "T0"))
+    for src, dst in (("0", "1"), ("1", "0")):
+        sg.add("win" + src, window(src, dst), ("T" + src, "ADD"), ("DBL", "T" + dst))
+    order = ["table"] + [f"win{t % 2}" for t in range(WINDOWS)]
+    return sg.program("RPK", order, {r: r for r in RPK_LAYOUT})
+
+
+SQRT_EXP = (P + 1) // 4  # a^SQRT_EXP is a root of a iff a is a square (p = 3 mod 4)
+POW_WIDTH = 5  # the sliding window of the static exponentiations
+
+
+def pow_window(t: Trace, a: int, e: int, width: int = POW_WIDTH) -> int:
+    """a^e for a static e > 0 as one fixed sliding-window chain, MSB
+    first: a squaring per bit and, per window of at most `width` bits
+    ending in a one, one product by an odd power a^k.  The odd powers
+    are built as a tree (a^k = a^(2^j) a^(k - 2^j)), so the first window's
+    power waits log2 k rounds.  a^e is one value whatever the chain: the
+    result equals a square-and-multiply loop's (0 for a = 0)."""
+    pw = {1: a}
+
+    def power(k):
+        if k not in pw:
+            hi = 1 << (k.bit_length() - 1)
+            pw[k] = t.mul(power(hi // 2), power(hi // 2)) if k == hi else t.mul(power(hi), power(k - hi))
+        return pw[k]
+
+    bits, acc, i = bin(e)[2:], None, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            acc, i = t.mul(acc, acc), i + 1
+            continue
+        j = min(i + width, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        if acc is not None:
+            for _ in range(j - i):
+                acc = t.mul(acc, acc)
+            acc = t.mul(acc, power(int(bits[i:j], 2)))
+        else:
+            acc = power(int(bits[i:j], 2))
+        i = j
+    return acc
+
+
+# the decompression's registers: the wire x (plain), x and y (Montgomery,
+# the kernel's output, consecutive; Y1 is y's second half), rhs = x^3 + 4(1 + i), the norm
+# method's values (sp and its square, sm, xp, xm, rhs1 / 2), the root
+# candidates rp, rm with their squared rp and inverses ip, im, the chosen
+# inverse 1 / x0, and the last segment's r^2, -r and r out of Montgomery form
+DECOMP_LAYOUT = {"XIN": (0, 2), "X": (2, 2), "Y": (4, 2), "Y1": (5, 1), "RHS": (6, 2), "SP": (8, 1), "SP2": (9, 1),
+                 "SM": (10, 1), "XP": (11, 1), "XM": (12, 1), "H1": (13, 1), "RP": (14, 1), "RM": (15, 1),
+                 "RP2": (16, 1), "IP": (17, 1), "IM": (18, 1), "IX0": (19, 1), "S": (20, 2), "NY": (22, 2),
+                 "RAW": (24, 2)}
+
+
+def decompress_program() -> Program:
+    """y for a wire x: a root of rhs = x^3 + 4(1 + i) by the norm method
+    of lodestar_tpu/kernels/sqrt.py fp2_sqrt, step for step, as four
+    segments; csrc/ingest.cu's segment loop makes the per-lane selects between
+    them (the warp never diverges: a lane is one warp).
+
+      A  x to Montgomery form, rhs, the norm n = rhs0^2 + rhs1^2, then
+         d = n^SQRT_EXP and sp = rhs0^SQRT_EXP in the same rounds, sm =
+         -sp (SQRT_EXP is odd, so (-a)^SQRT_EXP = -(a^SQRT_EXP)), sp^2,
+         xp = (rhs0 + d) / 2, xm = (rhs0 - d) / 2 and rhs1 / 2;
+      B  t = xp^((p - 3) / 4) and the same for xm in the same rounds:
+         rp = t xp is xp^SQRT_EXP (today's root candidate), t^3 xp =
+         t^2 rp is 1 / rp (0 for xp = 0, as fp_inv gives), and rp^2;
+      -  the segment loop keeps x0 = rp where rp^2 == xp, else rm, in Y0, and
+         its inverse in IX0;
+      C  x1 = (rhs1 / 2) / x0 = rhs1 / (2 x0) into Y1;
+      -  where rhs1 == 0 the segment loop writes (sp, 0) where sp^2 == rhs0,
+         else (0, sm), over Y;
+      D  r^2 (the check r^2 == rhs), -r, and r out of Montgomery form
+         (a product by the plain integer 1) for fp2_sgn; the segment loop
+         keeps -r in Y where the sign differs from the wire's bit.
+
+    Every value is the JAX function's field element, so the root, its
+    sign and the on-curve bit equal the plain version's on every lane,
+    off the curve too."""
+    consts = dict(_consts(False), r2=R * R % P, raw1=1, half=mont(pow(2, P - 2, P)))
+    consts["b.0"] = consts["b.1"] = mont(4)
+    sg = _Segments(consts, DECOMP_LAYOUT)
+    e_t = (P - 3) // 4
+
+    def seg_a(tw, r):
+        t = tw.t
+        x = tuple(t.mul(v, t.const("r2")) for v in r["XIN"])
+        rhs = tw.add2(tw.mul2(tw.sqr2(x), x), tw.const2("b"))
+        d = pow_window(t, t.add(t.mul(rhs[0], rhs[0]), t.mul(rhs[1], rhs[1])), SQRT_EXP)
+        sp = pow_window(t, rhs[0], SQRT_EXP)
+        half = t.const("half")
+        return {"X": list(x), "RHS": list(rhs), "SP": [sp], "SP2": [t.mul(sp, sp)], "SM": [t.sub(tw.zero, sp)],
+                "XP": [t.mul(t.add(rhs[0], d), half)], "XM": [t.mul(t.sub(rhs[0], d), half)],
+                "H1": [t.mul(rhs[1], half)]}
+
+    def seg_b(tw, r):
+        t, out = tw.t, {}
+        for v, root, inv in ((r["XP"][0], "RP", "IP"), (r["XM"][0], "RM", "IM")):
+            tv = pow_window(t, v, e_t)
+            rv = t.mul(tv, v)
+            out[root], out[inv] = [rv], [t.mul(t.mul(tv, tv), rv)]
+            if root == "RP":
+                out["RP2"] = [t.mul(rv, rv)]
+        return out
+
+    def seg_c(tw, r):
+        return {"Y1": [tw.t.mul(r["H1"][0], r["IX0"][0])]}
+
+    def seg_d(tw, r):
+        y = tuple(r["Y"])
+        return {"S": list(tw.sqr2(y)), "NY": list(tw.neg2(y)), "RAW": [tw.t.mul(v, tw.t.const("raw1")) for v in y]}
+
+    sg.add("a", seg_a, ("XIN",), ("X", "RHS", "SP", "SP2", "SM", "XP", "XM", "H1"))
+    sg.add("b", seg_b, ("XP", "XM"), ("RP", "RM", "RP2", "IP", "IM"))
+    sg.add("c", seg_c, ("H1", "IX0"), ("Y1",))
+    sg.add("d", seg_d, ("Y",), ("S", "NY", "RAW"))
+    return sg.program("DECOMP", ["a", "b", "c", "d"], {r: r for r in DECOMP_LAYOUT})
+
+
 def programs() -> List[Program]:
-    return [miller_program(), final_program(), rsig_program()]
+    return [miller_program(), final_program(), rsig_program(), rpk_program(), decompress_program()]
 
 
 # ---------------------------------------------------------------------------
@@ -1036,8 +1251,8 @@ def _words(ws, per_line=8) -> str:
 
 def cuda_programs() -> str:
     """Text of warp_prog.cuh (`kernels/build.py` writes it beside the
-    build).  A kernel source defines LT_WANT_MILLER, LT_WANT_FINAL or
-    LT_WANT_RSIG before including it and compiles that program's tables
+    build).  A kernel source defines LT_WANT_<name> (MILLER, FINAL, RSIG,
+    RPK, DECOMP) before including it and compiles those programs' tables
     only."""
     lines = [
         "// Written at build time by kernels/build.py from",

@@ -320,10 +320,10 @@ def pairs(dev):
 
 
 def assert_warp_launch(source, name, n):
-    """The library's last launch: n lanes, one warp of 32 threads each,
-    4 to a block, the program's rounds."""
+    """The last launch of the library's kernel `name`: n lanes, one warp
+    of 32 threads each, 4 to a block, the program's rounds."""
     shape = (ctypes.c_int * 8)()
-    assert B.load(source).lt_warp_last_launch(shape) == 0
+    assert B.load(source).lt_warp_last_launch(name.encode(), shape) == 0
     assert list(shape[:4]) == [n, (n + 3) // 4, 128, 4] and shape[7] == KV.ROUNDS_PER_LANE[name]
 
 
@@ -383,10 +383,88 @@ def test_g2_rsig_sub_lane_counts_on_card(dev, points, n):
     assert rinf[0].tolist() == [int(j % 5 in (1, 3)) for j in range(n)]
     prog = W.rsig_program()
     shape = (ctypes.c_int * 8)()
-    assert B.load("randmul").lt_warp_last_launch(shape) == 0
+    assert B.load("randmul").lt_warp_last_launch(b"g2_rsig_sub", shape) == 0
     smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
     assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
     assert prog.rounds == KV.ROUNDS_PER_LANE["g2_rsig_sub"]
+
+
+def _scalar_lanes(n):
+    """n 128-bit scalars: random ones, the zero scalar (lane j % 5 == 1) and
+    scalars with leading zero windows (j % 5 == 2) or all digits 15
+    (j % 5 == 4); -> (scalars, word planes int32 [4, n] on the host)."""
+    ks = [int.from_bytes(RNG.bytes(16), "big") for _ in range(n)]
+    for j in range(n):
+        ks[j] = {1: 0, 2: ks[j] >> 72, 4: (1 << 128) - 1}.get(j % 5, ks[j])
+    w = np.array([[(k >> (32 * (3 - i))) & 0xFFFFFFFF for k in ks] for i in range(4)], np.uint32)
+    return ks, w.view(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 128, 129, 512])
+def test_g1_rpk_lane_counts_on_card(dev, pairs, n):
+    """The warp-per-lane r pk at 1, 128, 129 and 512 lanes, bit-equal to
+    the plain version: Jacobian pubkeys with Z != 1, lanes cycling through
+    random scalars, the zero scalar, leading zero windows, a pubkey flagged
+    infinity and all digits 15.  The launch, as the library reports it
+    under the kernel's name, is the generated program's."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    p, _, _ = pairs
+    pn = p[..., torch.arange(n, device=dev) % p.shape[-1]].contiguous()
+    _, w = _scalar_lanes(n)
+    rw = planes(w, dev)
+    inf = (torch.arange(n, device=dev) % 5 == 3).to(torch.int32)[None].contiguous()
+    _, rinf = _equal(KV.g1_rpk, KV.g1_rpk_plain, pn, inf, rw)
+    assert rinf[0].tolist() == [int(j % 5 in (1, 3)) for j in range(n)]
+    prog = W.rpk_program()
+    shape = (ctypes.c_int * 8)()
+    assert B.load("randmul").lt_warp_last_launch(b"g1_rpk", shape) == 0
+    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
+    assert prog.rounds == KV.ROUNDS_PER_LANE["g1_rpk"]
+
+
+def _a1_zero_x(square: bool):
+    """An x whose x^3 + 4(1 + i) is real, its real part a square of Fp or
+    not: x = a + b i with 3 a^2 b - b^3 + 4 = 0."""
+    P = GT.P
+    while True:
+        b = int.from_bytes(RNG.bytes(48), "little") % P or 1
+        a = GT.fp_sqrt((b * b * b - 4) * pow(3 * b, P - 2, P) % P)
+        for s in (a, (P - a) % P) if a is not None else ():
+            rhs0 = (s * s * s - 3 * s * b * b + 4) % P
+            if (GT.fp_sqrt(rhs0) is not None) == square:
+                return (s, b)
+
+
+@pytest.mark.parametrize("n", [1, 128, 129, 512])
+def test_g2_decompress_lane_counts_on_card(dev, n):
+    """The warp-per-lane decompression at 1, 128, 129 and 512 lanes,
+    bit-equal to the plain version: lanes cycling through points with
+    their own sign, the same x with the other sign, x off the curve, the
+    infinity flag and the two rhs1 == 0 branches (a real and an imaginary
+    root).  The launch, as the library reports it, is the generated
+    program's."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    def rhs(x):
+        return GT.fp2_add(GT.fp2_mul(GT.fp2_sqr(x), x), GC.FP2_OPS.b_coeff)
+
+    pts = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(2)]
+    off = next((k, k + 3) for k in range(1, 100) if GT.fp2_sqrt(rhs((k, k + 3))) is None)
+    base = [(p[0], GT.fp2_sgn(p[1]), 0) for p in pts] + [(pts[0][0], 1 - GT.fp2_sgn(pts[0][1]), 0)]
+    base += [(off, 0, 0), ((0, 0), 0, 1), (_a1_zero_x(True), 1, 0), (_a1_zero_x(False), 0, 0)]
+    pick = [base[j % len(base)] for j in range(n)]
+    x = planes(np.stack([LY.encode_plain_batch([c[0][k] for c in pick]) for k in range(2)]), dev)
+    flags = planes(np.array([[c[1] for c in pick], [c[2] for c in pick]], np.int32), dev)
+    xy, ok = _equal(KV.g2_decompress, KV.g2_decompress_plain, x, flags)
+    assert ok[0].tolist() == [int(j % 7 != 3) for j in range(n)]
+    prog = W.decompress_program()
+    shape = (ctypes.c_int * 8)()
+    assert B.load("ingest").lt_warp_last_launch(b"g2_decompress", shape) == 0
+    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
+    assert prog.rounds == KV.ROUNDS_PER_LANE["g2_decompress"]
 
 
 @pytest.fixture(scope="module")

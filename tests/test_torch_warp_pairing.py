@@ -51,7 +51,7 @@ def libs():
 
 @pytest.fixture(scope="module")
 def progs():
-    mil, fin, _ = W.programs()
+    mil, fin = W.miller_program(), W.final_program()
     return {"miller": mil, "final": fin, "tail": fin}
 
 
@@ -59,11 +59,11 @@ def i32(*shape):
     return torch.empty(shape, dtype=torch.int32)
 
 
-def assert_last_launch(lib, prog, n):
-    """The library's last launch: n lanes, 4 per block of 128 threads, the
-    program's slots, constants, phases and rounds."""
+def assert_last_launch(lib, name, prog, n):
+    """The last launch of the library's kernel `name`: n lanes, 4 per block
+    of 128 threads, the program's slots, constants, phases and rounds."""
     shape = (ctypes.c_int * 8)()
-    assert lib.lt_warp_last_launch(shape) == 0
+    assert lib.lt_warp_last_launch(name.encode(), shape) == 0
     smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
     assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
 
@@ -129,7 +129,7 @@ def test_warp_miller_and_finals_equal_plain(libs, progs, relation, n, order):
     assert mil.lt_miller_loop(p2.data_ptr(), q2.data_ptr(), f2.data_ptr(), n, None) == 0
     assert mil.lt_host_rounds() == 2 * n * KV.ROUNDS_PER_LANE["miller_loop"]
     assert mil.lt_host_fp_muls() == 2 * n * KV.FP_MULS_PER_LANE["miller_loop"]
-    assert_last_launch(mil, progs["miller"], n)
+    assert_last_launch(mil, "miller_loop", progs["miller"], n)
     assert torch.equal(f1, KV.miller_loop_plain(p1, q1))
     assert torch.equal(f2, KV.miller_loop_plain(p2, q2))
     live = torch.tensor([[int(i % 3 != 2) for i in range(n)]], dtype=torch.int32)
@@ -138,7 +138,7 @@ def test_warp_miller_and_finals_equal_plain(libs, progs, relation, n, order):
     assert fin.lt_each_final(live.data_ptr(), f1.data_ptr(), f2.data_ptr(), ok.data_ptr(), n, None) == 0
     assert fin.lt_host_rounds() == n * KV.ROUNDS_PER_LANE["each_final"]
     assert fin.lt_host_fp_muls() == n * KV.FP_MULS_PER_LANE["each_final"]
-    assert_last_launch(fin, progs["final"], n)
+    assert_last_launch(fin, "each_final", progs["final"], n)
     assert ok.tolist() == [[(1, 0, 1)[i % 3] for i in range(n)]]
     assert torch.equal(ok, KV.each_final_plain(live, f1, f2))
     a_inf = torch.tensor([[int(i % 3 == 1) for i in range(n)]], dtype=torch.int32)
@@ -146,7 +146,7 @@ def test_warp_miller_and_finals_equal_plain(libs, progs, relation, n, order):
     assert tail.lt_final_one(a_inf.data_ptr(), f1.data_ptr(), f2.data_ptr(), ok.data_ptr(), n, None) == 0
     assert tail.lt_host_rounds() == n * KV.ROUNDS_PER_LANE["final_one"]
     assert tail.lt_host_fp_muls() == n * KV.FP_MULS_PER_LANE["final_one"]
-    assert_last_launch(tail, progs["tail"], n)
+    assert_last_launch(tail, "final_one", progs["tail"], n)
     assert ok.tolist() == [[int(i % 3 != 1) for i in range(n)]]  # A = O leaves e(pk, H) alone: not one
     assert torch.equal(ok, KV.final_one_plain(a_inf, f1, f2))
     for lib in libs.values():
@@ -192,7 +192,7 @@ def test_euclid_inverse_equals_fermat(libs):
 def test_round_counts_are_the_schedules():
     """ROUNDS_PER_LANE and FP_MULS_PER_LANE are the generated programs'
     counts."""
-    mil, fin, rsig = W.programs()
+    mil, fin, rsig = W.miller_program(), W.final_program(), W.rsig_program()
     assert (rsig.rounds, rsig.fp_muls) == (KV.ROUNDS_PER_LANE["g2_rsig_sub"], KV.FP_MULS_PER_LANE["g2_rsig_sub"])
     assert (mil.rounds, mil.fp_muls) == (KV.ROUNDS_PER_LANE["miller_loop"], KV.FP_MULS_PER_LANE["miller_loop"])
     for name in ("each_final", "final_one"):
@@ -204,7 +204,7 @@ def test_schedule_simulation_equals_plain(reverse):
     """The programs run on Python integers, thread by thread in either
     order, give the plain torch engine's Miller value and final
     exponentiation."""
-    mil, fin, _ = W.programs()
+    mil, fin = W.miller_program(), W.final_program()
     pk = GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar())
     q = GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar())
     z = rand_fp()

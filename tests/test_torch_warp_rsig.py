@@ -173,10 +173,10 @@ def test_program_simulation_equals_plain(prog, plain, reverse):
 
 
 def assert_last_launch(lib, prog, n):
-    """The library's last launch: n lanes, 4 per block of 128 threads, the
-    program's slots, constants, phases and rounds."""
+    """The last launch of the library's g2_rsig_sub: n lanes, 4 per block
+    of 128 threads, the program's slots, constants, phases and rounds."""
     shape = (ctypes.c_int * 8)()
-    assert lib.lt_warp_last_launch(shape) == 0
+    assert lib.lt_warp_last_launch(b"g2_rsig_sub", shape) == 0
     smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
     assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
 

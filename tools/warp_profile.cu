@@ -2,9 +2,11 @@
 // by warp_profile.py; not part of any kernel).
 //
 //   lt_prof_program  one lane of the Miller loop (which = 0), the final
-//                    exponentiation (1) or r sig with the subgroup check
-//                    (2: its segments back to back, without the window loop's
-//                    copies between them), clock64() around every phase
+//                    exponentiation (1), r sig with the subgroup check (2),
+//                    r pk (3) or the G2 decompression (4) (the last three:
+//                    their segments back to back, without the segment loops'
+//                    copies and selects between them), clock64() around
+//                    every phase
 //   lt_prof_op       256 dependent Fp operations on each thread of one warp
 //                    (0 Montgomery product, 1 fp_add, 2 fp_sub, 3 an
 //                    interpreter add from shared memory, 4 an interpreter
@@ -12,6 +14,8 @@
 #define LT_WANT_MILLER
 #define LT_WANT_FINAL
 #define LT_WANT_RSIG
+#define LT_WANT_RPK
+#define LT_WANT_DECOMP
 #include "pairing.cuh"
 
 template <int SLOTS, int NCONST>
@@ -43,6 +47,16 @@ __global__ void lt_prof_final(long long *cyc, const uint32_t *init) {
 __global__ void lt_prof_rsig(long long *cyc, const uint32_t *init) {
   prof_program<LT_RSIG_SLOTS, LT_RSIG_CONSTS>(LT_RSIG_CONST, LT_RSIG_PHASE, LT_RSIG_PHASES, LT_RSIG_INS, cyc, init,
                                               LT_RSIG_EQ + 8);
+}
+
+__global__ void lt_prof_rpk(long long *cyc, const uint32_t *init) {
+  prof_program<LT_RPK_SLOTS, LT_RPK_CONSTS>(LT_RPK_CONST, LT_RPK_PHASE, LT_RPK_PHASES, LT_RPK_INS, cyc, init,
+                                            LT_RPK_DBL + 3);
+}
+
+__global__ void lt_prof_decomp(long long *cyc, const uint32_t *init) {
+  prof_program<LT_DECOMP_SLOTS, LT_DECOMP_CONSTS>(LT_DECOMP_CONST, LT_DECOMP_PHASE, LT_DECOMP_PHASES,
+                                                  LT_DECOMP_INS, cyc, init, LT_DECOMP_RAW + 2);
 }
 
 __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out, long long *cyc) {
@@ -85,10 +99,18 @@ extern "C" int lt_prof_program(int which, void *cyc, const void *init) {
     const size_t smem = w_smem_bytes(LT_FINAL_SLOTS, LT_FINAL_CONSTS);
     cudaFuncSetAttribute(lt_prof_final, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_final<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
-  } else {
+  } else if (which == 2) {
     const size_t smem = w_smem_bytes(LT_RSIG_SLOTS, LT_RSIG_CONSTS);
     cudaFuncSetAttribute(lt_prof_rsig, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_rsig<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else if (which == 3) {
+    const size_t smem = w_smem_bytes(LT_RPK_SLOTS, LT_RPK_CONSTS);
+    cudaFuncSetAttribute(lt_prof_rpk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_rpk<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else {
+    const size_t smem = w_smem_bytes(LT_DECOMP_SLOTS, LT_DECOMP_CONSTS);
+    cudaFuncSetAttribute(lt_prof_decomp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_decomp<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
   }
   return (int)cudaDeviceSynchronize();
 }

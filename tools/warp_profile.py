@@ -8,9 +8,10 @@ generated ones), then prints
   * the latency in cycles of one Fp operation on a thread (256 dependent
     ones on each thread of a warp): the Montgomery product, fp_add, fp_sub,
     and the interpreter's add and product with operands in shared memory;
-  * one lane of the Miller loop, of the final exponentiation and of r sig
-    with the subgroup check (its segments back to back, without the
-    window loop's copies between windows) with clock64() around every phase,
+  * one lane of the Miller loop, of the final exponentiation, of r sig
+    with the subgroup check, of r pk and of the G2 decompression (the last
+    three: their segments back to back, without the segment loops' copies and
+    selects between segments) with clock64() around every phase,
     summed by kind of phase (products, linear only, the inversion) and by
     rows (the longest queue of operations on one thread).
 Values are random field elements: the programs' cost does not depend on
@@ -70,7 +71,7 @@ def main() -> int:
     for which, prog in enumerate(W.programs()):
         phases = [ph for i in prog.order for ph in prog.segs[i].phases]
         cyc = torch.zeros(len(phases), dtype=torch.int64, device="cuda")
-        init = _values(prog.nfix if prog.name == "RSIG" else (7, 24)[which], rng)
+        init = _values((7, 24)[which] if which < 2 else prog.nfix, rng)
         for _ in range(2):
             assert lib.lt_prof_program(which, cyc.data_ptr(), init.data_ptr()) == 0
         c = cyc.cpu().numpy()

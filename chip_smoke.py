@@ -43,7 +43,13 @@ Needs one CUDA device; exits non-zero without one.  In order:
      warp-per-lane g2_rsig_sub, and for the warp-per-lane g1_rpk and
      g2_decompress also at 1, 128, 129 and 512 lanes (the batch's and the
      wire mixed job's operands, sliced), g1_rpk also on agg_pk's Jacobian
-     aggregates (Z != 1) with lanes at infinity and zero scalars; agg_pk
+     aggregates (Z != 1) with lanes at infinity and zero scalars; the
+     warp-per-addition lane sum sum_g2 at 1, 2, 3, 128, 129, 512, 1024 and
+     2048 lanes with excluded lanes, a doubling and a P + (-P) at its
+     tree's first level, each call's launches (held against
+     SUM_LAUNCHES) and first launch as its library reports them;
+     affine_g2 at the tail's one lane and on a 128-lane tile with lanes
+     flagged infinity and Z = 0; agg_pk
      (one block per set) also on the K = 512 job, with its launch as its
      library reports it (blocks, threads, shared memory, tree levels).
      CUDA-event times of
@@ -70,11 +76,13 @@ Needs one CUDA device; exits non-zero without one.  In order:
      aggregate batch, the K = 512 job, the aggregation, the merged sets and
      the N = 1024 and 2048 batches each run once more with each kernel's
      CUDA-event time inside the path and each of its kernel calls held
-     against the plain version on the same inputs; every call of g1_rpk
-     and g2_decompress that a main-path run or a bisection makes is
-     copied and, after the last path, held against the plain versions
-     (one plain run per kernel over all the calls' lanes); sets/s and a
-     breakdown for each timed path;
+     against the plain version on the same inputs; every call of g1_rpk,
+     g2_decompress, sum_g2 and affine_g2 that a main-path run or a
+     bisection makes is copied and, after the last path, held against the
+     plain versions (one plain run per sum_g2 call, one per other kernel
+     over all the calls' lanes); sets/s and a breakdown for each timed
+     path, its kernels timed inside one more run of the path, as the path
+     launches them;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
@@ -164,6 +172,16 @@ PER_SET_WRAPPERS = ("g2_subgroup_check", "each_final")  # besides mont_convert, 
 # one lane, the 128-lane tile, one lane past it, N = 512
 WARP_LANES = (1, 128, 129, 512)
 FINAL_LANES = (1, 128, 512)
+# lane counts of the lane sum's tree (the tree's edges: one lane, a pair, an
+# odd count; a 128-lane tile and one lane past it; the paths' N = 512, 1024
+# and 2048) and of the affine conversion (the tail's one lane, the
+# pre-verify aggregation's 128-lane tile)
+SUM_LANES = (1, 2, 3, 128, 129, 512, 1024, 2048)
+# the launches one sum makes at each of them, 32 elements per block to one
+# partial until one is left (csrc/reduce.cu), against which the launches
+# that its entry point reports are held
+SUM_LAUNCHES = {1: 1, 2: 1, 3: 1, 128: 2, 129: 2, 512: 2, 1024: 2, 2048: 3}
+AFFINE_LANES = (1, 128)
 # the path whose launch count is a row's "launches", and its lanes
 MAIN_PATH = {name: ("batch" if name in BATCH else "per_set", JOBS[-1]) for name in KERNELS}
 MAIN_PATH.update({"mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
@@ -485,11 +503,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     paths = {}  # (path, n) -> launch counts
+    path_kms = {}  # (path, n) -> kernel wrapper -> ms in the path (one instrumented run)
 
     # every call of the redesigned warp kernels that a main-path run makes
     # (inputs and outputs copied on the stream), held at the end of the
     # main paths against the plain versions
-    path_calls = {"g1_rpk": [], "g2_decompress": []}
+    path_calls = {"g1_rpk": [], "g2_decompress": [], "affine_g2": [], "sum_g2": []}
     recording = [False]
 
     def recorder(name, f):
@@ -614,6 +633,7 @@ def main() -> int:
         return int(live.sum()) - int(torch.unique(group[live]).numel())
 
     sweep = {}  # name -> (operands, flag output) at N = 512, for the lane sweep of g1_rpk and g2_decompress
+    affine_steps = {}  # the timed affine_g2 call's key -> its inversions' binary-GCD steps on its data
     for n in JOBS:
         # the per-set path's kernels on the mixed job
         idx, kmask, planes, sig_inf, valid = verifier._prepare(sets[:n])
@@ -641,10 +661,12 @@ def main() -> int:
         rsig, rsig_inf, sub = plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain,
                                                *ops["g2_rsig_sub"])
         excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
+        sweep["sum_g2"] = (rsig, excl)
         jsum, jsum_inf = plain_and_kernel("sum_g2", n, KV.sum_g2, KV.sum_g2_plain, rsig, excl)
         fprod = plain_and_kernel("prod12", n, KV.prod12, KV.prod12_plain, ops["live_row"],
                                  KV.miller_loop(rpk, ops["msg"]))
         a, a_inf = plain_and_kernel("affine_g2", n, KV.affine_g2, KV.affine_g2_plain, jsum, jsum_inf)
+        affine_steps[n] = KV.affine_g2_gcd_steps(jsum)
         fa = plain_and_kernel("miller_loop_1", n, KV.miller_loop, KV.miller_loop_plain, KV._neg_g1(dev, 1), a)
         ok = plain_and_kernel("final_one", n, KV.final_one, KV.final_one_plain, a_inf, fprod, fa)
         if int(ok[0, 0]) != 1 or int(a_inf[0, 0]) != 0 or not bool(sub.all()):
@@ -805,6 +827,86 @@ def main() -> int:
                 for key in ((name, n, "lanes"), (name, n))
                 if key in results and (key[2:] or (name, n, "lanes") not in results)))
 
+    # the lane sum's tree at every lane count of SUM_LANES: the N = 512
+    # batch's r_i sig_i repeated, with excluded lanes, lanes 0 and 1 equal
+    # (a doubling at the first level) and lane 3 the negation of lane 2
+    # (infinity there); each call relaunches the kernel on the partials
+    from lodestar_tpu_torch.kernels import fp2 as F2
+
+    rsig, excl = sweep["sum_g2"]
+    sum_launches = {}  # lanes -> the launches one call made, as the entry point reports them
+    for n in SUM_LANES:
+        idx = torch.arange(n, device=dev) % rsig.shape[-1]
+        pts, ex = rsig[..., idx].contiguous(), excl[..., idx].contiguous()
+        ex[0, 5::7] = 1
+        if n >= 2:
+            pts[..., 1] = pts[..., 0]
+            ex[0, :2] = 0
+        if n >= 4:
+            pts[..., 3] = pts[..., 2]
+            pts[1, ..., 3:4] = LY.digits_to_planes(F2.neg2(LY.planes_to_digits(pts[1, ..., 2:3].contiguous())))
+            ex[0, 2:4] = 0
+        _, s_inf = plain_and_kernel("sum_g2", n, KV.sum_g2, KV.sum_g2_plain, pts, ex, plain_runs=0, tag="lanes")
+        before = KV.LAUNCHES["sum_g2"]
+        KV.sum_g2(pts, ex)
+        launches = KV.LAUNCHES["sum_g2"] - before
+        shape = (ctypes.c_int * 8)()
+        if B.load("reduce").lt_warp_last_launch(b"sum_g2", shape) != 0:
+            raise AssertionError("sum_g2: reduce reports no launch of it")
+        lanes, blocks, threads, span, smem, slots, phases, rounds = list(shape)
+        sum_launches[n] = launches
+        if (launches != SUM_LAUNCHES[n] or [lanes, blocks, threads, span] != [n, -(-n // 32), 32 * 16, 32]
+                or rounds != KV.ROUNDS_PER_LANE["sum_g2"]):
+            raise AssertionError(f"sum_g2 at N={n}: {launches} launches a call, first launch {list(shape)}")
+        if n == JOBS[-1]:
+            entry = next(e for k, e in ptxas_entries(ptxas["reduce"]).items() if "sum_g2" in k)
+            warp_info["sum_g2"] = {"rounds_per_addition": rounds, "fp_muls_per_addition": KV.FP_MULS_PER_LANE["sum_g2"],
+                                   "phases_per_addition": phases, "slots_per_warp": slots, "warps_per_block": threads // 32,
+                                   "elements_per_block": span, "dynamic_smem_bytes_per_block": smem, "ptxas": entry}
+        log(f"sum_g2 N={n}: {launches} launches (first: {blocks} blocks of {threads} threads, {span} elements per "
+            f"block), {(n - 1).bit_length()} tree levels, {n - 1} complete additions; sum "
+            f"{'infinity' if int(s_inf[0, 0]) else 'finite'}")
+    e = warp_info["sum_g2"]
+    log(f"warp kernel sum_g2: one warp per complete addition, {e['warps_per_block']} warps ({e['elements_per_block']} "
+        f"elements) per block; {e['rounds_per_addition']} rounds ({e['fp_muls_per_addition']} Fp products) in "
+        f"{e['phases_per_addition']} phases per addition, {e['slots_per_warp']} slots per warp, "
+        f"{e['dynamic_smem_bytes_per_block']} B dynamic shared memory per block; ptxas {e['ptxas']}; card ms by lanes "
+        + ", ".join(f"{n}: {results['sum_g2', n, 'lanes'][0]:.3f}" for n in SUM_LANES))
+
+    # the affine conversion at the tail's one lane (the batch's aggregate)
+    # and on a 128-lane tile with lanes flagged infinity and lanes with Z = 0
+    jsum1, jsum1_inf = KV.sum_g2(rsig, excl)
+    for n in AFFINE_LANES:
+        if n == 1:
+            p, p_inf = jsum1, jsum1_inf
+        else:
+            p, p_inf = rsig[..., :n].clone(), torch.zeros((1, n), dtype=torch.int32, device=dev)
+            p_inf[0, 3::16] = 1
+            p[2, ..., 5::16] = 0
+            p[2, ..., 3::32] = 0
+        _, a_inf = plain_and_kernel("affine_g2", n, KV.affine_g2, KV.affine_g2_plain, p, p_inf, plain_runs=0,
+                                    tag="lanes")
+        affine_steps[n, "lanes"] = KV.affine_g2_gcd_steps(p)
+        want = (p_inf[0] != 0) | (p[2] == 0).reshape(-1, n).all(dim=0)
+        if a_inf[0].tolist() != want.to(torch.int32).tolist():
+            raise AssertionError(f"affine_g2 at N={n}: infinity flags are not the flagged and Z = 0 lanes")
+    shape = (ctypes.c_int * 8)()
+    if B.load("tail").lt_warp_last_launch(b"affine_g2", shape) != 0:
+        raise AssertionError("affine_g2: tail reports no launch of it")
+    lanes, blocks, threads, lpb, smem, slots, phases, rounds = list(shape)
+    if lanes != AFFINE_LANES[-1] or blocks * lpb < lanes or rounds != KV.ROUNDS_PER_LANE["affine_g2"]:
+        raise AssertionError(f"affine_g2: last launch {list(shape)}")
+    entry = next(e for k, e in ptxas_entries(ptxas["tail"]).items() if "affine" in k)
+    warp_info["affine_g2"] = {"rounds_per_lane": rounds, "fp_muls_per_lane": KV.FP_MULS_PER_LANE["affine_g2"],
+                              "phases_per_lane": phases, "slots_per_lane": slots, "lanes_per_block": lpb,
+                              "threads_per_lane": threads // lpb, "dynamic_smem_bytes_per_block": smem,
+                              "ptxas": entry}
+    log(f"warp kernel affine_g2 (its N = {lanes} launch: {blocks} blocks of {threads} threads): {threads // lpb} "
+        f"threads per lane, {lpb} lanes per block; {rounds} rounds (one the binary-GCD inversion; "
+        f"{KV.FP_MULS_PER_LANE['affine_g2']} Fp products) in {phases} phases per lane, {slots} slots per lane, {smem} B "
+        f"dynamic shared memory per block; ptxas {entry}; card ms by lanes "
+        + ", ".join(f"{n}: {results['affine_g2', n, 'lanes'][0]:.3f}" for n in AFFINE_LANES))
+
     # -- 3. main paths -------------------------------------------------------------
     def host_ms(fn, runs=3):
         times = []
@@ -838,23 +940,83 @@ def main() -> int:
             return "verify_batch_device_wire_grouped"
         return "verify_batch_device_wire" if counts["g2_decompress"] else "verify_batch_device"
 
-    def breakdown(label, n, prepare, ms, counts, names):
-        """Kernel-phase medians at this N, or at the largest N where a
-        kernel was not timed at this one, times the calls: a segmented
-        sum's median is one call of seg_rounds launches."""
+    def breakdown(label, n, prepare, ms, kms):
+        """The job's time split into host preparation, the kernels as the
+        path launches them (kms: each wrapper's CUDA-event ms summed over
+        its calls in one instrumented run of the path, kernel_ms_in_path)
+        and the rest."""
         prep = host_ms(prepare)
-        kern = 0.0
-        at = {k: n if (k, n) in results else JOBS[-1] for k in names + ("miller_loop_1",)}
-        for k in names:
-            per = results[k, at[k]][0]
-            if k == "miller_loop" and "batch" in label:  # one N-lane and one 1-lane launch
-                per = (per + results["miller_loop_1", at[k]][0]) / 2
-            calls = counts[k] / KV.seg_rounds(bucket(n)) if k in ("seg_sum_g1", "seg_sum_g2") else counts[k]
-            kern += per * calls
-        elsewhere = sorted({f"{k} at N={m}" for k, m in at.items() if m != n and k in names})
+        kern = sum(kms.values())
         log(f"breakdown {label} N={n}: job {ms:.3f} ms = host preparation (encode + copy to the card) "
-            f"{prep:.3f} ms + kernels {kern:.3f} ms (kernel-phase medians x launches"
-            + (f"; {', '.join(elsewhere)}" if elsewhere else "") + f") + the rest {ms - prep - kern:.3f} ms")
+            f"{prep:.3f} ms + kernels {kern:.3f} ms (in the path: one instrumented run, CUDA events, the card "
+            f"drained before each call; " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items())
+            + f") + the rest {ms - prep - kern:.3f} ms")
+
+    def in_path(fn, names):
+        """kernel ms in the path of fn() for the path's kernel rows `names`."""
+        return kernel_ms_in_path(fn, tuple(dict.fromkeys("mont_convert" if k == "mont_convert_4" else k
+                                                          for k in names)))[1]
+
+    def kernel_ms_in_path(fn, wrappers=GROUPED_WRAPPERS):
+        """fn() once with each kernel wrapper of `wrappers` timed by CUDA
+        events around its call, the card drained before each (so a time is
+        that call's launches alone); (result, name -> ms summed over the
+        wrapper's calls, the calls as (name, inputs, outputs), copied after
+        each call outside its timing).  Raises unless every wrapper was
+        called through the patch."""
+        real = {name: getattr(KV, name) for name in wrappers}
+        times, calls = {}, []
+
+        def timed(name, f):
+            def run(*args):
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = f(*args)
+                b.record()
+                b.synchronize()
+                times[name] = times.get(name, 0.0) + a.elapsed_time(b)
+                outs = out if isinstance(out, tuple) else (out,)
+                calls.append((name, tuple(x.clone() if torch.is_tensor(x) else x for x in args),
+                              tuple(o.clone() for o in outs)))
+                return out
+            return run
+
+        try:
+            for name, f in real.items():
+                setattr(KV, name, timed(name, f))
+            out = fn()
+        finally:
+            for name, f in real.items():
+                setattr(KV, name, f)
+        if set(times) != set(wrappers):
+            raise AssertionError(f"wrappers the timed run did not call through the patch: "
+                                 f"{sorted(set(wrappers) - set(times))}")
+        return out, times, calls
+
+    def hold_calls(label, calls):
+        """Each recorded kernel call against its plain version on the same
+        inputs, bit for bit (one untimed plain run each); -> seconds."""
+        t = time.perf_counter()
+        for name, args, k_outs in calls:
+            p_out = getattr(KV, name + "_plain")(*args)
+            p_outs = p_out if isinstance(p_out, tuple) else (p_out,)
+            if len(p_outs) != len(k_outs) or not all(torch.equal(a, b) for a, b in zip(k_outs, p_outs)):
+                shapes = [tuple(x.shape) for x in args if torch.is_tensor(x)]
+                raise AssertionError(f"{label}: {name} on inputs {shapes} differs from its plain version")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def held_in_path(label, fn, wrappers):
+        """fn() once more through kernel_ms_in_path, then each of its kernel
+        calls held against its plain version; -> (fn's result, the log's
+        words on it, name -> ms in the path)."""
+        out, kms, calls = kernel_ms_in_path(fn, wrappers)
+        held_s = hold_calls(label, calls)
+        return out, (f"kernel ms in the path (one instrumented run, CUDA events, the card drained before each "
+                     f"call): " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items()) + f"; each of its "
+                     f"{len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
+                     f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)"), kms
 
     batchable = VerifyOptions(batchable=True)
     for n in JOBS:
@@ -874,7 +1036,8 @@ def main() -> int:
         log(f"main path per-set N={n}: {sum(got)} of {n} True, every verdict equals the ground truth; "
             f"launches {json.dumps(counts)}; verify_signature_sets_individually {ms:.1f} ms = "
             f"{n / ms * 1e3:.1f} sets/s (host clock, median of 3 after a warm-up)")
-        breakdown("per-set", n, lambda: verifier._prepare(job), ms, counts, PER_SET)
+        breakdown("per-set", n, lambda: verifier._prepare(job), ms,
+                  in_path(lambda: verifier.verify_signature_sets_individually(job), PER_SET))
         paths["per_set", n] = counts
         results["sets_per_s", "per_set", n] = n / ms * 1e3
 
@@ -891,7 +1054,8 @@ def main() -> int:
         log(f"main path batch N={n}: accepted {n} of {n} valid sets as one RLC batch; launches "
             f"{json.dumps(counts)}; verify_signature_sets(batchable=True) {ms:.1f} ms = {n / ms * 1e3:.1f} "
             f"sets/s (host clock, median of 3 after a warm-up)")
-        breakdown("batch", n, lambda: verifier._prepare(job), ms, counts, BATCH)
+        breakdown("batch", n, lambda: verifier._prepare(job), ms,
+                  in_path(lambda: verifier.verify_signature_sets(job, batchable), BATCH))
         paths["batch", n] = counts
         results["sets_per_s", "batch", n] = n / ms * 1e3
 
@@ -992,7 +1156,8 @@ def main() -> int:
             f"{entry_of(counts)}); launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host "
             f"clock, median of 3 after a warm-up); the same job through the ungrouped entry {ms_ungrouped:.3f} ms, "
             f"then grouped again {ms_again:.3f} ms (medians of 3)")
-        breakdown("wire-batch", n, lambda: verifier._prepare_wire(job), ms, counts, GROUPED_BATCH)
+        path_kms["wire_batch", n] = in_path(lambda: verifier.verify_signature_sets(job, batchable), GROUPED_BATCH)
+        breakdown("wire-batch", n, lambda: verifier._prepare_wire(job), ms, path_kms["wire_batch", n])
         paths["wire_batch", n] = counts
         results["sets_per_s", "wire_batch", n] = n / ms * 1e3
 
@@ -1008,7 +1173,8 @@ def main() -> int:
         log(f"main path wire-per-set N={n}: {sum(got)} of {n} True, every verdict equals the ground truth; "
             f"launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of 3 "
             f"after a warm-up)")
-        breakdown("wire-per-set", n, lambda: verifier._prepare_wire(job), ms, counts, WIRE_PER_SET)
+        breakdown("wire-per-set", n, lambda: verifier._prepare_wire(job), ms,
+                  in_path(lambda: verifier.verify_signature_sets_individually(job), WIRE_PER_SET))
         paths["wire_per_set", n] = counts
         results["sets_per_s", "wire_per_set", n] = n / ms * 1e3
 
@@ -1037,67 +1203,6 @@ def main() -> int:
     bad_job[BAD_SET] = wire_mixed[BAD_SET]
     paths["wire_bisection", n] = bisection("wire-bisection", n, bad_job, "verify_batch_device_wire_grouped")
 
-    def kernel_ms_in_path(fn, wrappers=GROUPED_WRAPPERS):
-        """fn() once with each kernel wrapper of `wrappers` timed by CUDA
-        events around its call, the card drained before each (so a time is
-        that call's launches alone); (result, name -> ms summed over the
-        wrapper's calls, the calls as (name, inputs, outputs), copied after
-        each call outside its timing).  Raises unless every wrapper was
-        called through the patch."""
-        real = {name: getattr(KV, name) for name in wrappers}
-        times, calls = {}, []
-
-        def timed(name, f):
-            def run(*args):
-                torch.cuda.synchronize()
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = f(*args)
-                b.record()
-                b.synchronize()
-                times[name] = times.get(name, 0.0) + a.elapsed_time(b)
-                outs = out if isinstance(out, tuple) else (out,)
-                calls.append((name, tuple(x.clone() if torch.is_tensor(x) else x for x in args),
-                              tuple(o.clone() for o in outs)))
-                return out
-            return run
-
-        try:
-            for name, f in real.items():
-                setattr(KV, name, timed(name, f))
-            out = fn()
-        finally:
-            for name, f in real.items():
-                setattr(KV, name, f)
-        if set(times) != set(wrappers):
-            raise AssertionError(f"wrappers the timed run did not call through the patch: "
-                                 f"{sorted(set(wrappers) - set(times))}")
-        return out, times, calls
-
-    def hold_calls(label, calls):
-        """Each recorded kernel call against its plain version on the same
-        inputs, bit for bit (one untimed plain run each); -> seconds."""
-        t = time.perf_counter()
-        for name, args, k_outs in calls:
-            p_out = getattr(KV, name + "_plain")(*args)
-            p_outs = p_out if isinstance(p_out, tuple) else (p_out,)
-            if len(p_outs) != len(k_outs) or not all(torch.equal(a, b) for a, b in zip(k_outs, p_outs)):
-                shapes = [tuple(x.shape) for x in args if torch.is_tensor(x)]
-                raise AssertionError(f"{label}: {name} on inputs {shapes} differs from its plain version")
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
-    def held_in_path(label, fn, wrappers):
-        """fn() once more through kernel_ms_in_path, then each of its kernel
-        calls held against its plain version; -> (fn's result, the log's
-        words on it)."""
-        out, kms, calls = kernel_ms_in_path(fn, wrappers)
-        held_s = hold_calls(label, calls)
-        return out, (f"kernel ms in the path (one instrumented run, CUDA events, the card drained before each "
-                     f"call): " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items()) + f"; each of its "
-                     f"{len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
-                     f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)")
-
     # the aggregate batch: 256 sets of K = 128 over one root
     job = d["wire_agg"]
     verifier.verify_signature_sets(job, batchable)  # warm-up
@@ -1108,7 +1213,8 @@ def main() -> int:
         raise AssertionError(f"aggregate batch: entry {entry_of(counts)}, launches {counts}")
     require("aggregate batch", counts, AGG_BATCH)
     ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
-    ok, held = held_in_path("aggregate batch", lambda: verifier.verify_signature_sets(job, batchable), AGG_WRAPPERS)
+    ok, held, agg_kms = held_in_path("aggregate batch", lambda: verifier.verify_signature_sets(job, batchable),
+                                     AGG_WRAPPERS)
     if ok is not True:
         raise AssertionError("aggregate batch: the instrumented run rejected the batch")
     log(f"main path aggregate-batch N={AGG_SETS} K={AGG_K}: accepted as one RLC batch through agg_pk (K bucket "
@@ -1116,7 +1222,7 @@ def main() -> int:
         f"{json.dumps(counts)}; {ms:.1f} ms = {AGG_SETS / ms * 1e3:.1f} sets/s = "
         f"{AGG_SETS * AGG_K / ms * 1e3:.1f} pubkeys (signers' signatures)/s (host clock, median of 3 after a "
         f"warm-up); " + held)
-    breakdown("aggregate-batch", AGG_SETS, lambda: verifier._prepare_wire(job), ms, counts, AGG_BATCH)
+    breakdown("aggregate-batch", AGG_SETS, lambda: verifier._prepare_wire(job), ms, agg_kms)
     paths["agg_batch", AGG_SETS] = counts
     results["sets_per_s", "agg_batch", AGG_SETS] = AGG_SETS / ms * 1e3
     results["pubkeys_per_s", "agg_batch", AGG_SETS] = AGG_SETS * AGG_K / ms * 1e3
@@ -1132,8 +1238,8 @@ def main() -> int:
         raise AssertionError(f"K = {SYNC_K} job: verdict {ok}, per set {sync_job.verdicts}, launches {counts}")
     if verifier.verify_signature_sets_individually(job) != want:
         raise AssertionError(f"K = {SYNC_K} job: per-set verdicts differ from the ground truth")
-    ok, held = held_in_path(f"K = {SYNC_K} job", lambda: verifier.verify_signature_sets(job, batchable),
-                            AGG_WRAPPERS + PER_SET_WRAPPERS)
+    ok, held, _ = held_in_path(f"K = {SYNC_K} job", lambda: verifier.verify_signature_sets(job, batchable),
+                               AGG_WRAPPERS + PER_SET_WRAPPERS)
     if ok is not False:
         raise AssertionError(f"K = {SYNC_K} job: the instrumented run gave {ok}")
     log(f"main path sync-aggregate N={SYNC_SETS} K={SYNC_K}: batch rejected, retried per set: verdicts {want} "
@@ -1155,8 +1261,8 @@ def main() -> int:
         raise AssertionError(f"pre-verify aggregation: not one {n}-lane dispatch: {counts}")
     require("pre-verify aggregation", counts, PREAGG)
     paths["preagg", n] = counts
-    aggs2, held_agg = held_in_path("pre-verify aggregation", lambda: verifier.aggregate_wire_signatures(groups),
-                                   PREAGG)
+    aggs2, held_agg, _ = held_in_path("pre-verify aggregation", lambda: verifier.aggregate_wire_signatures(groups),
+                                      PREAGG)
     if aggs2 != host_aggs:
         raise AssertionError("pre-verify aggregation: the instrumented run's aggregates differ from the host's")
     bad_group = [wire_valid[0].signature, wire_valid[1].signature[:95]]
@@ -1171,8 +1277,8 @@ def main() -> int:
             or entry_of(counts2) != "verify_batch_device_wire"):
         raise AssertionError(f"merged sets: truth {merged_truth}, verdict {ok}, entry {entry_of(counts2)}, "
                              f"launches {counts2}")
-    ok, held_merged = held_in_path("merged sets", lambda: verifier.verify_signature_sets(merged, batchable),
-                                   MERGED_WRAPPERS)
+    ok, held_merged, _ = held_in_path("merged sets", lambda: verifier.verify_signature_sets(merged, batchable),
+                                      MERGED_WRAPPERS)
     if ok is not True:
         raise AssertionError("merged sets: the instrumented run rejected the batch")
     log(f"main path preagg N={n}: aggregate_wire_signatures of {N_ROOTS} groups of {N_KEYS} wire signatures: "
@@ -1194,7 +1300,6 @@ def main() -> int:
         return job
 
     wide.begin_job = wide_recording_begin_job
-    wide_ms = {}  # n -> {"ms", "sets_per_s", "kernel_ms"}
     for n in WIDE_JOBS:
         job = [wire_valid[i % JOBS[-1]] for i in range(n)]
         wide.verify_signature_sets(job, batchable)  # warm-up
@@ -1208,7 +1313,7 @@ def main() -> int:
         if ok is not True:
             raise AssertionError(f"wire N={n}: the instrumented run rejected the batch")
         held_s = hold_calls(f"wire N={n}", calls)
-        wide_ms[n] = {"ms": ms, "sets_per_s": n / ms * 1e3, "kernel_ms": kms}
+        path_kms["wire_batch", n] = kms
         results["sets_per_s", "wire_batch", n] = n / ms * 1e3
         paths["wire_batch", n] = counts
         log(f"main path wire-batch N={n}: the 512 wire sets repeated, accepted as one RLC batch through the grouped "
@@ -1218,16 +1323,22 @@ def main() -> int:
             f"tail): " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items()) + f"; sum {sum(kms.values()):.3f}; "
             f"each of its {len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
             f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)")
+        breakdown("wire-batch", n, lambda: wide._prepare_wire(job), ms, kms)
     no_host_sets("wide wire batches")
 
-    # every recorded main-path call of g1_rpk and g2_decompress against its
-    # plain version: the calls' lanes side by side in one plain run per
-    # kernel (a lane's result depends on that lane's inputs alone)
+    # every recorded main-path call of the redesigned kernels against its
+    # plain version: the lane sum's calls one plain run each, the others'
+    # lanes side by side in one plain run per kernel (a lane's result
+    # depends on that lane's inputs alone)
     t = time.perf_counter()
     for name, recs in path_calls.items():
         if not recs:
             raise AssertionError(f"{name}: no main-path run called it")
         sizes = [r[0][0].shape[-1] for r in recs]
+        if name == "sum_g2":
+            hold_calls("main path calls", [(name, args, outs) for args, outs in recs])
+            warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes)}
+            continue
         args = [torch.cat([r[0][i] for r in recs], dim=-1) for i in range(len(recs[0][0]))]
         k_outs = [torch.cat([r[1][i] for r in recs], dim=-1) for i in range(len(recs[0][1]))]
         p_outs = getattr(KV, name + "_plain")(*args)
@@ -1243,8 +1354,8 @@ def main() -> int:
     log("main path calls of the redesigned warp kernels: " + ", ".join(
         f"{name} {len(recs)} calls ({sum(r[0][0].shape[-1] for r in recs)} lanes)" for name, recs in
         path_calls.items()) + f", every one made by a counted main-path run or a bisection, each equal to its "
-        f"plain version bit for bit (one plain run per kernel over the calls' lanes side by side; "
-        f"{time.perf_counter() - t:.1f} s)")
+        f"plain version bit for bit (sum_g2 one plain run per call, the others one plain run per kernel over "
+        f"the calls' lanes side by side; {time.perf_counter() - t:.1f} s)")
 
     if not verifier._device_canary():
         raise AssertionError("device canary failed")
@@ -1252,13 +1363,16 @@ def main() -> int:
     # -- 4. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
 
-    def bound(name, n):
+    def bound(name, n, tail_lane=True):
         """(bound ms, what bounds it, units of FP_MULS_NEEDED, lanes) of one
-        launch at n lanes: the products the function needs (not the ones
-        the kernel makes: KV.FP_MULS_NEEDED against FP_MULS_PER_LANE) over
-        the card's IMAD rate, or its bytes over the memory rate."""
+        call at n lanes (the tail's kernels on one lane of an N-set job
+        unless tail_lane is False): the products the function needs (not
+        the ones the kernel makes: KV.FP_MULS_NEEDED against
+        FP_MULS_PER_LANE; affine_g2's inversions besides, as the binary
+        GCD's multiplies on the call's data) over the card's IMAD rate, or
+        its bytes over the memory rate."""
         lanes = n
-        if name in TAIL:
+        if name in TAIL and tail_lane:
             units = lanes = 1
         elif name in ("sum_g2", "prod12"):
             units = n - 1  # N - 1 combines
@@ -1271,6 +1385,8 @@ def main() -> int:
         else:
             units = n
         ops_ms = KV.FP_MULS_NEEDED[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
+        if name == "affine_g2":
+            ops_ms += affine_steps[n if tail_lane else (n, "lanes")] * KV.GCD_IMAD_PER_STEP / imad_per_ms
         if name == "agg_pk":
             nbytes = agg_live_rows * 2 * 48 + n * (k_bucket * 8 + 3 * 48 + 4)
         else:
@@ -1287,7 +1403,9 @@ def main() -> int:
             done = KV.seg_rounds(n) * n  # one addition per lane and round
         elif name == "agg_pk":
             done = agg_done  # every tree addition and the accumulations of live chunks
-        elif name in ("sum_g2", "prod12"):
+        elif name == "sum_g2":
+            done = n - 1  # the tree's complete additions
+        elif name == "prod12":
             done = max(n, KV.BT) - 1
         else:
             done = units
@@ -1317,20 +1435,30 @@ def main() -> int:
             entry["bound_ms_256"] = bound(name, 256)[0]
         if name in ("seg_sum_g1", "seg_sum_g2"):
             entry["additions_needed"] = seg_units[name, n]
+        if name == "affine_g2":  # the inversion's multiplies, which fp_muls_needed leaves out
+            entry["gcd_steps"] = affine_steps[n]
+            entry["gcd_imad"] = affine_steps[n] * KV.GCD_IMAD_PER_STEP
         if name in warp_info:  # the warp-per-lane kernels
             entry.update(warp_info[name])
-        if (name, 1, "lanes") in results:  # the pairing kernels: every lane count of their own phase
-            timed = [m for m in WARP_LANES if (name, m, "lanes") in results]
+        if (name, 1, "lanes") in results:  # every lane count of the kernel's own sweep
+            timed = [m for m in WARP_LANES + SUM_LANES + AFFINE_LANES if (name, m, "lanes") in results]
+            timed = sorted(set(timed))
             entry["ms_by_lanes"] = {m: results[name, m, "lanes"][0] for m in timed}
             entry["plain_ms_by_lanes"] = {m: results[name, m, "lanes"][1] for m in timed}
-            entry["bound_ms_by_lanes"] = {m: bound("each_final" if name == "final_one" else name, m)[0]
+            entry["bound_ms_by_lanes"] = {m: bound("each_final" if name == "final_one" else name, m, False)[0]
                                           for m in timed}
-            entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]
+            if name == "sum_g2":
+                entry["tree_levels_by_lanes"] = {m: (m - 1).bit_length() for m in timed}
+                entry["launches_per_call_by_lanes"] = {m: sum_launches[m] for m in timed}
+                entry["ms_per_level"] = k_ms / (n - 1).bit_length()
+            else:
+                entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]
         elif name in warp_info:
             entry["ms_per_round"] = k_ms / entry["rounds_per_lane"]
         wrapper = "mont_convert" if name == "mont_convert_4" else name
         if name in GROUPED_BATCH and wrapper in GROUPED_WRAPPERS:
-            entry["ms_in_grouped_wire_batch_by_n"] = {m: w["kernel_ms"].get(wrapper) for m, w in wide_ms.items()}
+            entry["ms_in_grouped_wire_batch_by_n"] = {m: kms.get(wrapper) for (p, m), kms in path_kms.items()
+                                                      if p == "wire_batch"}
         kernels.append(entry)
     log("main path sets/s: " + ", ".join(
         f"{p} N={j}: {results['sets_per_s', p, j]:.1f}" for p in ("per_set", "batch", "wire_per_set", "wire_batch")

@@ -166,7 +166,8 @@ _ARGTYPES = {
     "lt_each_final": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_g1_rpk": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_g2_rsig_sub": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    "lt_sum_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
+    "lt_sum_g2_scratch_lanes": [_INT],
     "lt_prod12": [_VP, _VP, _VP, _INT, _VP],
     "lt_affine_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_final_one": [_VP, _VP, _VP, _VP, _INT, _VP],
@@ -182,7 +183,7 @@ _ARGTYPES = {
     # inversions and final exponentiation for the tests
     "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],
     "lt_host_final_exp": [_VP, _VP, _INT],
-    "lt_host_fp_inv_euclid": [_VP, _VP, _INT],
+    "lt_host_fp_inv_var": [_VP, _VP, _INT],
     "lt_host_fp_inv": [_VP, _VP, _INT],
     "lt_host_signs": [_VP, _VP, _INT],
     "lt_host_sswu": [_VP, _VP, _VP, _INT],
@@ -214,6 +215,7 @@ def load_host(name: str) -> ctypes.CDLL:
     lib.lt_host_warp_order.argtypes = [_INT]  # virtual threads forwards (0) or reversed (1)
     lib.lt_host_warp_order.restype = None
     if hasattr(lib, "lt_host_rounds"):  # the warp-per-lane kernels
-        lib.lt_host_rounds.argtypes = []
-        lib.lt_host_rounds.restype = ctypes.c_uint64
+        for counter in (lib.lt_host_rounds, lib.lt_host_gcd_steps):
+            counter.argtypes = []
+            counter.restype = ctypes.c_uint64
     return lib

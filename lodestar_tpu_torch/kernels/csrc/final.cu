@@ -5,15 +5,15 @@
 //
 // One warp per lane (csrc/warp12.cuh), the program of warp_prog.cuh:
 // the product f1 f2 and the easy part (one Fp12 inversion, whose one Fp
-// inversion is a binary extended Euclid on one thread instead of the
-// ~608-product Fermat chain), then the hard part's five powers by |x|,
+// inversion is the variable-time binary GCD fp_inv_var on one thread
+// instead of the ~608-product Fermat chain), then the hard part's five powers by |x|,
 // each 63 cyclotomic squarings (one round of 18 Fp products each) and 5
 // Fp12 products (two rounds each): 7,730 Fp products in 396 rounds.
 //
 // Bound on this card: 32-bit integer multiplies, 7,730 Fp products per
 // lane (588 multiply instructions each); its inputs are 1.2 KB per lane
 // and its output one word.  A lane's time is its rounds' latencies, about
-// one product's each, plus the linear phases and the Euclid on one thread.
+// one product's each, plus the linear phases and the inversion on one thread.
 #define LT_WANT_FINAL
 #include "pairing.cuh"
 
@@ -88,16 +88,16 @@ extern "C" int lt_host_final_exp(const void *f, void *r, int n) {
   return 0;
 }
 
-// the final exponentiation's inversion (plain inverse of the canonical
+// the programs' inversion (the binary GCD's plain inverse of the canonical
 // integer, then times R^3) and the Fermat inversion fp_inv, on planes
 // [12, n] of Montgomery values
-extern "C" int lt_host_fp_inv_euclid(const void *a, void *r, int n) {
+extern "C" int lt_host_fp_inv_var(const void *a, void *r, int n) {
   fp r3;
   for (int i = 0; i < LT_NL; i++) r3.w[i] = LT_FINAL_CONST[LT_FINAL_R3][i];
   for (int lane = 0; lane < n; lane++) {
     fp x, y;
     fp_load(x, (const int32_t *)a, n, lane);
-    fp_inv_euclid(y, x);
+    fp_inv_var(y, x);
     fp_mont_mul(x, y, r3);
     fp_store((int32_t *)r, n, lane, x);
   }

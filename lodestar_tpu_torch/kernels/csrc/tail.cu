@@ -11,39 +11,31 @@
 // Between them the path runs the Miller loop of the aggregate pair
 // (-G1, A) on one lane (csrc/miller.cu).  The TPU kernels run all 128
 // lanes of a tile with the same value; here each kernel takes any number
-// of lanes and the path gives it one.
+// of lanes and the path gives it one (pre-verify aggregation gives
+// affine_g2 a 128-lane tile).
 //
-// lt_affine_g2 runs one thread per lane: its time is one thread's chain of
-// 623 Fp products (608 of them the Fermat inversion).  lt_final_one runs
-// one warp per lane (csrc/warp12.cuh): the final exponentiation's 7,730
-// Fp products in 396 rounds of up to 32.  The card-wide IMAD bound of
-// either is microseconds.
-#include "curve.cuh"
+// Both run one warp per lane (csrc/warp12.cuh).  lt_affine_g2's program
+// (warp_schedule.affine_program) inverts Z through its norm, whose one Fp
+// inversion is the variable-time binary GCD fp_inv_var on one thread, where
+// one thread ran the ~608-product Fermat chain; the rest is 16 Fp products
+// in 6 rounds.  Its time is the inversion's.  lt_final_one runs the final
+// exponentiation's 7,730 Fp products in 396 rounds of up to 32.  The
+// card-wide IMAD bound of either is microseconds.
+#define LT_WANT_AFFINE
 #define LT_WANT_FINAL
 #include "pairing.cuh"
 
 // p: Jacobian planes [3, 2, 12, n]; p_inf, a_inf: [n]; a: affine planes
-// [2, 2, 12, n]
-LT_DEV void affine_g2_lane(const int32_t *p, const int32_t *p_inf, int32_t *a, int32_t *a_inf,
-                           int n, int lane) {
-  jac<fp2> j;
-  fp2_load(j.x, p, n, lane);
-  fp2_load(j.y, p + 2 * LT_NL * n, n, lane);
-  fp2_load(j.z, p + 4 * LT_NL * n, n, lane);
-  const bool inf = p_inf[lane] != 0 || fp2_is_zero(j.z);
-  fp2 zi, zi2, t, x, y, g;
-  fp2_inv(zi, j.z);
-  fp2_sqr(zi2, zi);
-  fp2_mul(x, j.x, zi2);
-  fp2_mul(t, zi2, zi);
-  fp2_mul(y, j.y, t);
-  fp2_const(g, LT_G2X);
-  fp2_select(x, inf, g, x);
-  fp2_const(g, LT_G2Y);
-  fp2_select(y, inf, g, y);
-  fp2_store(a, n, lane, x);
-  fp2_store(a + 2 * LT_NL * n, n, lane, y);
-  a_inf[lane] = inf ? 1 : 0;
+// [2, 2, 12, n].  One warp.
+LT_DEV void affine_g2_warp(const wmem &m, const int32_t *p, const int32_t *p_inf, int32_t *a, int32_t *a_inf, int n,
+                           int lane) {
+  w_load_planes(m, LT_AFFINE_P, p, 6, n, lane);
+  LT_SYNCWARP();
+  const bool inf = p_inf[lane] != 0 || w_eq(m, LT_AFFINE_P + 4, -1, 2);
+  w_run(m, LT_AFFINE_PHASE, LT_AFFINE_PHASES, LT_AFFINE_INS);
+  if (inf) w_copy_cols(m, LT_AFFINE_A, m.cbase + LT_AFFINE_G2, 4);  // the generator
+  w_store_planes(m, LT_AFFINE_A, a, 4, n, lane);
+  if (LT_T0 == 0) a_inf[lane] = inf ? 1 : 0;
 }
 
 // a_inf, ok: [n]; prod, fa: [12, 12, n]
@@ -60,13 +52,14 @@ LT_DEV void final_one_warp(const wmem &m, const int32_t *a_inf, const int32_t *p
 
 #ifdef __CUDACC__
 
-#define LT_LANE_BLOCK 32
-
-__global__ void __launch_bounds__(LT_LANE_BLOCK)
+__global__ void __launch_bounds__(LT_WARP * LT_LPB)
     lt_affine_g2_kernel(const int32_t *__restrict__ p, const int32_t *__restrict__ p_inf,
                         int32_t *__restrict__ a, int32_t *__restrict__ a_inf, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) affine_g2_lane(p, p_inf, a, a_inf, n, lane);
+  extern __shared__ uint32_t lt_sm[];
+  const int warp = threadIdx.x / LT_WARP;
+  const wmem m = w_block(lt_sm, LT_AFFINE_SLOTS, LT_AFFINE_CONSTS, LT_AFFINE_CONST, warp);
+  const int lane = blockIdx.x * LT_LPB + warp;
+  if (lane < n) affine_g2_warp(m, p, p_inf, a, a_inf, n, lane);
 }
 
 __global__ void __launch_bounds__(LT_WARP * LT_LPB)
@@ -81,10 +74,12 @@ __global__ void __launch_bounds__(LT_WARP * LT_LPB)
 
 extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_inf, int n,
                             void *stream) {
-  if (n > 0)
-    lt_affine_g2_kernel<<<(n + LT_LANE_BLOCK - 1) / LT_LANE_BLOCK, LT_LANE_BLOCK, 0,
-                          (cudaStream_t)stream>>>((const int32_t *)p, (const int32_t *)p_inf,
-                                                  (int32_t *)a, (int32_t *)a_inf, n);
+  if (n > 0) {
+    const wlaunch l = w_launch("affine_g2", n, LT_AFFINE_SLOTS, LT_AFFINE_CONSTS, LT_AFFINE_PHASES, LT_AFFINE_ROUNDS);
+    cudaFuncSetAttribute(lt_affine_g2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    lt_affine_g2_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
+        (const int32_t *)p, (const int32_t *)p_inf, (int32_t *)a, (int32_t *)a_inf, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -106,9 +101,13 @@ extern "C" int lt_final_one(const void *a_inf, const void *prod, const void *fa,
 extern "C" int lt_affine_g2(const void *p, const void *p_inf, void *a, void *a_inf, int n,
                             void *stream) {
   (void)stream;
-  for (int lane = 0; lane < n; lane++)
-    affine_g2_lane((const int32_t *)p, (const int32_t *)p_inf, (int32_t *)a, (int32_t *)a_inf,
-                   n, lane);
+  const wlaunch l = w_launch("affine_g2", n, LT_AFFINE_SLOTS, LT_AFFINE_CONSTS, LT_AFFINE_PHASES, LT_AFFINE_ROUNDS);
+  uint32_t *sm = (uint32_t *)malloc(l.smem);
+  for (int lane = 0; lane < n; lane++) {
+    const wmem m = w_block(sm, LT_AFFINE_SLOTS, LT_AFFINE_CONSTS, LT_AFFINE_CONST, lane % LT_LPB);
+    affine_g2_warp(m, (const int32_t *)p, (const int32_t *)p_inf, (int32_t *)a, (int32_t *)a_inf, n, lane);
+  }
+  free(sm);
   return 0;
 }
 

@@ -1,5 +1,6 @@
-// The warp engine of the pairing kernels, r sig, r pk and the G2 decompression:
-// one warp per lane.
+// The warp engine of the pairing kernels, r sig, r pk, the G2 decompression
+// and the affine conversion (one warp per lane), and of the G2 lane sum (one
+// warp per addition).
 //
 // A lane's values are Fp "slots" in shared memory, stored limb-major: the
 // block's memory is [12][cols], slot s of warp w in column w * slots + s
@@ -16,7 +17,8 @@
 //
 // In the host build a warp is a loop over its 32 virtual threads, forwards
 // or reversed (common.cuh lt_host_warp_order), shared memory a plain array and
-// __syncwarp() nothing; lt_host_rounds() counts the rounds it ran.
+// __syncwarp() nothing; lt_host_rounds() counts the rounds it ran and
+// lt_host_gcd_steps() the outer steps of the inversion fp_inv_var.
 #pragma once
 
 #include <stddef.h>
@@ -53,6 +55,12 @@ extern "C" uint64_t lt_host_rounds(void) {
   lt_rounds = 0;
   return c;
 }
+static uint64_t lt_gcd_steps;  // fp_inv_var's outer steps
+extern "C" uint64_t lt_host_gcd_steps(void) {
+  const uint64_t c = lt_gcd_steps;
+  lt_gcd_steps = 0;
+  return c;
+}
 #endif
 
 // a warp's view of its block's shared memory
@@ -64,15 +72,17 @@ struct wmem {
   int cbase;  // the constants' first column
 };
 
-// The block's memory: 12 words per column.  Every thread loads its share
-// of the program's constants; the block meets once.
-LT_DEV wmem w_block(uint32_t *sm, int slots, int nconst, const uint32_t (*consts)[LT_NL], int warp) {
+// The block's memory: 12 words per column, the slots of its `warps` warps
+// and the constants.  Every thread loads its share of the program's
+// constants; the block meets once.
+LT_DEV wmem w_block(uint32_t *sm, int slots, int nconst, const uint32_t (*consts)[LT_NL], int warp,
+                    int warps = LT_LPB) {
   wmem m;
   m.sm = sm;
-  m.cols = LT_LPB * slots + nconst;
+  m.cols = warps * slots + nconst;
   m.base = warp * slots;
   m.slots = slots;
-  m.cbase = LT_LPB * slots;
+  m.cbase = warps * slots;
 #ifdef __CUDACC__
   for (int i = threadIdx.x; i < nconst * LT_NL; i += blockDim.x)
     sm[(i % LT_NL) * m.cols + m.cbase + i / LT_NL] = consts[i / LT_NL][i % LT_NL];
@@ -102,106 +112,182 @@ LT_DEV void w_put(const wmem &m, uint32_t idx, const fp &a) {
 }
 
 // ---------------------------------------------------------------------------
-// The one inversion of the final exponentiation: a binary extended Euclid
-// on the canonical integer (variable time: every value it sees derives
-// from public pubkeys, signatures and signing roots).  The Fermat chain
-// fp_inv is ~608 dependent products; this is ~380 subtractions, each
-// after a halving by the trailing zero bits, on one thread.  Returns the
-// plain inverse of a's integer (0 for 0); the program multiplies it by
-// R^3 to get a^-1 in Montgomery form.
+// The programs' one Fp inversion (LT_OP_INV: the final exponentiation's
+// and the affine conversion's), on one thread: Pornin's binary GCD
+// ("Optimized Binary GCD for Modular Inversion", 2020) on the canonical
+// integer, variable time (every value it sees derives from public pubkeys,
+// signatures and signing roots).  Each outer step runs LT_GCD_STEPS
+// binary-GCD steps on 62-bit approximations of a and b (their low 30 bits
+// and the top 32 bits of the longer one's length) in 64-bit words, and
+// gathers them into a 2x2 matrix of factors |f| + |g| <= 2^30; then it
+// applies the matrix to the 384-bit a and b (an exact division by 2^30)
+// and to u and v (mod p, the division by 2^30 a Montgomery reduction).
+// Invariant: a = u y, b = v y (mod p); it stops at a = 0 with b = 1.  At
+// most 26 outer steps (2 len(p) - 1 = 761 GCD steps), ~18.4 on random
+// values.  The Fermat chain fp_inv is ~608 dependent products.  Returns
+// the plain inverse of y's integer (0 for 0); the program multiplies it by
+// R^3 to get y^-1 in Montgomery form.
 // ---------------------------------------------------------------------------
 
-LT_DEV int w_ctz(uint32_t x) {
+#define LT_GCD_STEPS 30
+#define LT_GCD_MASK ((1u << LT_GCD_STEPS) - 1u)
+
+LT_DEV int w_clz(uint32_t x) {
 #ifdef __CUDACC__
-  return __ffs((int)x) - 1;
+  return __clz((int)x);
 #else
-  return __builtin_ctz(x);
+  return __builtin_clz(x);
 #endif
 }
 
-LT_DEV bool w_is_one(const uint32_t *u) {
-  uint32_t acc = u[0] ^ 1u;
-#pragma unroll
-  for (int i = 1; i < LT_NL; i++) acc |= u[i];
-  return acc == 0;
-}
-
-// u >>= k and x <- x / 2^k mod p, for 0 < k < 32: x + m p with m chosen so
-// that the low k bits vanish (m = x N0 mod 2^k) stays below 2^k p, so the
-// shifted sum is canonical
-LT_DEV void w_halve(uint32_t *u, uint32_t *x, int k) {
-#pragma unroll
-  for (int i = 0; i < LT_NL - 1; i++) u[i] = (u[i] >> k) | (u[i + 1] << (32 - k));
-  u[LT_NL - 1] >>= k;
-  const uint32_t m = (x[0] * LT_N0) & ((1u << k) - 1u);
-  uint32_t t[LT_NL + 1];
-  uint64_t c = 0;
+// t = (x f + y g) / 2^30 as 13 limbs in two's complement, for x, y < 2^384
+// and |f| + |g| <= 2^30, with `extra` times p added before the division
+// (the caller's Montgomery quotient; 0 for a and b, whose sum the GCD
+// steps made divisible by 2^30)
+LT_DEV void w_gcd_lin(uint32_t *t, const uint32_t *x, int32_t f, const uint32_t *y, int32_t g, uint32_t extra) {
+  uint32_t r[LT_NL + 1];
+  int64_t acc = 0;
 #pragma unroll
   for (int i = 0; i < LT_NL; i++) {
-    c += (uint64_t)x[i] + (uint64_t)m * LT_P[i];
-    t[i] = (uint32_t)c;
+    // x[i] f as an unsigned 32 x 32 product less x[i] 2^32 for f < 0:
+    // the true value is below 2^62 in magnitude
+    const uint64_t px = (uint64_t)x[i] * (uint32_t)f - (f < 0 ? (uint64_t)x[i] << 32 : 0ull);
+    const uint64_t py = (uint64_t)y[i] * (uint32_t)g - (g < 0 ? (uint64_t)y[i] << 32 : 0ull);
+    // |acc| < 2^63: x[i] f + y[i] g and extra p[i] below 2^62 each, the carry below 2^33
+    acc += (int64_t)(px + py) + (int64_t)((uint64_t)extra * LT_P[i]);
+    r[i] = (uint32_t)acc;
+    acc >>= 32;
+  }
+  r[LT_NL] = (uint32_t)acc;
+#pragma unroll
+  for (int i = 0; i < LT_NL; i++) t[i] = (r[i] >> LT_GCD_STEPS) | (r[i + 1] << (32 - LT_GCD_STEPS));
+  t[LT_NL] = (uint32_t)((int32_t)r[LT_NL] >> LT_GCD_STEPS);
+}
+
+// a 13-limb two's complement value -> its magnitude in 12 limbs; returns
+// whether it was negative
+LT_DEV bool w_gcd_abs(uint32_t *x, const uint32_t *t) {
+  const bool neg = (int32_t)t[LT_NL] < 0;
+  uint64_t c = neg ? 1u : 0u;
+#pragma unroll
+  for (int i = 0; i < LT_NL; i++) {
+    c += (uint64_t)(neg ? ~t[i] : t[i]);
+    x[i] = (uint32_t)c;
     c >>= 32;
   }
-  t[LT_NL] = (uint32_t)c;
-#pragma unroll
-  for (int i = 0; i < LT_NL; i++) x[i] = (t[i] >> k) | (t[i + 1] << (32 - k));
+  return neg;
 }
 
-// u -= v when u >= v (returns whether it did); x -= y mod p alongside
-LT_DEV bool w_sub_if_geq(uint32_t *u, const uint32_t *v, uint32_t *x, const uint32_t *y) {
-  uint32_t d[LT_NL];
-  uint64_t b = 0;
+// u <- (u f + v g) / 2^30 mod p, canonical, for canonical u and v
+LT_DEV void w_gcd_mod(uint32_t *out, const uint32_t *u, int32_t f, const uint32_t *v, int32_t g) {
+  // the quotient m makes the sum divisible by 2^30: m = -(u f + v g) / p mod 2^30
+  const uint32_t lo = u[0] * (uint32_t)f + v[0] * (uint32_t)g;
+  uint32_t t[LT_NL + 1];
+  w_gcd_lin(t, u, f, v, g, (lo * LT_N0) & LT_GCD_MASK);
+  // t in (-p, 2p): add p if negative, subtract it if >= p
+  const bool neg = (int32_t)t[LT_NL] < 0;
+  uint32_t d[LT_NL + 1];
+  int64_t c = 0;
 #pragma unroll
   for (int i = 0; i < LT_NL; i++) {
-    const uint64_t s = (uint64_t)u[i] - v[i] - b;
-    d[i] = (uint32_t)s;
-    b = (s >> 32) & 1u;
+    c += (int64_t)t[i] + (neg ? (int64_t)LT_P[i] : -(int64_t)LT_P[i]);
+    d[i] = (uint32_t)c;
+    c >>= 32;
   }
-  if (b) return false;
+  d[LT_NL] = (uint32_t)(c + (int64_t)(int32_t)t[LT_NL]);
+  const bool take = neg || (int32_t)d[LT_NL] >= 0;  // t + p, or t - p where it is not negative
 #pragma unroll
-  for (int i = 0; i < LT_NL; i++) u[i] = d[i];
-  b = 0;
+  for (int i = 0; i < LT_NL; i++) out[i] = take ? d[i] : t[i];
+}
+
+// bits [s, s + 32) of a 12-limb value, for 0 <= s <= 352 (limbs past the
+// top read as 0); the loop is unrolled, so the limbs stay in registers
+LT_DEV uint32_t w_gcd_window(const uint32_t *x, int s) {
+  const int q = s >> 5, k = s & 31;
+  uint32_t lo = 0, hi = 0;
 #pragma unroll
   for (int i = 0; i < LT_NL; i++) {
-    const uint64_t s = (uint64_t)x[i] - y[i] - b;
-    x[i] = (uint32_t)s;
-    b = (s >> 32) & 1u;
+    lo = i == q ? x[i] : lo;
+    hi = i == q + 1 ? x[i] : hi;
   }
-  if (b) {
-    uint64_t c = 0;
+  return k ? (lo >> k) | (hi << (32 - k)) : lo;
+}
+
+LT_DEV void fp_inv_var(fp &r, const fp &y) {
+  uint32_t a[LT_NL], b[LT_NL], u[LT_NL], v[LT_NL];
+#pragma unroll
+  for (int i = 0; i < LT_NL; i++) {
+    a[i] = y.w[i];
+    b[i] = LT_P[i];
+    u[i] = 0;
+    v[i] = 0;
+  }
+  u[0] = 1;
+  for (;;) {
+    uint32_t ao = 0;
+    int top = 0;  // the highest limb of a | b that is not 0 (b >= 1 throughout)
 #pragma unroll
     for (int i = 0; i < LT_NL; i++) {
-      c += (uint64_t)x[i] + LT_P[i];
-      x[i] = (uint32_t)c;
-      c >>= 32;
+      ao |= a[i];
+      top = (a[i] | b[i]) ? i : top;
+    }
+    if (ao == 0) break;
+    const uint32_t tw = a[top] | b[top];
+    int n = 32 * top + 32 - w_clz(tw);
+    n = n < 2 * LT_GCD_STEPS + 2 ? 2 * LT_GCD_STEPS + 2 : n;
+    uint64_t xa = (uint64_t)w_gcd_window(a, n - 32) << LT_GCD_STEPS | (a[0] & LT_GCD_MASK);
+    uint64_t xb = (uint64_t)w_gcd_window(b, n - 32) << LT_GCD_STEPS | (b[0] & LT_GCD_MASK);
+    // one step: xa odd -> (swap where xa < xb,) xa -= xb; then xa halved.
+    // (Skipping a run of even xa by its trailing zeros measured slower on
+    // the H100: the branch costs more than the steps it saves.)
+    int32_t f0 = 1, g0 = 0, f1 = 0, g1 = 1;
+    for (int j = 0; j < LT_GCD_STEPS; j++) {
+      if (xa & 1u) {
+        if (xa < xb) {
+          const uint64_t x = xa;
+          xa = xb;
+          xb = x;
+          int32_t z = f0;
+          f0 = f1;
+          f1 = z;
+          z = g0;
+          g0 = g1;
+          g1 = z;
+        }
+        xa -= xb;
+        f0 -= f1;
+        g0 -= g1;
+      }
+      xa >>= 1;
+      f1 += f1;  // |f1|, |g1| <= 2^j stay within 2^30
+      g1 += g1;
+    }
+    uint32_t t[LT_NL + 1], na[LT_NL];
+    w_gcd_lin(t, a, f0, b, g0, 0);
+    if (w_gcd_abs(na, t)) {
+      f0 = -f0;
+      g0 = -g0;
+    }
+    w_gcd_lin(t, a, f1, b, g1, 0);
+    if (w_gcd_abs(b, t)) {
+      f1 = -f1;
+      g1 = -g1;
+    }
+#ifndef __CUDACC__
+    lt_gcd_steps++;
+#endif
+    uint32_t nu[LT_NL];
+    w_gcd_mod(nu, u, f0, v, g0);
+    w_gcd_mod(v, u, f1, v, g1);
+#pragma unroll
+    for (int i = 0; i < LT_NL; i++) {
+      a[i] = na[i];
+      u[i] = nu[i];
     }
   }
-  return true;
-}
-
-LT_DEV void fp_inv_euclid(fp &r, const fp &a) {
-  uint32_t u[LT_NL], v[LT_NL], x1[LT_NL], x2[LT_NL];
+  // a = 0 and b = gcd = 1, or y = 0 (then v = 0)
 #pragma unroll
-  for (int i = 0; i < LT_NL; i++) {
-    u[i] = a.w[i];
-    v[i] = LT_P[i];
-    x1[i] = 0;
-    x2[i] = 0;
-  }
-  x1[0] = 1;
-  if (fp_is_zero(a)) {
-    fp_zero(r);
-    return;
-  }
-  // invariant: x1 a = u, x2 a = v (mod p); u, v odd after the halvings
-  while (!w_is_one(u) && !w_is_one(v)) {
-    while ((u[0] & 1u) == 0) w_halve(u, x1, u[0] ? w_ctz(u[0]) : 31);
-    while ((v[0] & 1u) == 0) w_halve(v, x2, v[0] ? w_ctz(v[0]) : 31);
-    if (!w_sub_if_geq(u, v, x1, x2)) w_sub_if_geq(v, u, x2, x1);
-  }
-  const bool uo = w_is_one(u);
-#pragma unroll
-  for (int i = 0; i < LT_NL; i++) r.w[i] = uo ? x1[i] : x2[i];
+  for (int i = 0; i < LT_NL; i++) r.w[i] = v[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -210,22 +296,28 @@ LT_DEV void fp_inv_euclid(fp &r, const fp &a) {
 
 #define LT_NOP 0xffffffffu  // an empty place in a phase's rows
 
-// one instruction word: kind << 30 | dst << 20 | a << 10 | b
+// one instruction word: kind << 30 | dst << 20 | a << 10 | b.  The
+// inversion is compiled only where a wanted program has one
+// (warp_prog.cuh defines LT_WANT_INV): it would take registers from the
+// interpreter of every other program.
 LT_DEV void w_exec(const wmem &m, uint32_t word) {
   const uint32_t kind = word >> 30;
   fp x, y, r;
   w_get(x, m, (word >> 10) & 1023u);
+#ifdef LT_WANT_INV
   if (kind == LT_OP_INV) {
-    fp_inv_euclid(r, x);
-  } else {
-    w_get(y, m, word & 1023u);
-    if (kind == LT_OP_MUL)
-      fp_mont_mul(r, x, y);
-    else if (kind == LT_OP_ADD)
-      fp_add(r, x, y);
-    else
-      fp_sub(r, x, y);
+    fp_inv_var(r, x);
+    w_put(m, (word >> 20) & 1023u, r);
+    return;
   }
+#endif
+  w_get(y, m, word & 1023u);
+  if (kind == LT_OP_MUL)
+    fp_mont_mul(r, x, y);
+  else if (kind == LT_OP_ADD)
+    fp_add(r, x, y);
+  else
+    fp_sub(r, x, y);
   w_put(m, (word >> 20) & 1023u, r);
 }
 
@@ -286,15 +378,19 @@ LT_DEV void w_store_planes(const wmem &m, int slot, int32_t *planes, int count, 
     planes[(size_t)i * n + lane] = (int32_t)m.sm[(i % LT_NL) * m.cols + m.base + slot + i / LT_NL];
 }
 
-// Copy `count` consecutive slots from `src` to `dst` (ranges apart), the
-// warp's threads sharing the words; the warp meets after it.
-LT_DEV void w_copy(const wmem &m, int dst, int src, int count) {
+// Copy `count` consecutive columns of the block from column `col` (another
+// warp's slots, the constants) to the warp's slots from `dst` (ranges
+// apart), the warp's threads sharing the words; the warp meets after it.
+LT_DEV void w_copy_cols(const wmem &m, int dst, int col, int count) {
   for (int i = LT_T0; i < count * LT_NL; i += LT_TSTEP) {
-    uint32_t *row = m.sm + (i % LT_NL) * m.cols + m.base;
-    row[dst + i / LT_NL] = row[src + i / LT_NL];
+    uint32_t *row = m.sm + (i % LT_NL) * m.cols;
+    row[m.base + dst + i / LT_NL] = row[col + i / LT_NL];
   }
   LT_SYNCWARP();
 }
+
+// the same from the warp's own slots from `src`
+LT_DEV void w_copy(const wmem &m, int dst, int src, int count) { w_copy_cols(m, dst, m.base + src, count); }
 
 // Zero `count` consecutive slots from `dst`; the warp meets after it.
 LT_DEV void w_zero(const wmem &m, int dst, int count) {
@@ -334,9 +430,10 @@ LT_DEV void w_segment(const wmem &m, const wprog &p, int k) {
   w_run(m, p.phase + a, (int)(b - a), p.ins);
 }
 
-// The block's dynamic shared memory for a program of `slots` and `nconst`.
-static inline size_t w_smem_bytes(int slots, int nconst) {
-  return (size_t)LT_NL * (LT_LPB * slots + nconst) * sizeof(uint32_t);
+// The block's dynamic shared memory for `warps` warps of a program of
+// `slots` and `nconst`.
+static inline size_t w_smem_bytes(int slots, int nconst, int warps = LT_LPB) {
+  return (size_t)LT_NL * (warps * slots + nconst) * sizeof(uint32_t);
 }
 
 // Launch shape of a warp-per-lane kernel over n lanes: LT_LPB lanes (one
@@ -352,20 +449,26 @@ struct wlaunch {
 static const char *lt_launch_name[LT_LAUNCH_KERNELS];
 static int lt_launch_shape[LT_LAUNCH_KERNELS][8];
 
-static inline wlaunch w_launch(const char *name, int n, int slots, int nconst, int phases, int rounds) {
-  const wlaunch l = {(n + LT_LPB - 1) / LT_LPB, LT_WARP * LT_LPB, w_smem_bytes(slots, nconst)};
-  const int shape[8] = {n, l.blocks, l.threads, LT_LPB, (int)l.smem, slots, phases, rounds};
+static inline void w_record(const char *name, const int shape[8]) {
   int k = 0;
   while (k < LT_LAUNCH_KERNELS - 1 && lt_launch_name[k] && strcmp(lt_launch_name[k], name)) k++;
   lt_launch_name[k] = name;
   for (int i = 0; i < 8; i++) lt_launch_shape[k][i] = shape[i];
+}
+
+static inline wlaunch w_launch(const char *name, int n, int slots, int nconst, int phases, int rounds) {
+  const wlaunch l = {(n + LT_LPB - 1) / LT_LPB, LT_WARP * LT_LPB, w_smem_bytes(slots, nconst)};
+  const int shape[8] = {n, l.blocks, l.threads, LT_LPB, (int)l.smem, slots, phases, rounds};
+  w_record(name, shape);
   return l;
 }
 
 // out[8]: lanes, blocks, threads per block, lanes per block, dynamic shared
 // bytes per block, slots per lane, phases and rounds per lane of the last
 // launch of the library's warp kernel `name` (kernels/verify.py's name:
-// "miller_loop", "g1_rpk", ...); returns 1 and zeros if it has none
+// "miller_loop", "g1_rpk", ...; for "sum_g2" the first launch of the last
+// call, with its inputs per block and the phases and rounds of one
+// addition); returns 1 and zeros if it has none
 extern "C" int lt_warp_last_launch(const char *name, int *out) {
   for (int k = 0; k < LT_LAUNCH_KERNELS; k++)
     if (lt_launch_name[k] && !strcmp(lt_launch_name[k], name)) {

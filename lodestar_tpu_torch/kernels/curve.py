@@ -8,8 +8,8 @@ point at infinity travels as an explicit boolean lane mask beside the
 point (`curve.py:102` and `:461` of the JAX package), so the hot loops
 carry no exact zero tests.  The formulas are the JAX package's, so the
 Jacobian coordinates (not only the points) agree; the lane sum keeps
-the port's own order of additions (`sum_points_lanes`), so there only
-the points agree.
+the port's own order of additions (`sum_points_lanes`, a pairwise tree),
+so there only the points agree.
 """
 
 from __future__ import annotations
@@ -246,38 +246,28 @@ def sum_points_axis0(fo: FieldOps, pts, inf):
     return tuple(c[0] for c in pts), inf[0]
 
 
-def sum_points_lanes(fo: FieldOps, pts, inf, width: int = 128):
+def sum_points_lanes(fo: FieldOps, pts, inf):
     """(sum of the lanes not flagged infinity, its inf flag) -> [..., 1].
 
-    The port's order of additions (csrc/reduce.cu): `width` slots, slot j
-    folding lanes j, j + width, ... in sequence, then slots j and j + s
-    combined for s = width / 2, .., 1.  Slots beyond N start as infinity
-    with zero coordinates.  Jacobian coordinates depend on the order, so
-    this is the order the kernel keeps; the point equals any order's."""
+    The port's order of additions (csrc/reduce.cu): a pairwise tree over
+    the lane index, level 1 adding lanes 2i and 2i + 1 by `jac_add_full`,
+    each later level the previous level's results in the same way, an odd
+    last element passing up unchanged.  A flagged lane keeps its
+    coordinates; no lanes give the zero point flagged infinity.  Jacobian
+    coordinates depend on the order, so this is the order the kernel
+    keeps; the point equals any order's."""
     n = inf.shape[-1]
-    tiles = max(1, -(-n // width))
-    pad = tiles * width - n
-    real = torch.arange(tiles * width, device=inf.device) < n
-    pts = tuple(torch.nn.functional.pad(c, (0, pad)) for c in pts)
-    inf = torch.cat([inf, torch.ones(pad, dtype=torch.bool, device=inf.device)])
-
-    def tile(x, t):
-        return x[..., t * width : (t + 1) * width]
-
-    acc, acc_inf = tuple(tile(c, 0) for c in pts), tile(inf, 0)
-    for t in range(1, tiles):
-        s, s_inf = jac_add_full(fo, acc, acc_inf, tuple(tile(c, t) for c in pts), tile(inf, t))
-        keep = tile(real, t)
-        acc, acc_inf = select_pt(keep, s, acc), torch.where(keep, s_inf, acc_inf)
-    s = width // 2
-    while s >= 1:
-        lo = tuple(c[..., :s] for c in acc)
-        hi = tuple(c[..., s : 2 * s] for c in acc)
-        r, r_inf = jac_add_full(fo, lo, acc_inf[..., :s], hi, acc_inf[..., s : 2 * s])
-        acc = tuple(torch.cat([a, c[..., s:]], -1) for a, c in zip(r, acc))
-        acc_inf = torch.cat([r_inf, acc_inf[..., s:]], -1)
-        s //= 2
-    return tuple(c[..., :1] for c in acc), acc_inf[..., :1]
+    if n == 0:
+        return tuple(torch.zeros(c.shape[:-1] + (1,), dtype=c.dtype, device=c.device) for c in pts), \
+            torch.ones(1, dtype=torch.bool, device=inf.device)
+    while n > 1:
+        h = n // 2
+        s, s_inf = jac_add_full(fo, tuple(c[..., 0:2 * h:2] for c in pts), inf[..., 0:2 * h:2],
+                                tuple(c[..., 1:2 * h:2] for c in pts), inf[..., 1:2 * h:2])
+        pts = tuple(torch.cat([a, c[..., 2 * h:]], -1) for a, c in zip(s, pts))
+        inf = torch.cat([s_inf, inf[..., 2 * h:]], -1)
+        n = h + n % 2
+    return pts, inf
 
 
 # ---------------------------------------------------------------------------

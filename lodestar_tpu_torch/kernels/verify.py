@@ -63,7 +63,9 @@ kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
 for CPU tensors; any other device raises.  There is no fallback from one
 to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches
 (`mont_convert` on 4 planes under its own name, `mont_convert_4`; the
-segmented sums launch once per round of their scan, `seg_rounds(N)`).
+segmented sums launch once per round of their scan, `seg_rounds(N)`, and
+`sum_g2` once per reduction of its elements by 32, as its entry point
+reports).
 
 Planes are int32 ``[..., 12, N]`` (`kernels/layout.py`), the batch on the
 last axis; an Fp2 value is ``[2, 12, N]``, an affine G2 point
@@ -77,6 +79,7 @@ with ``kmask [N, K]`` (1 where the row is one of the set's keys).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
@@ -96,7 +99,7 @@ ND = LY.ND
 RAND_BITS = 128  # RLC randomizer width (bls/rand.py)
 RAND_WORDS = RAND_BITS // 32
 WINDOW = 4  # scalar-multiplication window; divides 32
-BT = 128  # slots of the lane reductions (csrc/reduce.cu), the JAX lane tile
+BT = 128  # slots of prod12 (csrc/reduce.cu), the JAX lane tile
 AGG_CHUNK = 32  # rows of one tree of the pubkey aggregation (csrc/aggpk.cu)
 AGG_BATCH = 16  # chunks whose trees one agg_pk block runs at once
 AGG_THREADS = 256  # most threads of an agg_pk block
@@ -123,7 +126,7 @@ LAUNCHES: Dict[str, int] = {
 
 # Fp multiplications per lane of each kernel (per element for
 # mont_convert; per combine for the reductions sum_g2 and prod12, which
-# make max(N, 128) - 1 of them; per addition for agg_pk, which needs
+# make N - 1 and max(N, 128) - 1 of them; per addition for agg_pk, which needs
 # one per live row after a lane's first, and for the segmented sums,
 # which make one per lane and round and need one per live lane after its
 # group's first), from the structure of csrc/*.cuh;
@@ -141,7 +144,7 @@ FP_MULS_PER_LANE = {
     "g2_rsig_sub": 5045,
     "sum_g2": 60,
     "prod12": 54,
-    "affine_g2": 623,
+    "affine_g2": 16,
     "final_one": 7730,
     "g2_decompress": 1864,
     "hash_g2": 41987,
@@ -152,11 +155,12 @@ FP_MULS_PER_LANE = {
 }
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 # Rounds per lane of the warp-per-lane kernels (csrc/warp12.cuh): phases
-# of up to 32 independent Fp products, one per thread, and the final
-# exponentiation's one inversion (kernels/warp_schedule.py; the host
-# build counts them, tests/test_torch_warp_{pairing,rsig,rpk,decompress}.py)
+# of up to 32 independent Fp products, one per thread, and the programs'
+# one inversion (the final exponentiation's and affine_g2's); sum_g2's per
+# addition (kernels/warp_schedule.py; the host build counts them,
+# tests/test_torch_warp_{pairing,rsig,rpk,decompress,sum}.py)
 ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533, "g1_rpk": 533,
-                   "g2_decompress": 899}
+                   "g2_decompress": 899, "sum_g2": 5, "affine_g2": 7}
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
@@ -172,7 +176,10 @@ R_DOUBLINGS, R_ADDITIONS = 254, 133
 # The Fp products the function needs where the kernel makes more; the
 # bound counts these.  A sum of distinct points never takes the doubling
 # jac_add_full makes, and a sum whose addend is affine (KeyValidate's P,
-# agg_pk's table rows) needs only the mixed addition.
+# agg_pk's table rows) needs only the mixed addition.  affine_g2 needs all
+# of its 16 products and, beside them, its one Fp inversion, which both
+# counts leave out: the bound adds the binary GCD's multiplies on the
+# call's data (GCD_IMAD_PER_STEP, affine_g2_gcd_steps).
 FP_MULS_NEEDED = dict(
     FP_MULS_PER_LANE,
     g1_keyvalidate=FP_MULS_PER_LANE["g1_keyvalidate"] - R_ADDITIONS * (ADD_MULS + DBL_MULS - MADD_MULS),
@@ -181,6 +188,45 @@ FP_MULS_NEEDED = dict(
     seg_sum_g1=ADD_MULS,
     seg_sum_g2=ADD2_MULS,
 )
+
+# The programs' Fp inversion, csrc/warp12.cuh fp_inv_var: outer steps of
+# GCD_STEPS binary-GCD steps on 62-bit approximations of a and b (no
+# multiply), each then applied by two w_gcd_lin (a, b: 24 products of 32 x
+# 32 bits) and two w_gcd_mod (u, v: 36 such products and 3 low ones).  A
+# 64-bit product counts two IMAD and a low one one, as in IMAD_PER_FP_MUL
+# (whose count leaves out the additions too).  The steps depend on the
+# value: gcd_steps counts them as fp_inv_var runs them.
+GCD_STEPS = 30
+GCD_IMAD_PER_STEP = 2 * (24 * 2) + 2 * (36 * 2 + 3)
+
+
+def gcd_steps(x: int) -> int:
+    """Outer steps of fp_inv_var on the integer 0 <= x < p (0 takes none)."""
+    a, b, steps = x, LY.P, 0
+    mask = (1 << GCD_STEPS) - 1
+    while a:
+        s = max((a | b).bit_length(), 2 * GCD_STEPS + 2) - 32
+        xa = ((a >> s) & 0xFFFFFFFF) << GCD_STEPS | (a & mask)
+        xb = ((b >> s) & 0xFFFFFFFF) << GCD_STEPS | (b & mask)
+        f0, g0, f1, g1 = 1, 0, 0, 1
+        for _ in range(GCD_STEPS):
+            if xa & 1:
+                if xa < xb:
+                    xa, xb, f0, f1, g0, g1 = xb, xa, f1, f0, g1, g0
+                xa, f0, g0 = xa - xb, f0 - f1, g0 - g1
+            xa, f1, g1 = xa >> 1, 2 * f1, 2 * g1
+        a, b = abs((a * f0 + b * g0) >> GCD_STEPS), abs((a * f1 + b * g1) >> GCD_STEPS)
+        steps += 1
+    return steps
+
+
+def affine_g2_gcd_steps(p: torch.Tensor) -> int:
+    """Outer steps of affine_g2's inversions on Jacobian G2 planes
+    [3, 2, 12, N]: each lane inverts the norm of its Z, Z0^2 + Z1^2 in
+    Montgomery form, flagged lanes too."""
+    z = p[2].cpu().to(torch.int64) & 0xFFFFFFFF
+    zm = [[sum(int(z[c, i, j]) << (32 * i) for i in range(NL)) for j in range(p.shape[-1])] for c in range(2)]
+    return sum(gcd_steps((z0 * z0 + z1 * z1) * LY.R_INV % LY.P) for z0, z1 in zip(*zm))
 
 
 def reset_launches() -> None:
@@ -217,14 +263,15 @@ def _shape(t: torch.Tensor, shape, what: str) -> None:
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, source: str, symbol: str, *args, launches: int = 1) -> None:
+def _launch(name: str, source: str, symbol: str, *args, launches=1) -> None:
     """Call a kernel's C entry point on the current stream; `launches` is
     the number of kernel launches it makes (the segmented sums launch once
-    per round)."""
+    per round), or a ctypes int that the entry point sets to it (sum_g2
+    relaunches on its partials until one is left)."""
     fn = getattr(B.load(source), symbol)
     stream = torch.cuda.current_stream().cuda_stream
-    LAUNCHES[name] += launches
     err = fn(*args, stream)
+    LAUNCHES[name] += launches if isinstance(launches, int) else launches.value
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
 
@@ -423,26 +470,34 @@ def g2_rsig_sub(q: torch.Tensor, q_inf: torch.Tensor, rwords: torch.Tensor):
 
 def sum_g2_plain(pts, excl):
     d = LY.planes_to_digits(pts)
-    s, s_inf = CV.sum_points_lanes(CV.FP2_OPS, (d[0], d[1], d[2]), excl[0] != 0, BT)
+    s, s_inf = CV.sum_points_lanes(CV.FP2_OPS, (d[0], d[1], d[2]), excl[0] != 0)
     return LY.digits_to_planes(torch.stack(s)), s_inf.to(torch.int32)[None, :]
 
 
 def sum_g2(pts: torch.Tensor, excl: torch.Tensor):
     """Jacobian G2 [3, 2, 12, N], exclusion flags [1, N] -> (the sum of
     the lanes not excluded as Jacobian [3, 2, 12, 1], its infinity flag
-    [1, 1]), in the order of `curve.sum_points_lanes`."""
+    [1, 1]), in the order of `curve.sum_points_lanes` (a pairwise tree
+    over the lanes).  N = 0 gives the zero point flagged infinity."""
     n = pts.shape[-1]
     _shape(pts, (3, 2, NL, n), "sum_g2 pts")
     _shape(excl, (1, n), "sum_g2 excl")
     if _on_cpu(pts, excl):
         return sum_g2_plain(pts, excl)
-    scr = torch.empty((3, 2, NL, BT), dtype=torch.int32, device=pts.device)
-    scr_inf = torch.empty((1, BT), dtype=torch.int32, device=pts.device)
+    out = torch.zeros((3, 2, NL, 1), dtype=torch.int32, device=pts.device)
+    out_inf = torch.ones((1, 1), dtype=torch.int32, device=pts.device)
+    if n == 0:
+        return out, out_inf
+    lanes = B.load("reduce").lt_sum_g2_scratch_lanes(n)
+    scr = torch.empty((3 * 2 * NL * lanes,), dtype=torch.int32, device=pts.device)
+    scr_inf = torch.empty((lanes,), dtype=torch.int32, device=pts.device)
+    made = ctypes.c_int(0)
     _launch(
         "sum_g2", "reduce", "lt_sum_g2",
-        pts.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n,
+        pts.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), out.data_ptr(), out_inf.data_ptr(), n,
+        ctypes.addressof(made), launches=made,
     )
-    return scr[..., :1].contiguous(), scr_inf[:, :1].contiguous()
+    return out, out_inf
 
 
 def prod12_plain(live, f):

@@ -48,6 +48,7 @@ from __future__ import annotations
 import heapq
 from typing import Dict, List, Sequence, Tuple
 
+from ..crypto import curves as GC
 from ..crypto import fields as GT
 
 P = GT.P
@@ -413,7 +414,7 @@ def jac_dbl(f, p):  # curve.py jac_dbl
     return (X3, Y3, f.dbl(f.mul(Y, Z)))
 
 
-def jac_add(f, p, q):  # curve.py jac_add_mixed_or_full: no dispatch
+def jac_add_hr(f, p, q):  # curve.py _add_core: P + Q and the H and R that jac_add_full dispatches on
     (X1, Y1, Z1), (X2, Y2, Z2) = p, q
     Z1Z1, Z2Z2 = f.sqr(Z1), f.sqr(Z2)
     U1, U2 = f.mul(X1, Z2Z2), f.mul(X2, Z1Z1)
@@ -424,7 +425,11 @@ def jac_add(f, p, q):  # curve.py jac_add_mixed_or_full: no dispatch
     HHH, V = f.mul(H, HH), f.mul(U1, HH)
     X3 = f.sub(f.sub(f.sqr(R), HHH), f.dbl(V))
     Y3 = f.sub(f.mul(R, f.sub(V, X3)), f.mul(S1, HHH))
-    return (X3, Y3, f.mul(f.mul(Z1, Z2), H))
+    return (X3, Y3, f.mul(f.mul(Z1, Z2), H)), H, R
+
+
+def jac_add(f, p, q):  # curve.py jac_add_mixed_or_full: no dispatch
+    return jac_add_hr(f, p, q)[0]
 
 
 def jac_add_mixed(f, p, q):  # curve.py jac_add_mixed, q affine
@@ -1205,8 +1210,62 @@ def decompress_program() -> Program:
     return sg.program("DECOMP", ["a", "b", "c", "d"], {r: r for r in DECOMP_LAYOUT})
 
 
+# the lane sum's registers: the addition's operands P and Q, P + Q, 2P, the
+# H and R that the selects read, and the warp's tree element, two sets
+# alternating by level
+SUMG2_LAYOUT = {"P": (0, 6), "Q": (6, 6), "S": (12, 6), "DBL": (18, 6), "H": (24, 2), "R": (26, 2),
+                "RES0": (28, 6), "RES1": (34, 6)}
+
+
+def sumg2_program() -> Program:
+    """One complete G2 addition of the lane sum's tree (csrc/reduce.cu):
+    P + Q by the generic Jacobian addition (curve.py _add_core over Fp2),
+    2P beside it in the same rounds, and the H and R of the addition.  The
+    kernel's driver makes jac_add_full's selects from them: 2P where
+    H = R = 0, P or Q where the other is infinity, and the infinity flag;
+    it moves tree elements between the warps' RES registers."""
+    sg = _Segments(_consts(False), SUMG2_LAYOUT)
+
+    def add(tw, r):
+        f = tw.fp2
+        p, q = _pairs(r["P"]), _pairs(r["Q"])
+        s, h, rr = jac_add_hr(f, p, q)
+        return {"S": _flat(s), "DBL": _flat(jac_dbl(f, p)), "H": list(h), "R": list(rr)}
+
+    sg.add("add", add, ("P", "Q"), ("S", "DBL", "H", "R"))
+    return sg.program("SUMG2", ["add"], {r: r for r in SUMG2_LAYOUT})
+
+
+# the affine conversion's registers: the Jacobian point (X, Y, Z) and the
+# affine (x, y)
+AFFINE_LAYOUT = {"P": (0, 6), "A": (6, 4)}
+
+
+def affine_program() -> Program:
+    """(x, y) = (X / Z^2, Y / Z^3) for a Jacobian G2 point
+    (lodestar_tpu/kernels/verify.py _k_affine_g2): Z inverted through its
+    norm (`Tower.inv2`: one Fp inversion, the variable-time binary GCD of
+    csrc/warp12.cuh), then three Fp2 products and a square.  Z = 0 gives
+    (0, 0); csrc/tail.cu's driver puts the generator (constants G2, in the
+    order x0, x1, y0, y1) in place of an infinity lane's result."""
+    gx, gy = GC.G2_GEN
+    consts = dict(_consts(False), r3=mont(R * R % P))
+    consts.update({"g2.0": mont(gx[0]), "g2.1": mont(gx[1]), "g2.2": mont(gy[0]), "g2.3": mont(gy[1])})
+    sg = _Segments(consts, AFFINE_LAYOUT)
+
+    def body(tw, r):
+        X, Y, Z = _pairs(r["P"])
+        zi = tw.inv2(Z)
+        zi2 = tw.sqr2(zi)
+        return {"A": _flat((tw.mul2(X, zi2), tw.mul2(Y, tw.mul2(zi2, zi))))}
+
+    sg.add("affine", body, ("P",), ("A",))
+    return sg.program("AFFINE", ["affine"], {"P": "P", "A": "A", "G2": list(consts).index("g2.0")})
+
+
 def programs() -> List[Program]:
-    return [miller_program(), final_program(), rsig_program(), rpk_program(), decompress_program()]
+    return [miller_program(), final_program(), rsig_program(), rpk_program(), decompress_program(), sumg2_program(),
+            affine_program()]
 
 
 # ---------------------------------------------------------------------------
@@ -1252,8 +1311,9 @@ def _words(ws, per_line=8) -> str:
 def cuda_programs() -> str:
     """Text of warp_prog.cuh (`kernels/build.py` writes it beside the
     build).  A kernel source defines LT_WANT_<name> (MILLER, FINAL, RSIG,
-    RPK, DECOMP) before including it and compiles those programs' tables
-    only."""
+    RPK, DECOMP, SUMG2, AFFINE) before including it and compiles those
+    programs' tables only; a wanted program with an inversion defines
+    LT_WANT_INV."""
     lines = [
         "// Written at build time by kernels/build.py from",
         "// kernels/warp_schedule.py cuda_programs().",
@@ -1272,6 +1332,8 @@ def cuda_programs() -> str:
             f"#define LT_{n}_ROUNDS {prog.rounds}",
         ]
         lines += [f"#define LT_{n}_{k} {v}" for k, v in prog.io.items()]
+        if any(op[0] == INV for i in prog.order for ph in prog.segs[i].phases for q in ph for op in q):
+            lines.append("#define LT_WANT_INV  // csrc/warp12.cuh compiles the inversion")
         body = ", ".join("{" + ", ".join(f"0x{(c >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(12)) + "}"
                          for c in prog.consts)
         lines += [

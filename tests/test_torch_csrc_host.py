@@ -11,6 +11,7 @@ against the plain versions on the card by chip_smoke.py and
 tests/test_torch_cuda.py.
 """
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -169,20 +170,34 @@ def test_randmul_host_build_equals_plain(libs):
 
 @pytest.mark.parametrize("n", [5, 300])
 def test_reduce_host_build_equals_plain(libs, n):
-    """The one-block lane reductions: fewer lanes than slots, and lanes
-    folded past one tile; P + (-P) and P + P meet in the fold."""
+    """The lane reductions: the sum's tree within one block's span and over
+    launches on the partials; P + P (other Z) and P + (-P) meet at its
+    first level (both lanes live), the latter adding nothing to the sum.
+    The product: fewer lanes than slots, and lanes folded past one tile."""
     base = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(3)]
     pts = [base[i % 3] for i in range(n)]
+    pts[3] = pts[2]  # lanes 2 and 3: a doubling
     if n > 128:
-        pts[128] = GC.affine_neg(GC.FP2_OPS, pts[0])  # slot 0: P then -P
+        pts[131] = GC.affine_neg(GC.FP2_OPS, pts[130])  # lanes 130 and 131: infinity
     pts_p = g2_jac_planes(pts, [rand_fp2() for _ in range(n)])
     excl = torch.tensor([[int(i % 4 == 1) for i in range(n)]], dtype=torch.int32)
     lib = libs["reduce"]
-    scr, scr_inf = i32(3, 2, LY.NL, KV.BT), i32(1, KV.BT)
-    assert lib.lt_sum_g2(pts_p.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
-    assert lib.lt_host_fp_muls() == (max(n, KV.BT) - 1) * KV.FP_MULS_PER_LANE["sum_g2"]
+    lanes = lib.lt_sum_g2_scratch_lanes(n)
+    scr, scr_inf, out, out_inf = i32(3 * 2 * LY.NL * lanes), i32(lanes), i32(3, 2, LY.NL, 1), i32(1, 1)
+    made = ctypes.c_int(0)
+    assert lib.lt_sum_g2(pts_p.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), out.data_ptr(),
+                         out_inf.data_ptr(), n, ctypes.addressof(made), None) == 0
+    assert made.value == (1 if n <= 32 else 2)
+    assert lib.lt_host_fp_muls() == (n - 1) * KV.FP_MULS_PER_LANE["sum_g2"]
     s, s_inf = KV.sum_g2_plain(pts_p, excl)
-    assert torch.equal(scr[..., :1], s) and torch.equal(scr_inf[:, :1], s_inf)
+    assert torch.equal(out, s) and torch.equal(out_inf, s_inf)
+    if n > 128:
+        pair = pts_p[..., 130:132].contiguous()
+        assert KV.sum_g2_plain(pair, torch.zeros((1, 2), dtype=torch.int32))[1].tolist() == [[1]]
+        without = excl.clone()
+        without[0, 130:132] = 1
+        aff = KV.affine_g2_plain(s, s_inf)
+        assert all(torch.equal(a, b) for a, b in zip(aff, KV.affine_g2_plain(*KV.sum_g2_plain(pts_p, without))))
     f = torch.from_numpy(np.stack([LY.encode_batch([int.from_bytes(RNG.bytes(48), "little") % P for _ in range(n)])
                                    for _ in range(12)])).contiguous()
     live = 1 - excl
@@ -200,8 +215,10 @@ def test_tail_host_build_equals_plain(libs):
     p = g2_jac_planes(pts, [rand_fp2(), rand_fp2(), (0, 0)])
     p_inf = torch.tensor([[0, 1, 0]], dtype=torch.int32)
     a, a_inf = i32(2, 2, LY.NL, 3), i32(1, 3)
+    lib.lt_host_gcd_steps()  # the counter is the library's: drain another test's
     assert lib.lt_affine_g2(p.data_ptr(), p_inf.data_ptr(), a.data_ptr(), a_inf.data_ptr(), 3, None) == 0
     assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["affine_g2"]
+    assert lib.lt_host_gcd_steps() == KV.affine_g2_gcd_steps(p)  # the Z = 0 lane takes none
     want = KV.affine_g2_plain(p, p_inf)
     assert torch.equal(a, want[0]) and torch.equal(a_inf, want[1])
     assert a_inf.tolist() == [[0, 1, 1]]
@@ -338,7 +355,7 @@ def test_needed_products_decompose_the_host_counts():
     # a Frobenius p^2, two Fp12 products), five powers by |x| (63 cyclotomic
     # squarings and 5 Fp12 products each) and the glue (7 Fp12 products, 2
     # Frobenius maps, 1 cyclotomic squaring).  The Fp12 inversion's one Fp
-    # inversion makes one product (the Euclid's result times R^3), where
+    # inversion makes one product (the binary GCD's result times R^3), where
     # the Fermat chain made 380 squarings and 228 products.
     x = -GT.X_PARAM
     mul12, cyclo, frob, fp6_mul, fp6_sqr = 54, 18, 18, 18, 12
@@ -347,6 +364,11 @@ def test_needed_products_decompose_the_host_counts():
     powers = 5 * ((x.bit_length() - 1) * cyclo + (bin(x).count("1") - 1) * mul12)
     final = (3 + 7) * mul12 + inv12 + 3 * frob + cyclo + powers
     assert KV.FP_MULS_PER_LANE["each_final"] == KV.FP_MULS_PER_LANE["final_one"] == final
+    # affine_g2: the norm (2), the inverse times R^3 (1), Z0 / n and Z1 / n
+    # (2), 1 / Z^2 (an Fp2 square), 1 / Z^3, x and y (three Fp2 products),
+    # all of them needed; the one Fp inversion beside them is counted by
+    # its binary GCD's multiplies on the data (test_torch_warp_sum.py)
+    assert KV.FP_MULS_PER_LANE["affine_g2"] == KV.FP_MULS_NEEDED["affine_g2"] == 2 + 1 + 2 + 2 + 3 * 3
     assert KV.FP_MULS_NEEDED.keys() == KV.FP_MULS_PER_LANE.keys()
     assert all(KV.FP_MULS_NEEDED[k] <= v for k, v in KV.FP_MULS_PER_LANE.items())
 

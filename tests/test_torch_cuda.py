@@ -119,8 +119,39 @@ def test_g2_rsig_sub_on_card(rlc):
     assert sub.all()
 
 
-def test_sum_g2_on_card(rlc):
-    _equal(KV.sum_g2, KV.sum_g2_plain, rlc["rsig"], rlc["excl"])
+def _sum_lanes(rlc, n):
+    """n lanes cycling through the batch's r_i sig_i (lane 3 infinity, lane
+    5 dead) with lanes 0 and 1 equal (a doubling at the tree's first level)
+    and lane 7 the negation of lane 6 (infinity there)."""
+    from lodestar_tpu_torch.kernels import fp2 as F2
+
+    idx = torch.arange(n, device=rlc["rsig"].device) % N
+    pts, excl = rlc["rsig"][..., idx].contiguous(), rlc["excl"][..., idx].contiguous()
+    if n > 7:
+        pts[..., 1] = pts[..., 0]
+        pts[..., 7] = pts[..., 6]
+        pts[1, ..., 7:8] = LY.digits_to_planes(F2.neg2(LY.planes_to_digits(pts[1, ..., 6:7].contiguous())))
+        excl[0, :2] = 0
+        excl[0, 6:8] = 0
+    return pts, excl
+
+
+@pytest.mark.parametrize("n", [1, 129, 512, 2048])
+def test_sum_g2_on_card(rlc, n):
+    """The lane sum's tree at one lane, one lane past a 128-lane tile and
+    the main paths' 512 and 2048 lanes, bit-equal to the plain version;
+    the kernel relaunched on the partials (LAUNCHES counts each launch),
+    its first launch as the library reports it."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    pts, excl = _sum_lanes(rlc, n)
+    # 32 elements per block to one partial: 1 launch up to 32 lanes, 2 up to 1024, 3 up to 32768
+    _equal(KV.sum_g2, KV.sum_g2_plain, pts, excl, launches={1: 1, 129: 2, 512: 2, 2048: 3}[n])
+    prog = W.sumg2_program()
+    shape = (ctypes.c_int * 8)()
+    assert B.load("reduce").lt_warp_last_launch(b"sum_g2", shape) == 0
+    smem = LY.NL * 4 * (16 * prog.nslots + len(prog.consts))
+    assert list(shape) == [n, -(-n // 32), 32 * 16, 32, smem, prog.nslots, prog.phases, prog.rounds]
 
 
 def test_prod12_on_card(rlc):
@@ -128,8 +159,15 @@ def test_prod12_on_card(rlc):
 
 
 def test_affine_g2_on_card(rlc):
-    _equal(KV.affine_g2, KV.affine_g2_plain, rlc["rsig"], rlc["rsig_inf"])
+    """Finite lanes, a lane flagged infinity (lane 3) and lanes with Z = 0,
+    flagged or not; the one-lane aggregate of the batch."""
+    p = rlc["rsig"].clone()
+    p[2, ..., 9] = 0
+    p[2, ..., 3] = 0
+    (_, a_inf) = _equal(KV.affine_g2, KV.affine_g2_plain, p, rlc["rsig_inf"])
+    assert a_inf[0].tolist() == [int(j in (3, 9)) for j in range(N)]
     _equal(KV.affine_g2, KV.affine_g2_plain, *KV.sum_g2(rlc["rsig"], rlc["excl"]))
+    assert_warp_launch("tail", "affine_g2", 1)
 
 
 def test_final_one_on_card(rlc):

@@ -177,13 +177,20 @@ def test_scalar_mul_128_matches_oracle(f):
 # ---------------------------------------------------------------------------
 
 
+SUM_LANES = 256  # two JAX lane tiles
+
+
 def _sum_case():
-    """8 lanes: P and -P (met in the tree's first round), Q and Q, two
-    excluded lanes, and two ordinary ones."""
-    a, b, c, d = g2(4)
+    """256 lanes cycling through five points (random Z per lane): P and -P
+    meet at the port tree's first level (lanes 0, 1) and in the JAX
+    butterfly's first round (lanes 0, 128); Q and Q likewise (lanes 2, 3
+    and 2, 130); lanes excluded."""
+    a, b, c, d, e = g2(5)
+    pts = [(a, b, c, d, e)[i % 5] for i in range(SUM_LANES)]
     na = GC.affine_neg(GC.FP2_OPS, a)
-    pts = [a, b, c, b, na, b, d, c]  # slots j and j + 4 meet first
-    excl = [False, False, True, False, False, False, False, True]
+    pts[0], pts[1], pts[128] = a, na, na
+    pts[2], pts[3], pts[130] = b, b, b
+    excl = [i % 7 == 5 for i in range(SUM_LANES)]
     return pts, excl
 
 
@@ -191,17 +198,28 @@ def _oracle_sum(pts, excl):
     return GC.multi_add(GC.FP2_OPS, [p for p, e in zip(pts, excl) if not e])
 
 
-def test_lane_sum_matches_jax_as_points():
-    """sum_points_lanes (the port's order) and the JAX butterfly give the
-    same affine point, on the edge lanes and with every lane excluded."""
+@pytest.fixture(scope="module")
+def jax_add2():
+    """JAX's jac_add_full over Fp2 jitted once at the butterfly's width
+    (every round of `sum_points_lanes` runs at full width)."""
+    real = JCV.jac_add_full
+    return jax.jit(lambda p, p_inf, q, q_inf: real(JCV.FP2_OPS, p, p_inf, q, q_inf))
+
+
+def test_lane_sum_matches_jax_as_points(jax_add2, monkeypatch):
+    """sum_points_lanes (the port's tree) and the JAX butterfly over two
+    lane tiles give the crypto oracle's affine point, on the edge lanes,
+    with lanes excluded, with only the first eight lanes live and with
+    every lane excluded."""
+    monkeypatch.setattr(JCV, "jac_add_full", lambda fo, p, p_inf, q, q_inf: jax_add2(p, p_inf, q, q_inf))
     pts, excl = _sum_case()
-    for ex in (excl, [True] * 8):
-        jp = jac_g2(pts)
-        port = tuple(t_fp2([p[c] for p in jp]) for c in range(3))
-        jx = tuple(j_fp2([p[c] for p in jp]) for c in range(3))
-        s, s_inf = CV.sum_points_lanes(CV.FP2_OPS, port, torch.tensor(ex), KV.BT)
-        with jax.disable_jit():
-            js, js_inf = JCV.sum_points_lanes(JCV.FP2_OPS, jx, jnp.asarray(ex))
+    jp = jac_g2(pts)
+    port = tuple(t_fp2([p[c] for p in jp]) for c in range(3))
+    jx = tuple(j_fp2([p[c] for p in jp]) for c in range(3))
+    first8 = [i >= 8 or i == 5 for i in range(SUM_LANES)]
+    for ex in (excl, first8, [True] * SUM_LANES):
+        s, s_inf = CV.sum_points_lanes(CV.FP2_OPS, port, torch.tensor(ex))
+        js, js_inf = JCV.sum_points_lanes(JCV.FP2_OPS, jx, jnp.asarray(ex))
         want = _oracle_sum(pts, ex)
         got = None if bool(s_inf[0]) else to_affine(*port_points(s)[0])
         assert got == want
@@ -210,7 +228,8 @@ def test_lane_sum_matches_jax_as_points():
 
 
 def test_sum_g2_folds_lanes_past_one_tile():
-    """N = 300 lanes: slots fold lanes j, j + 128, j + 256 before the tree;
+    """N = 300 lanes: the pairwise tree over more lanes than one tile (nine
+    levels, four of them with an odd count whose last element passes up);
     the sum of the lanes not excluded equals the oracle's."""
     n = 300
     base = g2(5)

@@ -3,19 +3,24 @@
 //
 //   lt_prof_program  one lane of the Miller loop (which = 0), the final
 //                    exponentiation (1), r sig with the subgroup check (2),
-//                    r pk (3) or the G2 decompression (4) (the last three:
-//                    their segments back to back, without the segment loops'
-//                    copies and selects between them), clock64() around
-//                    every phase
+//                    r pk (3), the G2 decompression (4) (these three: their
+//                    segments back to back, without the segment loops'
+//                    copies and selects between them), one complete G2
+//                    addition of the lane sum (5) or the affine conversion
+//                    (6), clock64() around every phase
 //   lt_prof_op       256 dependent Fp operations on each thread of one warp
 //                    (0 Montgomery product, 1 fp_add, 2 fp_sub, 3 an
 //                    interpreter add from shared memory, 4 an interpreter
-//                    product from shared memory)
+//                    product from shared memory, 5 the programs' inversion
+//                    fp_inv_var followed by an fp_add, so each inversion
+//                    sees another value)
 #define LT_WANT_MILLER
 #define LT_WANT_FINAL
 #define LT_WANT_RSIG
 #define LT_WANT_RPK
 #define LT_WANT_DECOMP
+#define LT_WANT_SUMG2
+#define LT_WANT_AFFINE
 #include "pairing.cuh"
 
 template <int SLOTS, int NCONST>
@@ -59,6 +64,16 @@ __global__ void lt_prof_decomp(long long *cyc, const uint32_t *init) {
                                                   LT_DECOMP_INS, cyc, init, LT_DECOMP_RAW + 2);
 }
 
+__global__ void lt_prof_sumg2(long long *cyc, const uint32_t *init) {
+  prof_program<LT_SUMG2_SLOTS, LT_SUMG2_CONSTS>(LT_SUMG2_CONST, LT_SUMG2_PHASE, LT_SUMG2_PHASES, LT_SUMG2_INS,
+                                                cyc, init, LT_SUMG2_RES1 + 6);
+}
+
+__global__ void lt_prof_affine(long long *cyc, const uint32_t *init) {
+  prof_program<LT_AFFINE_SLOTS, LT_AFFINE_CONSTS>(LT_AFFINE_CONST, LT_AFFINE_PHASE, LT_AFFINE_PHASES,
+                                                  LT_AFFINE_INS, cyc, init, LT_AFFINE_A + 4);
+}
+
 __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out, long long *cyc) {
   __shared__ uint32_t sm[LT_NL * 2 * LT_WARP];
   fp a, b;
@@ -82,7 +97,10 @@ __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out
       fp_add(a, a, b);
     else if (which == 2)
       fp_sub(a, a, b);
-    else
+    else if (which == 5) {
+      fp_inv_var(a, a);
+      fp_add(a, a, b);
+    } else
       w_exec(m, (which == 3 ? LT_OP_ADD : LT_OP_MUL) << 30 | dst << 20 | src << 10 | 5u);
   }
   __syncwarp();
@@ -107,10 +125,18 @@ extern "C" int lt_prof_program(int which, void *cyc, const void *init) {
     const size_t smem = w_smem_bytes(LT_RPK_SLOTS, LT_RPK_CONSTS);
     cudaFuncSetAttribute(lt_prof_rpk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_rpk<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
-  } else {
+  } else if (which == 4) {
     const size_t smem = w_smem_bytes(LT_DECOMP_SLOTS, LT_DECOMP_CONSTS);
     cudaFuncSetAttribute(lt_prof_decomp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_decomp<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else if (which == 5) {
+    const size_t smem = w_smem_bytes(LT_SUMG2_SLOTS, LT_SUMG2_CONSTS);
+    cudaFuncSetAttribute(lt_prof_sumg2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_sumg2<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else {
+    const size_t smem = w_smem_bytes(LT_AFFINE_SLOTS, LT_AFFINE_CONSTS);
+    cudaFuncSetAttribute(lt_prof_affine, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_affine<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
   }
   return (int)cudaDeviceSynchronize();
 }

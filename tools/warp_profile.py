@@ -9,13 +9,16 @@ generated ones), then prints
     ones on each thread of a warp): the Montgomery product, fp_add, fp_sub,
     and the interpreter's add and product with operands in shared memory;
   * one lane of the Miller loop, of the final exponentiation, of r sig
-    with the subgroup check, of r pk and of the G2 decompression (the last
-    three: their segments back to back, without the segment loops' copies and
-    selects between segments) with clock64() around every phase,
-    summed by kind of phase (products, linear only, the inversion) and by
-    rows (the longest queue of operations on one thread).
+    with the subgroup check, of r pk and of the G2 decompression (these
+    three: their segments back to back, without the segment loops' copies
+    and selects between segments), one complete G2 addition of the lane sum
+    (sum_g2's warp, without the driver's moves and selects) and one affine
+    conversion, with clock64() around every phase, summed by kind of phase
+    (products, linear only, the inversion) and by rows (the longest queue
+    of operations on one thread).
 Values are random field elements: the programs' cost does not depend on
-them, except the inversion's few percent.  Needs one CUDA card.
+them, except the inversion's (the variable-time binary GCD: its outer
+steps vary with the value, ~18 on average).  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from lodestar_tpu_torch.kernels import build as B  # noqa: E402
 from lodestar_tpu_torch.kernels import warp_schedule as W  # noqa: E402
 
 OPS = ("Montgomery product", "fp_add", "fp_sub", "interpreter add (shared memory)",
-       "interpreter product (shared memory)")
+       "interpreter product (shared memory)", "inversion fp_inv_var (and an fp_add)")
 
 
 def _values(n: int, rng: random.Random) -> torch.Tensor:

@@ -29,7 +29,9 @@ Needs one CUDA device; exits non-zero without one.  In order:
      (and the one-lane Miller loop of its tail) on the all-valid job's;
      mont_convert on the 4 message planes and g2_decompress of the wire
      mixed job, at N = 128 and N = 512; agg_pk on the K = 128 job (N = 256,
-     K bucket 512) and hash_g2 on one 128-lane batch of the 8 roots;
+     K bucket 512) and hash_g2 (one warp per lane) on 128 and 512 distinct
+     roots as MessageCache encodes them, every point hash_to_g2 of its
+     root, with its 512-lane launch as its library reports it;
      g1_keyvalidate on one 65,536-key registration chunk and on the fault
      job with 128 valid keys; seg_sum_g1 on the grouped wire batch's
      randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 128 and
@@ -49,7 +51,9 @@ Needs one CUDA device; exits non-zero without one.  In order:
      tree's first level, each call's launches (held against
      SUM_LAUNCHES) and first launch as its library reports them;
      affine_g2 at the tail's one lane and on a 128-lane tile with lanes
-     flagged infinity and Z = 0; agg_pk
+     flagged infinity and Z = 0; the warp-per-product lane product prod12
+     at 1, 128, 129, 512, 1024 and 2048 lanes with dead lanes, each call's
+     launches (held against PROD_LAUNCHES) and first launch; agg_pk
      (one block per set) also on the K = 512 job, with its launch as its
      library reports it (blocks, threads, shared memory, tree levels).
      CUDA-event times of
@@ -59,10 +63,11 @@ Needs one CUDA device; exits non-zero without one.  In order:
   3. main paths, each driven with the launch counts set to 0 just before
      and read just after, every verdict held against the ground truth and
      every job's host-routed set count (`job.host_sets`) 0: decoded per
-     set, RLC batch, bisection and mixed-batchable; a cold
-     MessageCache (one hash_g2 launch for the 8 roots, the points equal to
-     crypto/hash_to_curve.py hash_to_g2, a second lookup launches
-     nothing); the wire batch, wire per set, wire mixed-batchable and wire
+     set, RLC batch, bisection and mixed-batchable; cold MessageCaches of
+     the 8 roots and of 128 and 512 new ones (one hash_g2 launch each, the
+     points equal to crypto/hash_to_curve.py hash_to_g2, a second lookup
+     launches nothing; each time split into the host's hash_to_field, the
+     kernel and the host's affine conversion); the wire batch, wire per set, wire mixed-batchable and wire
      bisection, every wire batch through the message-grouped entry (one
      seg_sum_g1 scan, one 128-lane Miller tile; the same job timed through
      the ungrouped entry too, in turns); a wire job of 8 distinct roots
@@ -77,10 +82,10 @@ Needs one CUDA device; exits non-zero without one.  In order:
      the N = 1024 and 2048 batches each run once more with each kernel's
      CUDA-event time inside the path and each of its kernel calls held
      against the plain version on the same inputs; every call of g1_rpk,
-     g2_decompress, sum_g2 and affine_g2 that a main-path run or a
-     bisection makes is copied and, after the last path, held against the
-     plain versions (one plain run per sum_g2 call, one per other kernel
-     over all the calls' lanes); sets/s and a breakdown for each timed
+     g2_decompress, sum_g2, affine_g2, prod12 and hash_g2 that a main-path
+     run or a bisection makes is copied and, after the last path, held
+     against the plain versions (one plain run per sum_g2 and prod12 call,
+     one per other kernel over all the calls' lanes); sets/s and a breakdown for each timed
      path, its kernels timed inside one more run of the path, as the path
      launches them;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
@@ -182,6 +187,15 @@ SUM_LANES = (1, 2, 3, 128, 129, 512, 1024, 2048)
 # that its entry point reports are held
 SUM_LAUNCHES = {1: 1, 2: 1, 3: 1, 128: 2, 129: 2, 512: 2, 1024: 2, 2048: 3}
 AFFINE_LANES = (1, 128)
+# lane counts of the Fp12 lane product's tree: one lane, the grouped paths'
+# 128-lane tile and one lane past it, the ungrouped batches' N = 512, 1024
+# and 2048; the launches one product makes at each (as the lane sum's)
+PROD_LANES = (1, 128, 129, 512, 1024, 2048)
+PROD_LAUNCHES = {1: 1, 128: 2, 129: 2, 512: 2, 1024: 2, 2048: 3}
+# distinct signing roots of the cold MessageCache runs: the 8 roots of the
+# jobs (one 128-lane batch) and new roots filling one and four batches; the
+# kernel phase holds hash_g2 on the last two
+HASH_ROOTS = (N_ROOTS, 128, 512)
 # the path whose launch count is a row's "launches", and its lanes
 MAIN_PATH = {name: ("batch" if name in BATCH else "per_set", JOBS[-1]) for name in KERNELS}
 MAIN_PATH.update({"mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
@@ -234,6 +248,12 @@ def _sign(args):
     return GC.scalar_mul(GC.FP2_OPS, h, sk)
 
 
+def _hash_to_g2(root: bytes):
+    from lodestar_tpu_torch.crypto import hash_to_curve as GH
+
+    return GH.hash_to_g2(root)
+
+
 def _ground_truth(args):
     from lodestar_tpu_torch.crypto import bls as GB
 
@@ -273,6 +293,8 @@ def make_job(pool) -> dict:
     pks = [GB.sk_to_pk(sk) for sk in sks]
     roots = [rng.bytes(32) for _ in range(N_ROOTS)]
     hs = [GH.hash_to_g2(r) for r in roots]
+    hash_roots = [rng.bytes(32) for _ in range(HASH_ROOTS[-1])]  # distinct from the jobs' roots
+    hash_async = pool.map_async(_hash_to_g2, hash_roots)
     n = JOBS[-1]
     # aggregates: distinct table rows (row r holds key r % 64); the
     # signature is sum_k c_k sig_k, c_k the count of key k among the rows
@@ -397,7 +419,7 @@ def make_job(pool) -> dict:
         pks=pks, roots=roots, hs=hs, sets=sets, kinds=kinds, truth=truth, valid_sets=valid_sets,
         wire_valid=wire_valid, wire_mixed=wire_mixed, wire_kinds=wire_kinds, wire_truth=wire_truth,
         wire_agg=wire_agg, agg_truth=agg_truth[:AGG_SETS], wire_sync=wire_sync, sync_truth=agg_truth[AGG_SETS:],
-        comp=comp, rej_keys=rej_keys,
+        comp=comp, rej_keys=rej_keys, hash_roots=hash_roots, hash_pts=hash_async.get(),
     )
 
 
@@ -457,7 +479,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
 
-    from lodestar_tpu_torch.bls.ingest import MessageCache, encode_pubkey_planes
+    from lodestar_tpu_torch.bls import ingest as IN
+    from lodestar_tpu_torch.bls.ingest import MessageCache, encode_pubkey_planes, hash_field_planes, jacobian_to_affine
     from lodestar_tpu_torch.bls.pubkey_table import PubkeyTable
     from lodestar_tpu_torch.bls.rand import make_rand_words
     from lodestar_tpu_torch.bls.signature_set import WireSignatureSet
@@ -508,14 +531,15 @@ def main() -> int:
     # every call of the redesigned warp kernels that a main-path run makes
     # (inputs and outputs copied on the stream), held at the end of the
     # main paths against the plain versions
-    path_calls = {"g1_rpk": [], "g2_decompress": [], "affine_g2": [], "sum_g2": []}
+    path_calls = {"g1_rpk": [], "g2_decompress": [], "affine_g2": [], "sum_g2": [], "prod12": [], "hash_g2": []}
     recording = [False]
 
     def recorder(name, f):
         def run(*args):
             out = f(*args)
             if recording[0]:
-                path_calls[name].append((tuple(a.clone() for a in args), tuple(o.clone() for o in out)))
+                outs = out if isinstance(out, tuple) else (out,)
+                path_calls[name].append((tuple(a.clone() for a in args), tuple(o.clone() for o in outs)))
             return out
         return run
 
@@ -663,8 +687,9 @@ def main() -> int:
         excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
         sweep["sum_g2"] = (rsig, excl)
         jsum, jsum_inf = plain_and_kernel("sum_g2", n, KV.sum_g2, KV.sum_g2_plain, rsig, excl)
-        fprod = plain_and_kernel("prod12", n, KV.prod12, KV.prod12_plain, ops["live_row"],
-                                 KV.miller_loop(rpk, ops["msg"]))
+        f_msg = KV.miller_loop(rpk, ops["msg"])
+        sweep["prod12"] = (ops["live_row"], f_msg)
+        fprod = plain_and_kernel("prod12", n, KV.prod12, KV.prod12_plain, ops["live_row"], f_msg)
         a, a_inf = plain_and_kernel("affine_g2", n, KV.affine_g2, KV.affine_g2_plain, jsum, jsum_inf)
         affine_steps[n] = KV.affine_g2_gcd_steps(jsum)
         fa = plain_and_kernel("miller_loop_1", n, KV.miller_loop, KV.miller_loop_plain, KV._neg_g1(dev, 1), a)
@@ -757,14 +782,18 @@ def main() -> int:
                                     plain_runs=0, tag="jacobian")
     if not torch.equal(e_out_inf, (e_inf | (e_r == 0).all(dim=0, keepdim=True)).to(torch.int32)):
         raise AssertionError("g1_rpk on agg_pk's aggregates: a lane's infinity flag is not p_inf or r == 0")
-    roots_p = d["roots"] + [d["roots"][-1]] * (KV.BT - N_ROOTS)  # padded as MessageCache pads
-    us = [GH.hash_to_field_fp2(r, 2, GH.DST_G2) for r in roots_p]
-    u = torch.from_numpy(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
-                                   for i in range(2)])).to(dev)
-    sgn = torch.tensor([[GH._sgn0_fp2(v[i]) for v in us] for i in range(2)], dtype=torch.int32, device=dev)
-    _, h_ok = plain_and_kernel("hash_g2", KV.BT, KV.hash_g2, KV.hash_g2_plain, u, sgn, plain_runs=0)
-    if not bool(h_ok.all()):
-        raise AssertionError("hash_g2: a lane flagged not ok")
+    # the hash on 128 and 512 distinct roots, encoded as MessageCache
+    # encodes them; every point hash_to_g2 of its root
+    hash_steps = {}  # lanes -> the binary GCD's outer steps of the call's inversions
+    hash_root_muls = {}  # lanes -> the square roots' chain products the call's data needs
+    for n in HASH_ROOTS[1:]:
+        u, sgn = (torch.from_numpy(a).to(dev) for a in hash_field_planes(d["hash_roots"][:n]))
+        hash_steps[n], hash_root_muls[n] = KV.hash_g2_gcd_steps(u), KV.hash_g2_root_muls(u)
+        h_out, h_ok = plain_and_kernel("hash_g2", n, KV.hash_g2, KV.hash_g2_plain, u, sgn, plain_runs=0)
+        if not bool(h_ok.all()) or jacobian_to_affine(h_out, n) != d["hash_pts"][:n]:
+            raise AssertionError(f"hash_g2 at N={n}: a lane flagged not ok, or a point is not hash_to_g2's")
+    log(f"kernel outputs hash_g2: {', '.join(map(str, HASH_ROOTS[1:]))} distinct roots, every lane ok, every "
+        f"point equal to crypto/hash_to_curve.py hash_to_g2 of its root")
 
     # the warp-per-lane pairing kernels at every lane count the paths give
     # them: the tail's one lane, the grouped 128-lane tile, one lane past
@@ -803,16 +832,18 @@ def main() -> int:
             if not torch.equal(flags_n, sl(flags)):
                 raise AssertionError(f"{name} at N={n}: flags differ from the N = {JOBS[-1]} run's")
     for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail"),
-                         ("g2_rsig_sub", "randmul"), ("g1_rpk", "randmul"), ("g2_decompress", "ingest")):
+                         ("g2_rsig_sub", "randmul"), ("g1_rpk", "randmul"), ("g2_decompress", "ingest"),
+                         ("hash_g2", "ingest")):
         # the shape and program figures of the last launch of the
-        # library's kernel `name`, the N = 512 one made above, as its C
-        # entry point launched it
+        # library's kernel `name`, the N = 512 one made above (hash_g2's:
+        # its 512-root batch), as its C entry point launched it
         shape = (ctypes.c_int * 8)()
         if B.load(source).lt_warp_last_launch(name.encode(), shape) != 0:
             raise AssertionError(f"{name}: {source} reports no launch of it")
         lanes, blocks, threads, lpb, smem, slots, phases, rounds = list(shape)
-        if lanes != WARP_LANES[-1] or blocks * lpb < lanes or threads % lpb or rounds != KV.ROUNDS_PER_LANE[name]:
-            raise AssertionError(f"{name}: last launch {list(shape)} is not {WARP_LANES[-1]} lanes of "
+        want = HASH_ROOTS[-1] if name == "hash_g2" else WARP_LANES[-1]
+        if lanes != want or blocks * lpb < lanes or threads % lpb or rounds != KV.ROUNDS_PER_LANE[name]:
+            raise AssertionError(f"{name}: last launch {list(shape)} is not {want} lanes of "
                                  f"{KV.ROUNDS_PER_LANE[name]} rounds")
         entry = next(e for k, e in ptxas_entries(ptxas[source]).items() if name.replace("_loop", "") in k)
         warp_info[name] = {"rounds_per_lane": rounds, "fp_muls_per_lane": KV.FP_MULS_PER_LANE[name],
@@ -859,7 +890,7 @@ def main() -> int:
                 or rounds != KV.ROUNDS_PER_LANE["sum_g2"]):
             raise AssertionError(f"sum_g2 at N={n}: {launches} launches a call, first launch {list(shape)}")
         if n == JOBS[-1]:
-            entry = next(e for k, e in ptxas_entries(ptxas["reduce"]).items() if "sum_g2" in k)
+            entry = next(e for k, e in ptxas_entries(ptxas["reduce"]).items() if "sum_tree" in k)
             warp_info["sum_g2"] = {"rounds_per_addition": rounds, "fp_muls_per_addition": KV.FP_MULS_PER_LANE["sum_g2"],
                                    "phases_per_addition": phases, "slots_per_warp": slots, "warps_per_block": threads // 32,
                                    "elements_per_block": span, "dynamic_smem_bytes_per_block": smem, "ptxas": entry}
@@ -906,6 +937,39 @@ def main() -> int:
         f"{KV.FP_MULS_PER_LANE['affine_g2']} Fp products) in {phases} phases per lane, {slots} slots per lane, {smem} B "
         f"dynamic shared memory per block; ptxas {entry}; card ms by lanes "
         + ", ".join(f"{n}: {results['affine_g2', n, 'lanes'][0]:.3f}" for n in AFFINE_LANES))
+
+    # the Fp12 lane product's tree at every lane count of PROD_LANES: the
+    # N = 512 batch's Miller values repeated, every seventh lane dead; each
+    # call relaunches the kernel on the partials
+    live_row, f_msg = sweep["prod12"]
+    prod_launches = {}  # lanes -> the launches one call made, as the entry point reports them
+    for n in PROD_LANES:
+        idx = torch.arange(n, device=dev) % f_msg.shape[-1]
+        f, live = f_msg[..., idx].contiguous(), live_row[..., idx].contiguous()
+        live[0, 3::7] = 0
+        plain_and_kernel("prod12", n, KV.prod12, KV.prod12_plain, live, f, plain_runs=0, tag="lanes")
+        before = KV.LAUNCHES["prod12"]
+        KV.prod12(live, f)
+        prod_launches[n] = KV.LAUNCHES["prod12"] - before
+        shape = (ctypes.c_int * 8)()
+        if B.load("reduce").lt_warp_last_launch(b"prod12", shape) != 0:
+            raise AssertionError("prod12: reduce reports no launch of it")
+        lanes, blocks, threads, span, smem, slots, phases, rounds = list(shape)
+        if (prod_launches[n] != PROD_LAUNCHES[n] or [lanes, blocks, threads, span] != [n, -(-n // 32), 32 * 16, 32]
+                or rounds != KV.ROUNDS_PER_LANE["prod12"]):
+            raise AssertionError(f"prod12 at N={n}: {prod_launches[n]} launches a call, first launch {list(shape)}")
+        if n == JOBS[-1]:
+            entry = next(e for k, e in ptxas_entries(ptxas["reduce"]).items() if "prod_tree" in k)
+            warp_info["prod12"] = {"rounds_per_product": rounds, "fp_muls_per_product": KV.FP_MULS_PER_LANE["prod12"],
+                                   "phases_per_product": phases, "slots_per_warp": slots,
+                                   "warps_per_block": threads // 32, "elements_per_block": span,
+                                   "dynamic_smem_bytes_per_block": smem, "ptxas": entry}
+    e = warp_info["prod12"]
+    log(f"warp kernel prod12: one warp per Fp12 product, {e['warps_per_block']} warps ({e['elements_per_block']} "
+        f"elements) per block; {e['rounds_per_product']} rounds ({e['fp_muls_per_product']} Fp products) in "
+        f"{e['phases_per_product']} phases per product, {e['slots_per_warp']} slots per warp, "
+        f"{e['dynamic_smem_bytes_per_block']} B dynamic shared memory per block; ptxas {e['ptxas']}; card ms by lanes "
+        + ", ".join(f"{n}: {results['prod12', n, 'lanes'][0]:.3f} ({prod_launches[n]} launches)" for n in PROD_LANES))
 
     # -- 3. main paths -------------------------------------------------------------
     def host_ms(fn, runs=3):
@@ -1114,21 +1178,66 @@ def main() -> int:
     bad_job[BAD_SET] = sets[BAD_SET]
     paths["bisection", n] = bisection("bisection", n, bad_job, "verify_batch_device")
 
-    # the cold message cache: the 8 roots hashed in one 128-lane launch
-    cache = MessageCache(device=dev)
-    t = time.perf_counter()
-    pts, counts = counted(lambda: cache.get_many(d["roots"]))
-    cold_ms = (time.perf_counter() - t) * 1e3
-    if pts != d["hs"] or counts["hash_g2"] != 1 or sum(counts.values()) != 1:
-        raise AssertionError(f"cold MessageCache: points equal hash_to_g2: {pts == d['hs']}; launches {counts}")
-    again, counts2 = counted(lambda: cache.get_many(d["roots"]))
-    if again != d["hs"] or sum(counts2.values()) != 0 or cache.hits != N_ROOTS:
-        raise AssertionError(f"warm MessageCache: launches {counts2}, hits {cache.hits}")
-    log(f"main path cold-hash: MessageCache.get_many of {N_ROOTS} roots: one hash_g2 launch, every point "
-        f"equals crypto/hash_to_curve.py hash_to_g2; {cold_ms:.1f} ms (host clock, one run, host hash_to_field "
-        f"included); the second lookup launched nothing")
-    paths["cold_hash", KV.BT] = counts
-    verifier.messages = cache
+    # the cold message cache: the 8 roots hashed in one 128-lane launch, then
+    # 128 and 512 new roots in one launch each; each lookup's time split into
+    # the host's hash_to_field and encoding, the kernel (CUDA events) and the
+    # host's affine conversion
+    cold_split = {}  # roots -> {"total", "host_hash_to_field", "kernel", "host_affine"} ms
+
+    def split_timed(fn):
+        """fn() with the three parts of MessageCache._hash_batch_device timed."""
+        parts, real = {}, (IN.hash_field_planes, KV.hash_g2, IN.jacobian_to_affine)
+
+        def host(name, f):
+            def run(*args):
+                t0 = time.perf_counter()
+                out = f(*args)
+                parts[name] = (time.perf_counter() - t0) * 1e3
+                return out
+            return run
+
+        def kernel(*args):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real[1](*args)
+            b.record()
+            b.synchronize()
+            parts["kernel"] = a.elapsed_time(b)
+            return out
+
+        IN.hash_field_planes, KV.hash_g2 = host("host_hash_to_field", real[0]), kernel
+        IN.jacobian_to_affine = host("host_affine", real[2])
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            parts["total"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            IN.hash_field_planes, KV.hash_g2, IN.jacobian_to_affine = real
+        return out, parts
+
+    for n_roots in HASH_ROOTS:
+        roots, want = ((d["roots"], d["hs"]) if n_roots == N_ROOTS
+                       else (d["hash_roots"][:n_roots], d["hash_pts"][:n_roots]))
+        cache = MessageCache(device=dev)
+        (pts, parts), counts = counted(lambda: split_timed(lambda: cache.get_many(roots)))
+        if pts != want or counts["hash_g2"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"cold MessageCache of {n_roots} roots: points equal hash_to_g2: {pts == want}; "
+                                 f"launches {counts}")
+        again, counts2 = counted(lambda: cache.get_many(roots))
+        if again != want or sum(counts2.values()) != 0 or cache.hits != n_roots:
+            raise AssertionError(f"warm MessageCache: launches {counts2}, hits {cache.hits}")
+        cold_split[n_roots] = parts
+        lanes = -(-n_roots // KV.BT) * KV.BT
+        log(f"main path cold-hash: MessageCache.get_many of {n_roots} roots: one hash_g2 launch of {lanes} lanes, "
+            f"every point equals crypto/hash_to_curve.py hash_to_g2; {parts['total']:.1f} ms (host clock, one run) "
+            f"= host hash_to_field and encoding {parts['host_hash_to_field']:.1f} ms + hash_g2 {parts['kernel']:.3f} "
+            f"ms (CUDA events) + host affine conversion {parts['host_affine']:.1f} ms + the rest "
+            f"{parts['total'] - parts['host_hash_to_field'] - parts['kernel'] - parts['host_affine']:.1f} ms; the "
+            f"second lookup launched nothing")
+        if n_roots == N_ROOTS:
+            paths["cold_hash", KV.BT] = counts
+            verifier.messages = cache
 
     for n in JOBS:
         # the wire batch: the all-valid job as wire bytes
@@ -1335,7 +1444,7 @@ def main() -> int:
         if not recs:
             raise AssertionError(f"{name}: no main-path run called it")
         sizes = [r[0][0].shape[-1] for r in recs]
-        if name == "sum_g2":
+        if name in ("sum_g2", "prod12"):  # reductions: one plain run per call
             hold_calls("main path calls", [(name, args, outs) for args, outs in recs])
             warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes)}
             continue
@@ -1354,8 +1463,8 @@ def main() -> int:
     log("main path calls of the redesigned warp kernels: " + ", ".join(
         f"{name} {len(recs)} calls ({sum(r[0][0].shape[-1] for r in recs)} lanes)" for name, recs in
         path_calls.items()) + f", every one made by a counted main-path run or a bisection, each equal to its "
-        f"plain version bit for bit (sum_g2 one plain run per call, the others one plain run per kernel over "
-        f"the calls' lanes side by side; {time.perf_counter() - t:.1f} s)")
+        f"plain version bit for bit (sum_g2 and prod12 one plain run per call, the others one plain run per "
+        f"kernel over the calls' lanes side by side; {time.perf_counter() - t:.1f} s)")
 
     if not verifier._device_canary():
         raise AssertionError("device canary failed")
@@ -1363,12 +1472,17 @@ def main() -> int:
     # -- 4. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
 
+    def needed_muls(name, n, units):
+        """Fp products the function needs on a call at n lanes of units."""
+        return KV.FP_MULS_NEEDED[name] * units + (hash_root_muls[n] if name == "hash_g2" else 0)
+
     def bound(name, n, tail_lane=True):
         """(bound ms, what bounds it, units of FP_MULS_NEEDED, lanes) of one
         call at n lanes (the tail's kernels on one lane of an N-set job
         unless tail_lane is False): the products the function needs (not
         the ones the kernel makes: KV.FP_MULS_NEEDED against
-        FP_MULS_PER_LANE; affine_g2's inversions besides, as the binary
+        FP_MULS_PER_LANE; hash_g2's square-root chains as the call's data
+        needs them, and affine_g2's and hash_g2's inversions as the binary
         GCD's multiplies on the call's data) over the card's IMAD rate, or
         its bytes over the memory rate."""
         lanes = n
@@ -1384,9 +1498,11 @@ def main() -> int:
             units = seg_units[name, n]  # one addition per live lane after its group's first
         else:
             units = n
-        ops_ms = KV.FP_MULS_NEEDED[name] * KV.IMAD_PER_FP_MUL * units / imad_per_ms
+        ops_ms = needed_muls(name, n, units) * KV.IMAD_PER_FP_MUL / imad_per_ms
         if name == "affine_g2":
             ops_ms += affine_steps[n if tail_lane else (n, "lanes")] * KV.GCD_IMAD_PER_STEP / imad_per_ms
+        if name == "hash_g2":
+            ops_ms += hash_steps[n] * KV.GCD_IMAD_PER_STEP / imad_per_ms
         if name == "agg_pk":
             nbytes = agg_live_rows * 2 * 48 + n * (k_bucket * 8 + 3 * 48 + 4)
         else:
@@ -1406,7 +1522,7 @@ def main() -> int:
         elif name == "sum_g2":
             done = n - 1  # the tree's complete additions
         elif name == "prod12":
-            done = max(n, KV.BT) - 1
+            done = n - 1  # the tree's products
         else:
             done = units
         entry = {
@@ -1417,7 +1533,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
             "path": path, "n": n,
-            "fp_muls_needed": KV.FP_MULS_NEEDED[name] * units, "fp_muls_done": KV.FP_MULS_PER_LANE[name] * done,
+            "fp_muls_needed": needed_muls(name, n, units), "fp_muls_done": KV.FP_MULS_PER_LANE[name] * done,
             "launches_by_path": {f"{p} N={pn}": c[name] for (p, pn), c in paths.items()},
         }
         if name == "agg_pk":
@@ -1435,21 +1551,27 @@ def main() -> int:
             entry["bound_ms_256"] = bound(name, 256)[0]
         if name in ("seg_sum_g1", "seg_sum_g2"):
             entry["additions_needed"] = seg_units[name, n]
-        if name == "affine_g2":  # the inversion's multiplies, which fp_muls_needed leaves out
-            entry["gcd_steps"] = affine_steps[n]
-            entry["gcd_imad"] = affine_steps[n] * KV.GCD_IMAD_PER_STEP
+        if name in ("affine_g2", "hash_g2"):  # the inversions' multiplies, which fp_muls_needed leaves out
+            steps = (affine_steps if name == "affine_g2" else hash_steps)[n]
+            entry["gcd_steps"], entry["gcd_imad"] = steps, steps * KV.GCD_IMAD_PER_STEP
+        if name == "hash_g2":
+            entry["ms_512"], entry["plain_ms_512"] = results[name, 512][:2]
+            entry["bound_ms_512"] = bound(name, 512)[0]
+            entry["cold_cache_ms_by_roots"] = cold_split
+            entry["root_chain_muls_needed"] = hash_root_muls[n]  # within fp_muls_needed
         if name in warp_info:  # the warp-per-lane kernels
             entry.update(warp_info[name])
         if (name, 1, "lanes") in results:  # every lane count of the kernel's own sweep
-            timed = [m for m in WARP_LANES + SUM_LANES + AFFINE_LANES if (name, m, "lanes") in results]
+            timed = [m for m in WARP_LANES + SUM_LANES + AFFINE_LANES + PROD_LANES if (name, m, "lanes") in results]
             timed = sorted(set(timed))
             entry["ms_by_lanes"] = {m: results[name, m, "lanes"][0] for m in timed}
             entry["plain_ms_by_lanes"] = {m: results[name, m, "lanes"][1] for m in timed}
             entry["bound_ms_by_lanes"] = {m: bound("each_final" if name == "final_one" else name, m, False)[0]
                                           for m in timed}
-            if name == "sum_g2":
+            if name in ("sum_g2", "prod12"):
                 entry["tree_levels_by_lanes"] = {m: (m - 1).bit_length() for m in timed}
-                entry["launches_per_call_by_lanes"] = {m: sum_launches[m] for m in timed}
+                entry["launches_per_call_by_lanes"] = {m: (sum_launches if name == "sum_g2" else prod_launches)[m]
+                                                       for m in timed}
                 entry["ms_per_level"] = k_ms / (n - 1).bit_length()
             else:
                 entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]

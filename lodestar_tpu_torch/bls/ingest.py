@@ -81,27 +81,41 @@ class MessageCache:
             return [resolved[r] for r in roots]
 
     def _hash_batch_device(self, roots: List[bytes]):
-        n = len(roots)
-        roots_p = list(roots) + [roots[-1]] * ((-n) % BT)
-        us = [HC.hash_to_field_fp2(r, 2, HC.DST_G2) for r in roots_p]
-        sgn = np.array([[HC._sgn0_fp2(u[i]) for u in us] for i in range(2)], np.int32)
-        u = np.stack(
-            [np.stack([LY.encode_plain_batch([u[i][k] for u in us]) for k in range(2)]) for i in range(2)]
-        )
+        u, sgn = hash_field_planes(roots)
         planes, ok = KV.hash_g2(
             torch.from_numpy(u).to(self.device), torch.from_numpy(sgn).to(self.device)
         )
         if not bool(ok.all()):
             raise RuntimeError("hash_g2 flagged a lane not ok (an iso3 denominator vanished)")
-        X0, X1, Y0, Y1, Z0, Z1 = (LY.decode_batch(p) for p in planes.cpu().numpy().reshape(6, LY.NL, -1))
-        fetched = {}
-        for i, r in enumerate(roots):
-            zi = GT.fp2_inv((Z0[i], Z1[i]))
-            zi2 = GT.fp2_sqr(zi)
-            x = GT.fp2_mul((X0[i], X1[i]), zi2)
-            y = GT.fp2_mul((Y0[i], Y1[i]), GT.fp2_mul(zi2, zi))
-            fetched[r] = (x, y)
-        return fetched
+        return dict(zip(roots, jacobian_to_affine(planes, len(roots))))
+
+
+def hash_field_planes(roots: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """The host half of hashing roots to G2: hash_to_field's (u0, u1) of
+    each root as plain limb planes [2, 2, 12, n'] and their RFC 9380 sgn0
+    bits [2, n'], the last root's column repeated up to n', the next
+    multiple of BT (the kernel's batch width; the repeats cost no host
+    hashing)."""
+    us = [HC.hash_to_field_fp2(r, 2, HC.DST_G2) for r in roots]
+    sgn = np.array([[HC._sgn0_fp2(u[i]) for u in us] for i in range(2)], np.int32)
+    u = np.stack(
+        [np.stack([LY.encode_plain_batch([u[i][k] for u in us]) for k in range(2)]) for i in range(2)]
+    )
+    pad = (-len(roots)) % BT
+    return (np.pad(u, [(0, 0)] * 3 + [(0, pad)], mode="edge"),
+            np.pad(sgn, [(0, 0), (0, pad)], mode="edge"))
+
+
+def jacobian_to_affine(planes: torch.Tensor, n: int) -> List[Tuple]:
+    """The first n lanes of Jacobian G2 planes [3, 2, 12, N] as affine
+    ground-truth ints ((x0, x1), (y0, y1)), on the host."""
+    X0, X1, Y0, Y1, Z0, Z1 = (LY.decode_batch(p[:, :n]) for p in planes.cpu().numpy().reshape(6, LY.NL, -1))
+    out = []
+    for i in range(n):
+        zi = GT.fp2_inv((Z0[i], Z1[i]))
+        zi2 = GT.fp2_sqr(zi)
+        out.append((GT.fp2_mul((X0[i], X1[i]), zi2), GT.fp2_mul((Y0[i], Y1[i]), GT.fp2_mul(zi2, zi))))
+    return out
 
 
 def parse_signature_bytes(sig: bytes) -> Tuple[int, int, int, int, bool]:

@@ -167,8 +167,8 @@ _ARGTYPES = {
     "lt_g1_rpk": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_g2_rsig_sub": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
-    "lt_sum_g2_scratch_lanes": [_INT],
-    "lt_prod12": [_VP, _VP, _VP, _INT, _VP],
+    "lt_tree_scratch_lanes": [_INT],
+    "lt_prod12": [_VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_affine_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_final_one": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_g2_decompress": [_VP, _VP, _VP, _VP, _INT, _VP],

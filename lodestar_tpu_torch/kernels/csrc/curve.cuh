@@ -4,7 +4,7 @@
 // as in lodestar_tpu/kernels/curve.py.
 #pragma once
 
-#include "tower.cuh"
+#include "fp2.cuh"
 
 // field-generic spellings of the Fp and Fp2 operations
 LT_DEV void f_add(fp &r, const fp &a, const fp &b) { fp_add(r, a, b); }

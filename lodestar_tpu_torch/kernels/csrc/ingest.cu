@@ -6,23 +6,27 @@
 //                     lodestar_tpu/kernels/ingest.py _k_g2_decompress)
 //   lt_hash_g2        (u0, u1) as plain limbs and their sgn0 bits -> SSWU
 //                     on the isogenous curve -> iso3 -> add -> cofactor
-//                     clearing by H_EFF -> Jacobian G2, and ok = both iso3
+//                     clearing -> Jacobian G2, and ok = both iso3
 //                     denominators nonzero (replaces _k_hash_g2)
 //
-// The values and selects are those of the JAX package's value-level
-// functions (g2_decompress_y, sswu_map_g2, iso3_map,
-// clear_cofactor_g2_jac, hash_to_g2_values), so the outputs equal the
-// plain versions in kernels/ingest.py bit for bit.
+// The decompression's values and selects are those of the JAX package's
+// g2_decompress_y; the hash's are those of the port's plain version
+// (kernels/ingest.py hash_to_g2_values: the isogeny's image in Jacobian
+// form, the cofactor cleared by psi, RFC 9380 appendix G.3, where JAX's
+// _k_hash_g2 inverts the denominators and runs the 636-bit H_EFF chain:
+// the same points).  The outputs equal the plain versions bit for bit.
 //
 // Bound on this card: 32-bit integer multiplies.  Bytes per lane are under
 // 0.5 KB.
 //
-// g2_decompress: one warp per lane (csrc/warp12.cuh).  One thread per lane
-// ran its Fp2 square root as six exponentiations back to back (five by
-// (p + 1) / 4, one by p - 2: 3,656 products in one chain).  The program
-// (warp_prog.cuh, from kernels/warp_schedule.py decompress_program) runs
-// the independent chains in the same rounds (d and sp; then rp and rm,
-// whose chain by (p - 3) / 4 also gives their inverses), each a fixed
+// Both run one warp per lane (csrc/warp12.cuh), four lanes per block, on
+// programs of kernels/warp_schedule.py written into warp_prog.cuh.
+//
+// g2_decompress: one thread per lane ran its Fp2 square root as six
+// exponentiations back to back (five by (p + 1) / 4, one by p - 2: 3,656
+// products in one chain).  The program (decompress_program) runs the
+// independent chains in the same rounds (d and sp; then rp and rm, whose
+// chain by (p - 3) / 4 also gives their inverses), each a fixed
 // sliding-window chain: 899 rounds and 1,864 products per lane
 // (kernels/verify.py ROUNDS_PER_LANE, FP_MULS_PER_LANE).  Its four segments
 // are the norm method's straight-line parts; between them the segment loop
@@ -30,16 +34,18 @@
 // sign) on comparisons the warp votes on, moving slots with w_copy, so the
 // warp never diverges.
 //
-// hash_g2: one thread per lane, a lane's whole chain: four square roots,
-// four Fp2 inversions and the 636-bit H_EFF chain (635 doublings, 304
-// additions): 41,987 Fp products per lane.  The long static-exponent loops
-// (fp_pow_words, g2_mul_words) are not inlined, against the nvcc
-// miscompile of force-inlined loops seen with the one-thread windowed
-// scalar multiplication of earlier versions; the H_EFF bits come from a
-// constant table, not an unrolled body.
+// hash_g2: the program (hash_program: 1,361 rounds, 10,412 products per
+// lane) runs the two SSWU evaluations side by side: their two Fp
+// inversions in one phase (the binary GCD, one per thread), the four square
+// roots of gx1 and gx2 of u0 and u1 as the norm method's segments with
+// eight exponentiations in the same rounds, the isogeny without inversion,
+// then the complete additions and the two static chains by |x| of the psi
+// clearing.  The segment loop makes the square roots' selects as
+// g2_decompress does, picks each u's (x, y) and its sign, and makes
+// jac_add_full's selects after each of the six additions.
 #include "canonical.cuh"
-#include "curve.cuh"
 #define LT_WANT_DECOMP
+#define LT_WANT_HASH
 #include "warp12.cuh"
 
 // ---------------------------------------------------------------------------
@@ -54,14 +60,14 @@ LT_DEV void g2_decompress_warp(const wmem &m, const int32_t *x, const int32_t *f
   const wprog prog = {LT_DECOMP_SEG, LT_DECOMP_PHASE, LT_DECOMP_INS};
   w_load_planes(m, LT_DECOMP_XIN, x, 2, n, lane);
   LT_SYNCWARP();
-  w_segment(m, prog, 0);  // A: x, rhs, d, sp, sm, xp, xm
+  w_segment<false>(m, prog, 0);  // A: x, rhs, d, sp, sm, xp, xm
   const bool sp_ok = w_eq(m, LT_DECOMP_SP2, LT_DECOMP_RHS, 1);  // sp^2 == rhs0
   const bool a1z = w_eq(m, LT_DECOMP_RHS + 1, -1, 1);  // rhs1 == 0
-  w_segment(m, prog, 1);  // B: rp, rm, their inverses, rp^2
+  w_segment<false>(m, prog, 1);  // B: rp, rm, their inverses, rp^2
   const bool p_ok = w_eq(m, LT_DECOMP_RP2, LT_DECOMP_XP, 1);
   w_copy(m, LT_DECOMP_Y, p_ok ? LT_DECOMP_RP : LT_DECOMP_RM, 1);  // x0
   w_copy(m, LT_DECOMP_IX0, p_ok ? LT_DECOMP_IP : LT_DECOMP_IM, 1);  // 1 / x0 (0 for x0 = 0)
-  w_segment(m, prog, 2);  // C: x1 = rhs1 / (2 x0)
+  w_segment<false>(m, prog, 2);  // C: x1 = rhs1 / (2 x0)
   if (a1z) {  // the root is (sqrt(rhs0), 0) or (0, sqrt(-rhs0))
     if (sp_ok) {
       w_copy(m, LT_DECOMP_Y, LT_DECOMP_SP, 1);
@@ -71,7 +77,7 @@ LT_DEV void g2_decompress_warp(const wmem &m, const int32_t *x, const int32_t *f
       w_copy(m, LT_DECOMP_Y1, LT_DECOMP_SM, 1);
     }
   }
-  w_segment(m, prog, 3);  // D: r^2, -r, r out of Montgomery form
+  w_segment<false>(m, prog, 3);  // D: r^2, -r, r out of Montgomery form
   const bool on_curve = w_eq(m, LT_DECOMP_S, LT_DECOMP_RHS, 2);
   fp v0, v1;  // every thread reads both: the sign is uniform across the warp
   w_get(v0, m, LT_DECOMP_RAW);
@@ -84,127 +90,100 @@ LT_DEV void g2_decompress_warp(const wmem &m, const int32_t *x, const int32_t *f
 }
 
 // ---------------------------------------------------------------------------
-// Hash to G2 (sswu_map_g2, iso3_map, clear_cofactor_g2_jac,
-// hash_to_g2_values)
+// Hash to G2: the segments of warp_schedule.hash_program and its selects
 // ---------------------------------------------------------------------------
 
-// x^3 + A x + B on the isogenous curve E2'
-LT_DEV void sswu_g(fp2 &r, const fp2 &x) {
-  fp2 a, b, t;
-  fp2_const(a, LT_SSWU_A);
-  fp2_const(b, LT_SSWU_B);
-  fp2_sqr(t, x);
-  fp2_add(t, t, a);
-  fp2_mul(t, t, x);
-  fp2_add(r, t, b);
-}
+// slot of the norm method's value `off` for square root k (2 i: gx1 of
+// u_i, 2 i + 1: gx2)
+LT_DEV int hash_sq(int k, int off) { return LT_HASH_SQ + k * LT_HASH_SQ_STRIDE + off; }
 
-// Simplified SWU on E2' for one u, branch-free; u_sgn0 is RFC 9380
-// sgn0(u), computed on the host beside hash_to_field
-LT_NOINL void sswu_map_g2(aff<fp2> &r, const fp2 &u, bool u_sgn0) {
-  fp2 c, zu2, tv1, t, one, x1, x2, gx, y1, y2;
-  fp2_sqr(t, u);
-  fp2_const(c, LT_SSWU_Z);
-  fp2_mul(zu2, t, c);
-  fp2_sqr(tv1, zu2);
-  fp2_add(tv1, tv1, zu2);
-  const bool tv1_z = fp2_is_zero(tv1);
-  fp2_inv(t, tv1);  // 0 for tv1 = 0, as pow(p - 2) gives; the select takes B / (Z A) there
-  fp2_one(one);
-  fp2_add(t, one, t);
-  fp2_const(c, LT_SSWU_MBA);
-  fp2_mul(x1, t, c);
-  fp2_const(c, LT_SSWU_BZA);
-  fp2_select(x1, tv1_z, c, x1);
-  sswu_g(gx, x1);
-  const bool ok1 = fp2_sqrt(y1, gx);
-  fp2_mul(x2, zu2, x1);
-  sswu_g(gx, x2);
-  fp2_sqrt(y2, gx);
-  fp2_select(r.x, ok1, x1, x2);
-  fp2_select(r.y, ok1, y1, y2);
-  fp2_neg(t, r.y);
-  fp2_select(r.y, fp2_sgn0(r.y) == u_sgn0, r.y, t);
-}
-
-// Horner over a constant coefficient table (constant term first), from 0
-LT_DEV void iso_poly(fp2 &r, const uint32_t (*c)[2][LT_NL], int len, const fp2 &x) {
-  fp2 acc, k;
-  fp2_zero(acc);
-  for (int i = len - 1; i >= 0; i--) {
-    fp2_mul(acc, acc, x);
-    fp2_const(k, c[i]);
-    fp2_add(acc, acc, k);
+// The square roots' selects, as g2_decompress_warp makes them for its one
+// root: after A sp_ok and rhs1 == 0 are voted on; after B x0 (rp where
+// rp^2 == xp, else rm) and its inverse are kept; after C the root becomes
+// (sp, 0) or (0, sm) where rhs1 == 0.
+LT_DEV void hash_roots(const wmem &m, const wprog &prog) {
+  bool sp_ok[4], a1z[4];
+  for (int k = 0; k < 4; k++) {
+    sp_ok[k] = w_eq(m, hash_sq(k, LT_HASH_SQ_SP2), hash_sq(k, LT_HASH_SQ_A), 1);
+    a1z[k] = w_eq(m, hash_sq(k, LT_HASH_SQ_A) + 1, -1, 1);
   }
-  r = acc;
-}
-
-// the 3-isogeny E2' -> E2; false where a denominator vanishes
-LT_NOINL bool iso3_map(aff<fp2> &r, const aff<fp2> &p) {
-  fp2 xden, yden, num, t;
-  iso_poly(xden, LT_ISO_XDEN, LT_ISO_XDEN_LEN, p.x);
-  iso_poly(yden, LT_ISO_YDEN, LT_ISO_YDEN_LEN, p.x);
-  const bool ok = !fp2_is_zero(xden) && !fp2_is_zero(yden);
-  iso_poly(num, LT_ISO_XNUM, LT_ISO_XNUM_LEN, p.x);
-  fp2_inv(t, xden);
-  fp2_mul(r.x, num, t);
-  iso_poly(num, LT_ISO_YNUM, LT_ISO_YNUM_LEN, p.x);
-  fp2_mul(num, p.y, num);
-  fp2_inv(t, yden);
-  fp2_mul(r.y, num, t);
-  return ok;
-}
-
-// [e] Q for a static exponent e (little-endian words, top bit at `top`):
-// double, then add Q with the generic Jacobian addition where the bit is
-// set (clear_cofactor_g2_jac; hash outputs make T == +-Q negligible)
-LT_NOINL void g2_mul_words(jac<fp2> &r, const jac<fp2> &q, const uint32_t *e, int top) {
-  jac<fp2> t = q;
-  for (int bit = top - 1; bit >= 0; bit--) {
-    jac_dbl(t, t);
-    if ((e[bit >> 5] >> (bit & 31)) & 1u) jac_add_mixed_or_full(t, t, q);
+  w_segment(m, prog, 1);  // B
+  for (int k = 0; k < 4; k++) {
+    const bool p_ok = w_eq(m, hash_sq(k, LT_HASH_SQ_RP2), hash_sq(k, LT_HASH_SQ_XP), 1);
+    w_copy(m, hash_sq(k, LT_HASH_SQ_Y), hash_sq(k, p_ok ? LT_HASH_SQ_RP : LT_HASH_SQ_RM), 1);
+    w_copy(m, hash_sq(k, LT_HASH_SQ_IX0), hash_sq(k, p_ok ? LT_HASH_SQ_IP : LT_HASH_SQ_IM), 1);
   }
-  r = t;
+  w_segment(m, prog, 2);  // C
+  for (int k = 0; k < 4; k++)
+    if (a1z[k]) {
+      if (sp_ok[k]) {
+        w_copy(m, hash_sq(k, LT_HASH_SQ_Y), hash_sq(k, LT_HASH_SQ_SP), 1);
+        w_zero(m, hash_sq(k, LT_HASH_SQ_Y1), 1);
+      } else {
+        w_zero(m, hash_sq(k, LT_HASH_SQ_Y), 1);
+        w_copy(m, hash_sq(k, LT_HASH_SQ_Y1), hash_sq(k, LT_HASH_SQ_SM), 1);
+      }
+    }
+  w_segment(m, prog, 3);  // D
 }
 
-// one message: two SSWU points through iso3, added, cofactor-cleared
-LT_NOINL bool hash_to_g2_values(jac<fp2> &r, const fp2 &u0, const fp2 &u1, bool s0, bool s1) {
-  aff<fp2> p, q0, q1;
-  sswu_map_g2(p, u0, s0);
-  const bool ok0 = iso3_map(q0, p);
-  sswu_map_g2(p, u1, s1);
-  const bool ok1 = iso3_map(q1, p);
-  jac<fp2> s;
-  s.x = q0.x;
-  s.y = q0.y;
-  fp2_one(s.z);
-  jac_add_mixed(s, s, q1);  // q0 == +-q1 is negligible for hash outputs
-  g2_mul_words(r, s, LT_H_EFF, LT_H_EFF_TOP);
-  return ok0 && ok1;
+// SSWU's last selects for u_i: (x1, r) where r^2 == gx1 for gx1's root r,
+// else (x2, gx2's root), into AFF; y negated where RFC 9380 sgn0(y)
+// differs from the host's sgn0(u) bit
+LT_DEV void hash_pick(const wmem &m, int i, bool u_sgn0) {
+  const bool ok1 = w_eq(m, hash_sq(2 * i, LT_HASH_SQ_S), hash_sq(2 * i, LT_HASH_SQ_A), 2);
+  const int k = 2 * i + (ok1 ? 0 : 1);
+  w_copy(m, LT_HASH_AFF + 4 * i, LT_HASH_CX + 4 * i + (ok1 ? 0 : 2), 2);
+  fp v0, v1;  // every thread reads both: the sign is uniform across the warp
+  w_get(v0, m, hash_sq(k, LT_HASH_SQ_RAW));
+  w_get(v1, m, hash_sq(k, LT_HASH_SQ_RAW) + 1);
+  const bool sgn0 = (v0.w[0] & 1u) || (fp_is_zero(v0) && (v1.w[0] & 1u));
+  w_copy(m, LT_HASH_AFF + 4 * i + 2, hash_sq(k, sgn0 == u_sgn0 ? LT_HASH_SQ_Y : LT_HASH_SQ_NY), 2);
+}
+
+// segment k, an addition of AP and AQ, then jac_add_full's selects into
+// dst (the point at infinity is Z = 0): Q where P is infinity, P where Q
+// is, 2P where H = R = 0, else the sum (Z = 0 where H = 0 alone)
+LT_DEV void hash_add(const wmem &m, const wprog &prog, int k, int dst) {
+  w_segment(m, prog, k);
+  const bool p_inf = w_eq(m, LT_HASH_AP + 4, -1, 2), q_inf = w_eq(m, LT_HASH_AQ + 4, -1, 2);
+  const bool h_zero = w_eq(m, LT_HASH_AH, -1, 2), r_zero = w_eq(m, LT_HASH_AR, -1, 2);
+  w_copy(m, dst, p_inf ? LT_HASH_AQ : q_inf ? LT_HASH_AP : h_zero && r_zero ? LT_HASH_AD : LT_HASH_AS, 6);
+}
+
+// AP <- a, AQ <- b, then the addition (segment k) into dst
+LT_DEV void hash_add_regs(const wmem &m, const wprog &prog, int k, int a, int b, int dst) {
+  w_copy(m, LT_HASH_AP, a, 6);
+  w_copy(m, LT_HASH_AQ, b, 6);
+  hash_add(m, prog, k, dst);
 }
 
 // u: plain planes [2, 2, 12, n] (u0, u1); sgn: [2, n] (sgn0(u0), sgn0(u1));
-// out: Jacobian planes [3, 2, 12, n]; ok: [n]
-LT_DEV void hash_g2_lane(const int32_t *u, const int32_t *sgn, int32_t *out, int32_t *ok, int n,
+// out: Jacobian planes [3, 2, 12, n]; ok: [n].  One warp.
+LT_DEV void hash_g2_warp(const wmem &m, const int32_t *u, const int32_t *sgn, int32_t *out, int32_t *ok, int n,
                          int lane) {
-  fp2 p0, p1, u0, u1;
-  fp2_load(p0, u, n, lane);
-  fp2_load(p1, u + 2 * LT_NL * n, n, lane);
-  fp_mont_convert(u0.c0, p0.c0);
-  fp_mont_convert(u0.c1, p0.c1);
-  fp_mont_convert(u1.c0, p1.c0);
-  fp_mont_convert(u1.c1, p1.c1);
-  jac<fp2> r;
-  const bool good = hash_to_g2_values(r, u0, u1, sgn[lane] != 0, sgn[n + lane] != 0);
-  fp2_store(out, n, lane, r.x);
-  fp2_store(out + 2 * LT_NL * n, n, lane, r.y);
-  fp2_store(out + 4 * LT_NL * n, n, lane, r.z);
-  ok[lane] = good ? 1 : 0;
+  const wprog prog = {LT_HASH_SEG, LT_HASH_PHASE, LT_HASH_INS};
+  w_load_planes(m, LT_HASH_UIN, u, 4, n, lane);
+  LT_SYNCWARP();
+  w_segment(m, prog, 0);  // a: SSWU to gx1, gx2 of both u; the roots' A
+  hash_roots(m, prog);    // b, c, d
+  hash_pick(m, 0, sgn[lane] != 0);
+  hash_pick(m, 1, sgn[n + lane] != 0);
+  w_segment(m, prog, 4);  // iso: q0 -> AP, q1 -> AQ
+  const bool good = !w_eq(m, LT_HASH_AP + 4, -1, 2) && !w_eq(m, LT_HASH_AQ + 4, -1, 2);
+  hash_add(m, prog, 5, LT_HASH_PT);  // P = q0 + q1
+  w_segment(m, prog, 6);             // chain_p: t1, -t1, t2, -P; AP, AQ = psi^2(2P), -t2
+  hash_add(m, prog, 7, LT_HASH_T3);  // t3 = psi^2(2P) - t2
+  hash_add_regs(m, prog, 8, LT_HASH_T1, LT_HASH_T2, LT_HASH_U);  // t1 + t2
+  w_segment(m, prog, 9);             // chain_u: t2 = [x](t1 + t2)
+  hash_add_regs(m, prog, 10, LT_HASH_T3, LT_HASH_T2B, LT_HASH_T3);  // t3 + t2
+  hash_add_regs(m, prog, 11, LT_HASH_T3, LT_HASH_MT1, LT_HASH_T3);  // - t1
+  hash_add_regs(m, prog, 12, LT_HASH_T3, LT_HASH_MP, LT_HASH_OUT);  // - P
+  w_store_planes(m, LT_HASH_OUT, out, 6, n, lane);
+  if (LT_T0 == 0) ok[lane] = good ? 1 : 0;
 }
 
 #ifdef __CUDACC__
-
-#define LT_LANE_BLOCK 32
 
 __global__ void __launch_bounds__(LT_WARP * LT_LPB)
     lt_g2_decompress_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ flags,
@@ -216,11 +195,14 @@ __global__ void __launch_bounds__(LT_WARP * LT_LPB)
   if (lane < n) g2_decompress_warp(m, x, flags, xy, ok, n, lane);
 }
 
-__global__ void __launch_bounds__(LT_LANE_BLOCK)
-    lt_hash_g2_kernel(const int32_t *__restrict__ u, const int32_t *__restrict__ sgn,
-                      int32_t *__restrict__ out, int32_t *__restrict__ ok, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) hash_g2_lane(u, sgn, out, ok, n, lane);
+__global__ void __launch_bounds__(LT_WARP * LT_LPB)
+    lt_hash_g2_kernel(const int32_t *__restrict__ u, const int32_t *__restrict__ sgn, int32_t *__restrict__ out,
+                      int32_t *__restrict__ ok, int n) {
+  extern __shared__ uint32_t lt_sm[];
+  const int warp = threadIdx.x / LT_WARP;
+  const wmem m = w_block(lt_sm, LT_HASH_SLOTS, LT_HASH_CONSTS, LT_HASH_CONST, warp);
+  const int lane = blockIdx.x * LT_LPB + warp;
+  if (lane < n) hash_g2_warp(m, u, sgn, out, ok, n, lane);
 }
 
 extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void *ok, int n,
@@ -235,12 +217,13 @@ extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void
   return (int)cudaGetLastError();
 }
 
-extern "C" int lt_hash_g2(const void *u, const void *sgn, void *out, void *ok, int n,
-                          void *stream) {
-  if (n > 0)
-    lt_hash_g2_kernel<<<(n + LT_LANE_BLOCK - 1) / LT_LANE_BLOCK, LT_LANE_BLOCK, 0,
-                        (cudaStream_t)stream>>>((const int32_t *)u, (const int32_t *)sgn,
-                                                (int32_t *)out, (int32_t *)ok, n);
+extern "C" int lt_hash_g2(const void *u, const void *sgn, void *out, void *ok, int n, void *stream) {
+  if (n > 0) {
+    const wlaunch l = w_launch("hash_g2", n, LT_HASH_SLOTS, LT_HASH_CONSTS, LT_HASH_PHASES, LT_HASH_ROUNDS);
+    cudaFuncSetAttribute(lt_hash_g2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    lt_hash_g2_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
+        (const int32_t *)u, (const int32_t *)sgn, (int32_t *)out, (int32_t *)ok, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -262,11 +245,15 @@ extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void
   return 0;
 }
 
-extern "C" int lt_hash_g2(const void *u, const void *sgn, void *out, void *ok, int n,
-                          void *stream) {
+extern "C" int lt_hash_g2(const void *u, const void *sgn, void *out, void *ok, int n, void *stream) {
   (void)stream;
-  for (int lane = 0; lane < n; lane++)
-    hash_g2_lane((const int32_t *)u, (const int32_t *)sgn, (int32_t *)out, (int32_t *)ok, n, lane);
+  const wlaunch l = w_launch("hash_g2", n, LT_HASH_SLOTS, LT_HASH_CONSTS, LT_HASH_PHASES, LT_HASH_ROUNDS);
+  uint32_t *sm = (uint32_t *)malloc(l.smem);
+  for (int lane = 0; lane < n; lane++) {
+    const wmem m = w_block(sm, LT_HASH_SLOTS, LT_HASH_CONSTS, LT_HASH_CONST, lane % LT_LPB);
+    hash_g2_warp(m, (const int32_t *)u, (const int32_t *)sgn, (int32_t *)out, (int32_t *)ok, n, lane);
+  }
+  free(sm);
   return 0;
 }
 
@@ -298,16 +285,33 @@ extern "C" int lt_host_signs(const void *a, void *out, int n) {
   return 0;
 }
 
-// u: Fp2 planes [2, 12, n]; sgn: [n] -> r: affine E2' planes [2, 2, 12, n]
+// u: Fp2 planes [2, 12, n] (Montgomery); sgn: [n] -> r: affine E2' planes
+// [2, 2, 12, n], the SSWU point of u as hash_g2_warp selects it (u is
+// given as both u0 and u1, out of Montgomery form)
 extern "C" int lt_host_sswu(const void *u, const void *sgn, void *r, int n) {
+  const size_t smem = w_smem_bytes(LT_HASH_SLOTS, LT_HASH_CONSTS);
+  uint32_t *sm = (uint32_t *)malloc(smem);
+  const wmem m = w_block(sm, LT_HASH_SLOTS, LT_HASH_CONSTS, LT_HASH_CONST, 0);
+  const wprog prog = {LT_HASH_SEG, LT_HASH_PHASE, LT_HASH_INS};
+  fp raw1 = {{1u}};
   for (int lane = 0; lane < n; lane++) {
-    fp2 x;
-    aff<fp2> p;
-    fp2_load(x, (const int32_t *)u, n, lane);
-    sswu_map_g2(p, x, ((const int32_t *)sgn)[lane] != 0);
-    fp2_store((int32_t *)r, n, lane, p.x);
-    fp2_store((int32_t *)r + 2 * LT_NL * n, n, lane, p.y);
+    for (int c = 0; c < 2; c++) {
+      fp v, plain;
+      fp_load(v, (const int32_t *)u + c * LT_NL * n, n, lane);
+      fp_mont_mul(plain, v, raw1);
+      w_put(m, LT_HASH_UIN + c, plain);
+      w_put(m, LT_HASH_UIN + 2 + c, plain);
+    }
+    w_segment(m, prog, 0);
+    hash_roots(m, prog);
+    hash_pick(m, 0, ((const int32_t *)sgn)[lane] != 0);
+    for (int c = 0; c < 4; c++) {
+      fp v;
+      w_get(v, m, LT_HASH_AFF + c);
+      fp_store((int32_t *)r + c * LT_NL * n, n, lane, v);
+    }
   }
+  free(sm);
   return 0;
 }
 

@@ -1,10 +1,10 @@
 // Optimal ate pairing on the warp engine: the Miller loop and the final
 // exponentiation, one warp per lane (csrc/warp12.cuh).
 //
-// The programs (warp_prog.cuh, generated) are the per-thread engine's formulas
-// (csrc/tower.cuh, after lodestar_tpu/kernels/pairing.py's doubling and
-// addition steps, line scalings and final-exponentiation chain) packed
-// into rounds of up to 32 Fp products by kernels/warp_schedule.py.  Every
+// The programs (warp_prog.cuh, generated) are the tower's formulas
+// (kernels/warp_schedule.py Tower, after lodestar_tpu/kernels/pairing.py's
+// doubling and addition steps, line scalings and final-exponentiation
+// chain) packed into rounds of up to 32 Fp products.  Every
 // value is canonical, so the Miller value equals the JAX package's and the
 // plain torch engine's as canonical Fp12 integers whatever the schedule.
 #pragma once

@@ -1,6 +1,6 @@
-// The warp engine of the pairing kernels, r sig, r pk, the G2 decompression
-// and the affine conversion (one warp per lane), and of the G2 lane sum (one
-// warp per addition).
+// The warp engine of the pairing kernels, r sig, r pk, the G2 decompression,
+// the hash to G2 and the affine conversion (one warp per lane), and of the
+// G2 lane sum and the Fp12 lane product (one warp per addition or product).
 //
 // A lane's values are Fp "slots" in shared memory, stored limb-major: the
 // block's memory is [12][cols], slot s of warp w in column w * slots + s
@@ -112,9 +112,10 @@ LT_DEV void w_put(const wmem &m, uint32_t idx, const fp &a) {
 }
 
 // ---------------------------------------------------------------------------
-// The programs' one Fp inversion (LT_OP_INV: the final exponentiation's
-// and the affine conversion's), on one thread: Pornin's binary GCD
-// ("Optimized Binary GCD for Modular Inversion", 2020) on the canonical
+// The programs' Fp inversion (LT_OP_INV: the final exponentiation's, the
+// affine conversion's, the hash's two in one phase), each on one thread:
+// Pornin's binary GCD ("Optimized Binary GCD for Modular Inversion", 2020)
+// on the canonical
 // integer, variable time (every value it sees derives from public pubkeys,
 // signatures and signing roots).  Each outer step runs LT_GCD_STEPS
 // binary-GCD steps on 62-bit approximations of a and b (their low 30 bits
@@ -298,14 +299,23 @@ LT_DEV void fp_inv_var(fp &r, const fp &y) {
 
 // one instruction word: kind << 30 | dst << 20 | a << 10 | b.  The
 // inversion is compiled only where a wanted program has one
-// (warp_prog.cuh defines LT_WANT_INV): it would take registers from the
-// interpreter of every other program.
+// (warp_prog.cuh defines LT_WANT_INV) and the caller's program is one of
+// them (INV, by default whether any is): it would take registers from the
+// interpreter of every other program, also in a source that holds both
+// kinds (csrc/ingest.cu runs g2_decompress with INV false).
+#ifdef LT_WANT_INV
+#define LT_INV_DEFAULT true
+#else
+#define LT_INV_DEFAULT false
+#endif
+
+template <bool INV = LT_INV_DEFAULT>
 LT_DEV void w_exec(const wmem &m, uint32_t word) {
   const uint32_t kind = word >> 30;
   fp x, y, r;
   w_get(x, m, (word >> 10) & 1023u);
 #ifdef LT_WANT_INV
-  if (kind == LT_OP_INV) {
+  if (INV && kind == LT_OP_INV) {
     fp_inv_var(r, x);
     w_put(m, (word >> 20) & 1023u, r);
     return;
@@ -323,6 +333,7 @@ LT_DEV void w_exec(const wmem &m, uint32_t word) {
 
 // Run phase words [count << 21 | offset] over the instruction words: a
 // phase's words are rows of 32, thread t running words t, t + 32, ...
+template <bool INV = LT_INV_DEFAULT>
 LT_DEV void w_run(const wmem &m, const uint32_t *phase, int nphase, const uint32_t *ins) {
 #ifdef __CUDACC__
   // The next phase's word and this thread's first instruction of it are
@@ -337,10 +348,10 @@ LT_DEV void w_run(const wmem &m, const uint32_t *phase, int nphase, const uint32
     const uint32_t ph2 = k + 2 < nphase ? __ldg(phase + k + 2) : 0u;
     const uint32_t w1 = first(ph1);
     const int cnt = (int)(ph >> 21), off = (int)(ph & 0x1fffffu);
-    if (w != LT_NOP) w_exec(m, w);
+    if (w != LT_NOP) w_exec<INV>(m, w);
     for (int i = t + LT_WARP; i < cnt; i += LT_WARP) {
       const uint32_t wi = __ldg(ins + off + i);
-      if (wi != LT_NOP) w_exec(m, wi);
+      if (wi != LT_NOP) w_exec<INV>(m, wi);
     }
     __syncwarp();
     ph = ph1;
@@ -359,7 +370,7 @@ LT_DEV void w_run(const wmem &m, const uint32_t *phase, int nphase, const uint32
     for (int j = 0; j < LT_WARP; j++) {  // virtual threads, forwards or reversed
       const int t = lt_host_rev ? LT_WARP - 1 - j : j;
       for (int i = t; i < cnt; i += LT_WARP)
-        if (ins[off + i] != LT_NOP) w_exec(m, ins[off + i]);
+        if (ins[off + i] != LT_NOP) w_exec<INV>(m, ins[off + i]);
     }
   }
 #endif
@@ -425,9 +436,10 @@ struct wprog {
 };
 
 // segment k of the program's order
+template <bool INV = LT_INV_DEFAULT>
 LT_DEV void w_segment(const wmem &m, const wprog &p, int k) {
   const uint32_t a = p.seg[k], b = p.seg[k + 1];
-  w_run(m, p.phase + a, (int)(b - a), p.ins);
+  w_run<INV>(m, p.phase + a, (int)(b - a), p.ins);
 }
 
 // The block's dynamic shared memory for `warps` warps of a program of

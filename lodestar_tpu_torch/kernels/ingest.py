@@ -6,14 +6,18 @@ ingest.py`; the CUDA device functions are in `csrc/ingest.cu` and
 `csrc/keyvalidate.cu`, and the kernel wrappers (`g2_decompress`,
 `hash_g2`, `g1_keyvalidate`) with their plain versions in
 `kernels/verify.py`.  Same steps, constants and selects as the JAX
-package, so the points (and the Jacobian coordinates of the hash) equal
-the JAX functions' exactly:
+package, so the points (and, but for the hash, the Jacobian
+coordinates) equal the JAX functions' exactly:
 
   - `g2_decompress_y`: y from x and the wire sign bit (one Fp2 sqrt);
-  - `sswu_map_g2`, `iso3_map`, `clear_cofactor_g2_jac`,
+  - `sswu_map_g2`, `iso3_map_jac`, `clear_cofactor_g2_psi`,
     `hash_to_g2_values`: the map of RFC 9380 for G2; expand_message_xmd
     and hash_to_field stay on the host, which ships u as plain limbs and
-    its sgn0 bit;
+    its sgn0 bit.  Where the JAX package inverts the iso3 denominators and
+    clears the cofactor by the 636-bit H_EFF chain, the port writes the
+    isogeny's image in Jacobian form and clears by psi (RFC 9380 appendix
+    G.3): the same points, other Jacobian triples, which the CUDA kernel
+    equals bit for bit;
   - `g1_keyvalidate`: a compressed pubkey's y (one Fp sqrt) and the
     on-curve and [r]P subgroup checks of blst KeyValidate.
 
@@ -89,39 +93,62 @@ def _poly2(coeffs, x):
     return acc
 
 
-def iso3_map(pt):
-    """The 3-isogeny E2' -> E2: ((x, y), ok), ok False where a denominator
-    vanishes (the JAX guard)."""
+def iso3_map_jac(pt):
+    """The 3-isogeny E2' -> E2 straight into Jacobian form, with no
+    inversion: Z = xden yden, X = xnum xden yden^2, Y = y ynum xden^3
+    yden^2, so X / Z^2 = xnum / xden and Y / Z^3 = y ynum / yden.  Z is 0
+    exactly where a denominator vanishes (the JAX guard's ok flag is
+    Z != 0)."""
     x, y = pt
-    xden = _poly2(HC._ISO3_XDEN, x)
-    yden = _poly2(HC._ISO3_YDEN, x)
-    ok = ~F2.is_zero2(xden) & ~F2.is_zero2(yden)
-    xn = F2.mul2(_poly2(HC._ISO3_XNUM, x), TW.inv2(xden))
-    yn = F2.mul2(F2.mul2(y, _poly2(HC._ISO3_YNUM, x)), TW.inv2(yden))
-    return (xn, yn), ok
+    xn, xd, yn, yd = (_poly2(c, x) for c in (HC._ISO3_XNUM, HC._ISO3_XDEN, HC._ISO3_YNUM, HC._ISO3_YDEN))
+    yd2 = F2.sqr2(yd)
+    xd3 = F2.mul2(F2.sqr2(xd), xd)
+    return F2.mul2(F2.mul2(xn, xd), yd2), F2.mul2(F2.mul2(y, yn), F2.mul2(xd3, yd2)), F2.mul2(xd, yd)
 
 
-def clear_cofactor_g2_jac(q_jac):
-    """[H_EFF] Q for a Jacobian Q: double, then the generic addition of Q
-    where the bit of H_EFF is set (MSB first)."""
-    T = q_jac
-    for bit in bin(HC.H_EFF_G2)[3:]:
-        T = CV.jac_dbl(CV.FP2_OPS, T)
+def _add_complete(p, q):
+    """P + Q by `jac_add_full`, the point at infinity being Z = 0 in and
+    out (a doubling where P == Q, Z = 0 where P == -Q)."""
+    f = CV.FP2_OPS
+    return CV.jac_add_full(f, p, f.is_zero(p[2]), q, f.is_zero(q[2]))[0]
+
+
+def _mul_x_abs(p):
+    """[|x|] P: 63 doublings and 5 generic additions of P (the static
+    chain of the subgroup check, P Jacobian)."""
+    f, T = CV.FP2_OPS, p
+    for bit in bin(-GT.X_PARAM)[3:]:
+        T = CV.jac_dbl(f, T)
         if bit == "1":
-            T = CV.jac_add_mixed_or_full(CV.FP2_OPS, T, q_jac)
+            T = CV.jac_add_mixed_or_full(f, T, p)
     return T
+
+
+def clear_cofactor_g2_psi(p):
+    """[h_eff] P for a Jacobian P on E2 by the psi endomorphism, as RFC
+    9380 appendix G.3 writes it (c1 = x < 0, so [x] Q = -[|x|] Q):
+    t1 = [x] P, t2 = psi(P), t3 = psi^2(2P) - t2, t2 = [x](t1 + t2), then
+    ((t3 + t2) - t1) - P, every addition complete.  The same point as the
+    636-bit H_EFF chain of the JAX package, in two 64-bit chains."""
+    f = CV.FP2_OPS
+    t1 = CV.jac_neg(f, _mul_x_abs(p))
+    t2 = CV.g2_psi(p)
+    t3 = _add_complete(CV.g2_psi(CV.g2_psi(CV.jac_dbl(f, p))), CV.jac_neg(f, t2))
+    t2 = CV.jac_neg(f, _mul_x_abs(_add_complete(t1, t2)))
+    return _add_complete(_add_complete(_add_complete(t3, t2), CV.jac_neg(f, t1)), CV.jac_neg(f, p))
 
 
 def hash_to_g2_values(u, u_sgn0):
     """map_to_curve of one message per lane: u [2, ..., 2, ND, N] holds
     (u0, u1) and u_sgn0 [2, ..., N] their sgn0 bits.  Two SSWU points
-    through iso3, added, cofactor-cleared -> (Jacobian G2, ok = both iso3
-    maps ok)."""
-    q, ok = iso3_map(sswu_map_g2(u, u_sgn0))
-    (x0, x1), (y0, y1) = (c.unbind(0) for c in q)
-    one = CV.FP2_OPS.one(x0.shape[-1], x0.device).expand_as(x0)
-    s = CV.jac_add_mixed(CV.FP2_OPS, (x0, y0, one), (x1, y1))
-    return clear_cofactor_g2_jac(s), ok[0] & ok[1]
+    through iso3 into Jacobian form, added by the complete addition, the
+    cofactor cleared by psi -> (Jacobian G2, ok = both iso3 denominators
+    nonzero); csrc/ingest.cu makes the same curve operations in the same
+    order."""
+    q = iso3_map_jac(sswu_map_g2(u, u_sgn0))
+    ok = ~F2.is_zero2(q[2])
+    p = _add_complete(tuple(c[0] for c in q), tuple(c[1] for c in q))
+    return clear_cofactor_g2_psi(p), ok[0] & ok[1]
 
 
 def g1_keyvalidate(x, sign):

@@ -196,7 +196,6 @@ def cuda_constants() -> str:
     file with this text)."""
     from ..crypto import curves as CU
     from ..crypto import fields as F
-    from ..crypto import hash_to_curve as HC
 
     x_abs = -F.X_PARAM
     mont = lambda v: v % P * R_MOD_P % P  # noqa: E731
@@ -222,7 +221,7 @@ def cuda_constants() -> str:
         f"LT_CONST uint32_t LT_G2X[2][12] = {_fp2_words(mont2(CU.G2_GEN[0]))};",
         f"LT_CONST uint32_t LT_G2Y[2][12] = {_fp2_words(mont2(CU.G2_GEN[1]))};",
     ]
-    # ingest: square roots, signs, decompression, SSWU, iso3, cofactor
+    # ingest: square roots, signs, decompression
     sqrt_exp = (P + 1) // 4
     lines += [
         f"#define LT_SQRT_TOP {sqrt_exp.bit_length() - 1}",
@@ -237,26 +236,6 @@ def cuda_constants() -> str:
         f"LT_CONST uint32_t LT_G1_B[12] = {_fp_words(mont(CU.FP_OPS.b_coeff))};",
         f"#define LT_R_TOP {r.bit_length() - 1}",
         f"LT_CONST uint32_t LT_R_ORDER[{-(-r.bit_length() // 32)}] = {_exp_words(r)};",
-    ]
-    a, b, z = HC._A2, HC._B2, HC._Z2
-    sswu = {
-        "A": a,
-        "B": b,
-        "Z": z,
-        "MBA": F.fp2_mul(F.fp2_neg(b), F.fp2_inv(a)),
-        "BZA": F.fp2_mul(b, F.fp2_inv(F.fp2_mul(z, a))),
-    }
-    for name, v in sswu.items():
-        lines.append(f"LT_CONST uint32_t LT_SSWU_{name}[2][12] = {_fp2_words(mont2(v))};")
-    for name in ("XNUM", "XDEN", "YNUM", "YDEN"):
-        coeffs = getattr(HC, f"_ISO3_{name}")
-        body = ", ".join(_fp2_words(mont2(c)) for c in coeffs)
-        lines.append(f"#define LT_ISO_{name}_LEN {len(coeffs)}")
-        lines.append(f"LT_CONST uint32_t LT_ISO_{name}[{len(coeffs)}][2][12] = {{{body}}};")
-    h = HC.H_EFF_G2
-    lines += [
-        f"#define LT_H_EFF_TOP {h.bit_length() - 1}",
-        f"LT_CONST uint32_t LT_H_EFF[{-(-h.bit_length() // 32)}] = {_exp_words(h)};",
     ]
     return "\n".join(lines) + "\n"
 

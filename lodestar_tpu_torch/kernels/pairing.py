@@ -121,9 +121,10 @@ def miller_loop(p_jac, q_aff):
 def product12_lanes(f, valid, width: int = 128):
     """Product of the valid lanes of f [2, 3, 2, ND, N] -> [..., 1].
 
-    The order of csrc/reduce.cu (`width` slots folding lanes j, j + width,
-    ..., then a tree); Fp12 values are canonical, so every order gives
-    these integers and the JAX package's `product12_lanes` too."""
+    `width` slots fold lanes j, j + width, ..., then a tree.  Fp12 values
+    are canonical, so any order of the products gives these integers:
+    csrc/reduce.cu's pairwise tree over the lanes and the JAX package's
+    `product12_lanes` too."""
     n = f.shape[-1]
     f = TW.select(valid, f, TW.one12(n, f.device))
     tiles = max(1, -(-n // width))

@@ -1,7 +1,8 @@
 """Fp6 / Fp12 tower: the plain torch engine and its CUDA twin.
 
-Counterpart of `lodestar_tpu/kernels/tower.py`; the CUDA device functions
-are in `csrc/tower.cuh`.  The tower is the one of the host ground truth
+Counterpart of `lodestar_tpu/kernels/tower.py`; on the card the tower's
+formulas run as warp programs (`kernels/warp_schedule.py Tower`, traced
+from the same formulas).  The tower is the one of the host ground truth
 (`crypto/fields.py`):
 
     Fp2  = Fp[u]/(u^2 + 1)

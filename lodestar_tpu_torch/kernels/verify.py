@@ -64,8 +64,8 @@ for CPU tensors; any other device raises.  There is no fallback from one
 to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches
 (`mont_convert` on 4 planes under its own name, `mont_convert_4`; the
 segmented sums launch once per round of their scan, `seg_rounds(N)`, and
-`sum_g2` once per reduction of its elements by 32, as its entry point
-reports).
+`sum_g2` and `prod12` once per reduction of their elements by 32, as
+their entry points report).
 
 Planes are int32 ``[..., 12, N]`` (`kernels/layout.py`), the batch on the
 last axis; an Fp2 value is ``[2, 12, N]``, an affine G2 point
@@ -93,13 +93,14 @@ from . import ingest as IG
 from . import layout as LY
 from . import pairing as KP
 from . import tower as TW
+from . import warp_schedule as W
 
 NL = LY.NL
 ND = LY.ND
 RAND_BITS = 128  # RLC randomizer width (bls/rand.py)
 RAND_WORDS = RAND_BITS // 32
 WINDOW = 4  # scalar-multiplication window; divides 32
-BT = 128  # slots of prod12 (csrc/reduce.cu), the JAX lane tile
+BT = 128  # the JAX lane tile: the grouped paths' Miller tile and the hash batches' multiple
 AGG_CHUNK = 32  # rows of one tree of the pubkey aggregation (csrc/aggpk.cu)
 AGG_BATCH = 16  # chunks whose trees one agg_pk block runs at once
 AGG_THREADS = 256  # most threads of an agg_pk block
@@ -126,7 +127,7 @@ LAUNCHES: Dict[str, int] = {
 
 # Fp multiplications per lane of each kernel (per element for
 # mont_convert; per combine for the reductions sum_g2 and prod12, which
-# make N - 1 and max(N, 128) - 1 of them; per addition for agg_pk, which needs
+# make N - 1 of them; per addition for agg_pk, which needs
 # one per live row after a lane's first, and for the segmented sums,
 # which make one per lane and round and need one per live lane after its
 # group's first), from the structure of csrc/*.cuh;
@@ -147,7 +148,7 @@ FP_MULS_PER_LANE = {
     "affine_g2": 16,
     "final_one": 7730,
     "g2_decompress": 1864,
-    "hash_g2": 41987,
+    "hash_g2": 10412,
     "agg_pk": 23,
     "g1_keyvalidate": 5448,
     "seg_sum_g1": 23,
@@ -156,11 +157,12 @@ FP_MULS_PER_LANE = {
 IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 # Rounds per lane of the warp-per-lane kernels (csrc/warp12.cuh): phases
 # of up to 32 independent Fp products, one per thread, and the programs'
-# one inversion (the final exponentiation's and affine_g2's); sum_g2's per
-# addition (kernels/warp_schedule.py; the host build counts them,
-# tests/test_torch_warp_{pairing,rsig,rpk,decompress,sum}.py)
+# inversions (the final exponentiation's, affine_g2's, hash_g2's two in one
+# phase); sum_g2's per addition, prod12's per product (kernels/
+# warp_schedule.py; the host build counts them,
+# tests/test_torch_warp_{pairing,rsig,rpk,decompress,sum,hash}.py)
 ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533, "g1_rpk": 533,
-                   "g2_decompress": 899, "sum_g2": 5, "affine_g2": 7}
+                   "g2_decompress": 899, "sum_g2": 5, "affine_g2": 7, "hash_g2": 1361, "prod12": 2}
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
@@ -179,7 +181,33 @@ R_DOUBLINGS, R_ADDITIONS = 254, 133
 # agg_pk's table rows) needs only the mixed addition.  affine_g2 needs all
 # of its 16 products and, beside them, its one Fp inversion, which both
 # counts leave out: the bound adds the binary GCD's multiplies on the
-# call's data (GCD_IMAD_PER_STEP, affine_g2_gcd_steps).
+# call's data (GCD_IMAD_PER_STEP, affine_g2_gcd_steps).  hash_g2 (the psi
+# clearing) needs its program's products but the doublings made beside its
+# six complete additions (HASH_ADDITIONS) and its square roots' chains, its
+# two inversions per lane counted as affine_g2's (hash_g2_gcd_steps).  The
+# program runs the norm method's four chains (HASH_ROOT_MULS) for all four
+# candidates gx1, gx2 of u0 and u1 in the same rounds; the function needs,
+# per u, gx1's norm chain (whether gx1 is a square), gx2's where it is not,
+# and the chosen candidate's root: sp where its imaginary part is 0, else rp
+# and, where rp^2 != xp, rm.  The bound adds those on the call's data
+# (hash_g2_root_muls).  The candidates' few other products (gx2, the
+# halves, the root's second half and sign) stay counted for all four.
+HASH_ADDITIONS = 6
+
+
+def _pow_window_muls(e: int) -> int:
+    """Fp products of warp_schedule.pow_window's chain for the static e."""
+    t = W.Trace({})
+    W.pow_window(t, t.input(), e)
+    return sum(k == W.MUL for k in t.kind)
+
+
+# Fp products of each chain of the norm method with the products that only
+# it feeds: the norm (2) and d; sp and sp^2; rp = t xp, 1 / rp (2) and rp^2;
+# rm and 1 / rm (2).  d and sp are powers by (p + 1) / 4, rp and rm by
+# (p - 3) / 4 (and one product).
+_POW_S, _POW_T = _pow_window_muls(W.SQRT_EXP), _pow_window_muls((GT.P - 3) // 4)
+HASH_ROOT_MULS = {"norm": 2 + _POW_S, "sp": _POW_S + 1, "rp": _POW_T + 4, "rm": _POW_T + 3}
 FP_MULS_NEEDED = dict(
     FP_MULS_PER_LANE,
     g1_keyvalidate=FP_MULS_PER_LANE["g1_keyvalidate"] - R_ADDITIONS * (ADD_MULS + DBL_MULS - MADD_MULS),
@@ -187,6 +215,7 @@ FP_MULS_NEEDED = dict(
     sum_g2=ADD2_MULS,
     seg_sum_g1=ADD_MULS,
     seg_sum_g2=ADD2_MULS,
+    hash_g2=FP_MULS_PER_LANE["hash_g2"] - HASH_ADDITIONS * DBL2_MULS - 4 * sum(HASH_ROOT_MULS.values()),
 )
 
 # The programs' Fp inversion, csrc/warp12.cuh fp_inv_var: outer steps of
@@ -229,6 +258,67 @@ def affine_g2_gcd_steps(p: torch.Tensor) -> int:
     return sum(gcd_steps((z0 * z0 + z1 * z1) * LY.R_INV % LY.P) for z0, z1 in zip(*zm))
 
 
+def _hash_u(u: torch.Tensor):
+    """Plain (u0, u1) planes [2, 2, 12, N] -> the Fp2 values u0 of every
+    lane, then u1 of every lane."""
+    planes = u.cpu().to(torch.int64) & 0xFFFFFFFF
+    for i in range(2):
+        c = [[sum(int(planes[i, k, w, j]) << (32 * w) for w in range(NL)) for j in range(u.shape[-1])]
+             for k in range(2)]
+        yield from zip(*c)
+
+
+def _sswu_tv1(uu):
+    from ..crypto import hash_to_curve as HC
+
+    zu2 = GT.fp2_mul(HC._Z2, GT.fp2_sqr(uu))
+    return zu2, GT.fp2_add(GT.fp2_sqr(zu2), zu2)
+
+
+def hash_g2_gcd_steps(u: torch.Tensor) -> int:
+    """Outer steps of hash_g2's inversions on plain (u0, u1) planes
+    [2, 2, 12, N]: each lane inverts, for u0 and u1, the norm of SSWU's
+    tv1 = Z^2 u^4 + Z u^2 in Montgomery form."""
+    steps = 0
+    for uu in _hash_u(u):
+        tv1 = _sswu_tv1(uu)[1]
+        steps += gcd_steps((tv1[0] * tv1[0] + tv1[1] * tv1[1]) * LY.R % LY.P)
+    return steps
+
+
+def hash_g2_root_muls(u: torch.Tensor) -> int:
+    """The Fp products of the square roots' chains (HASH_ROOT_MULS) that
+    hash_g2's function needs on plain (u0, u1) planes [2, 2, 12, N]: per
+    u, gx1's norm chain, gx2's where gx1 is not a square, and the chosen
+    candidate's root chains, as the kernel selects them (a square in Fp2
+    has a square norm; rp^2 == xp where xp is a square)."""
+    from ..crypto import hash_to_curve as HC
+
+    p, a, b = LY.P, HC._A2, HC._B2
+    mba = GT.fp2_mul(GT.fp2_neg(b), GT.fp2_inv(a))
+    muls = 0
+    for uu in _hash_u(u):
+        zu2, tv1 = _sswu_tv1(uu)
+        if GT.fp2_is_zero(tv1):
+            x = GT.fp2_mul(b, GT.fp2_inv(GT.fp2_mul(HC._Z2, a)))
+        else:
+            x = GT.fp2_mul(mba, GT.fp2_add((1, 0), GT.fp2_inv(tv1)))
+        for cand in range(2):
+            g = GT.fp2_add(GT.fp2_mul(GT.fp2_add(GT.fp2_sqr(x), a), x), b)
+            n = (g[0] * g[0] + g[1] * g[1]) % p
+            d = pow(n, W.SQRT_EXP, p)
+            muls += HASH_ROOT_MULS["norm"]
+            if d * d % p == n:
+                break
+            x = GT.fp2_mul(zu2, x)
+        if g[1] == 0:
+            muls += HASH_ROOT_MULS["sp"]
+        else:
+            xp = (g[0] + d) * pow(2, -1, p) % p
+            muls += HASH_ROOT_MULS["rp"] + (HASH_ROOT_MULS["rm"] if pow(xp, W.SQRT_EXP, p) ** 2 % p != xp else 0)
+    return muls
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -266,8 +356,8 @@ def _shape(t: torch.Tensor, shape, what: str) -> None:
 def _launch(name: str, source: str, symbol: str, *args, launches=1) -> None:
     """Call a kernel's C entry point on the current stream; `launches` is
     the number of kernel launches it makes (the segmented sums launch once
-    per round), or a ctypes int that the entry point sets to it (sum_g2
-    relaunches on its partials until one is left)."""
+    per round), or a ctypes int that the entry point sets to it (sum_g2 and
+    prod12 relaunch on their partials until one is left)."""
     fn = getattr(B.load(source), symbol)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
@@ -488,7 +578,7 @@ def sum_g2(pts: torch.Tensor, excl: torch.Tensor):
     out_inf = torch.ones((1, 1), dtype=torch.int32, device=pts.device)
     if n == 0:
         return out, out_inf
-    lanes = B.load("reduce").lt_sum_g2_scratch_lanes(n)
+    lanes = B.load("reduce").lt_tree_scratch_lanes(n)
     scr = torch.empty((3 * 2 * NL * lanes,), dtype=torch.int32, device=pts.device)
     scr_inf = torch.empty((lanes,), dtype=torch.int32, device=pts.device)
     made = ctypes.c_int(0)
@@ -509,15 +599,23 @@ def prod12_plain(live, f):
 
 def prod12(live: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """Live flags [1, N], Fp12 [12, 12, N] -> the product of the live
-    lanes, Fp12 [12, 12, 1]."""
+    lanes, Fp12 [12, 12, 1] (a pairwise tree over the lanes, relaunched on
+    its partials as sum_g2's is; any order gives these integers).  N = 0
+    gives the Fp12 one."""
     n = f.shape[-1]
     _shape(live, (1, n), "prod12 live")
     _shape(f, (12, NL, n), "prod12 f")
     if _on_cpu(live, f):
         return prod12_plain(live, f)
-    scr = torch.empty((12, NL, BT), dtype=torch.int32, device=f.device)
-    _launch("prod12", "reduce", "lt_prod12", live.data_ptr(), f.data_ptr(), scr.data_ptr(), n)
-    return scr[..., :1].contiguous()
+    if n == 0:
+        return LY.digits_to_planes(TW.one12(1, f.device).reshape(12, ND, 1)).to(torch.int32)
+    lanes = B.load("reduce").lt_tree_scratch_lanes(n)
+    scr = torch.empty((12 * NL * lanes,), dtype=torch.int32, device=f.device)
+    out = torch.empty((12, NL, 1), dtype=torch.int32, device=f.device)
+    made = ctypes.c_int(0)
+    _launch("prod12", "reduce", "lt_prod12", live.data_ptr(), f.data_ptr(), scr.data_ptr(), out.data_ptr(), n,
+            ctypes.addressof(made), launches=made)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Warp-per-lane schedules of the Miller loop, the final exponentiation,
-the RLC batch's r sig with its G2 subgroup check and r pk, and the wire
-signature's decompression.
+the RLC batch's r sig with its G2 subgroup check and r pk, the wire
+signature's decompression, the hash to G2 and the affine conversion, and
+the warp-per-combine programs of the G2 lane sum and the Fp12 lane product.
 
 The CUDA pairing kernels (`csrc/miller.cu`, `csrc/final.cu`, `csrc/tail.cu`
 `lt_final_one`), `csrc/randmul.cu lt_g2_rsig_sub` and `lt_g1_rpk`, and
-`csrc/ingest.cu lt_g2_decompress` give each lane one warp.  The lane's
+`csrc/ingest.cu lt_g2_decompress` and `lt_hash_g2` give each lane one warp
+(`csrc/reduce.cu` one warp per addition or product).  The lane's
 values live
 in shared memory as Fp "slots"; a kernel runs a program of *phases*, and
 in each phase every thread of the warp that has work performs one Fp
@@ -12,8 +14,7 @@ operation from operand slots to a result slot, then the warp meets at
 `__syncwarp()`.  A *round* is a phase of Montgomery products (at most 32,
 one per thread); the adds, subtractions and xi-multiplications between
 products run as linear phases, spread over the threads the same way; an
-inversion phase runs the one Fp inversion of the final exponentiation on
-one thread.
+inversion phase runs a program's Fp inversions, one per thread.
 
 This module writes those programs.  It traces the formulas of the JAX
 package's tower, Miller steps, final exponentiation, curve operations
@@ -39,8 +40,9 @@ repeats two segments, a cyclotomic squaring and a product by the base,
 315 and 25 times; the Miller loop pipelines each bit's line products
 with the next bit's doubling step; the r sig and r pk kernels' window
 loop runs them a segment (a window) at a time and moves the digit's table
-entry between them; the decompression's segment loop runs its four segments
-and makes the square root's per-lane selects between them.
+entry between them; the decompression's and the hash's segment loops run
+their segments and make the per-lane selects (the square roots', the
+complete additions') between them.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Dict, List, Sequence, Tuple
 
 from ..crypto import curves as GC
 from ..crypto import fields as GT
+from ..crypto import hash_to_curve as HC
 
 P = GT.P
 R = 1 << 384
@@ -1263,9 +1266,237 @@ def affine_program() -> Program:
     return sg.program("AFFINE", ["affine"], {"P": "P", "A": "A", "G2": list(consts).index("g2.0")})
 
 
+# the hash's registers: the plain (u0, u1), the SSWU candidates (x1, x2) of
+# each u, then per square root k = 2 i + j (gx1 of u_i for j = 0, gx2 for
+# j = 1) a block of HASH_SQ_STRIDE slots holding the norm method's values
+# (decompress_program's, Y1 the root's second half), the two SSWU points
+# (x, y) after the selects, the complete addition's operands P, Q and its
+# P + Q, 2P, H and R, and the cofactor clearing's points: P = q0 + q1, t1 =
+# [x] P and -t1, psi(P), -P, t3, t1 + t2, [x](t1 + t2) and the output
+HASH_SQ = (("A", 0, 2), ("SP", 2, 1), ("SP2", 3, 1), ("SM", 4, 1), ("XP", 5, 1), ("XM", 6, 1), ("H1", 7, 1),
+           ("RP", 8, 1), ("RM", 9, 1), ("RP2", 10, 1), ("IP", 11, 1), ("IM", 12, 1), ("IX0", 13, 1), ("Y", 14, 2),
+           ("Y1", 15, 1), ("S", 16, 2), ("NY", 18, 2), ("RAW", 20, 2))
+HASH_SQ_STRIDE = 22
+HASH_SQ_BASE = 12
+
+
+def _hash_layout() -> Dict[str, Tuple[int, int]]:
+    lay = {"UIN": (0, 4), "CX": (4, 8)}
+    for k in range(4):
+        for name, off, n in HASH_SQ:
+            lay[f"{name}{k}"] = (HASH_SQ_BASE + k * HASH_SQ_STRIDE + off, n)
+    at = HASH_SQ_BASE + 4 * HASH_SQ_STRIDE
+    for name, n in (("AFF", 8), ("AP", 6), ("AQ", 6), ("AS", 6), ("AD", 6), ("AH", 2), ("AR", 2), ("PT", 6),
+                    ("T1", 6), ("MT1", 6), ("T2", 6), ("MP", 6), ("T3", 6), ("U", 6), ("T2B", 6), ("OUT", 6)):
+        lay[name] = (at, n)
+        at += n
+    return lay
+
+
+HASH_LAYOUT = _hash_layout()
+ISO3 = (("xn", HC._ISO3_XNUM), ("xd", HC._ISO3_XDEN), ("yn", HC._ISO3_YNUM), ("yd", HC._ISO3_YDEN))
+
+
+def _mul2_const(tw: Tower, a, name: str, c):
+    """a times the Fp2 constant c (named `name` in the trace): a Karatsuba
+    product, or two Fp products where c is real or imaginary."""
+    t = tw.t
+    if c == (1, 0):
+        return a
+    if c[1] == 0:
+        return tw.mul2_fp(a, t.const(name + ".0"))
+    if c[0] == 0:
+        k = t.const(name + ".1")
+        return (t.sub(tw.zero, t.mul(a[1], k)), t.mul(a[0], k))
+    return tw.mul2(a, tw.const2(name))
+
+
+def _mul_x_abs(f, p):
+    """[|x|] P by the static chain of rsig_program's subgroup steps: 63
+    doublings and 5 generic additions of P (P Jacobian: the addition is
+    the full one, without the dispatch)."""
+    T = p
+    for bit in bin(X_ABS)[3:]:
+        T = jac_dbl(f, T)
+        if bit == "1":
+            T = jac_add(f, T, p)
+    return T
+
+
+def _neg_pt(f, p):
+    return (p[0], f.neg(p[1]), p[2])
+
+
+def hash_program() -> Program:
+    """map_to_curve of one message per lane (csrc/ingest.cu lt_hash_g2):
+    RFC 9380's simplified SWU of u0 and u1 on E2', the 3-isogeny to E2 and
+    the cofactor clearing by the psi endomorphism (RFC 9380 appendix G.3),
+    as segments between which csrc/ingest.cu's segment loop makes the
+    per-lane selects on warp votes (the warp never diverges).
+
+      a    u to Montgomery form, Z u^2, tv1 = Z^2 u^4 + Z u^2 and its
+           inverse through its norm (one Fp inversion per u, both in one
+           phase: the variable-time binary GCD), x1 = (-B / A)(1 + 1 / tv1)
+           with the exceptional branch x1 = B / (Z A) where tv1 = 0 made
+           arithmetically (1 - tv1 / tv1 is 1 there, 0 elsewhere), x2 =
+           Z u^2 x1, gx1 and gx2, then decompress_program's segment A on
+           the four values gx1, gx2 of u0 and u1: eight exponentiations by
+           (p + 1) / 4 in the same rounds;
+      b-d  segments B, C, D of the norm method on the four, with the
+           segment loop's selects between them as in g2_decompress (D makes
+           the square r^2 of gx1's roots, -r and r out of Montgomery form);
+      -    per u: (x, y) = (x1, r1) where r1^2 == gx1, else (x2, r2), and y
+           negated where sgn0(y) differs from the host's sgn0(u) bit;
+      iso  the 3-isogeny of both points straight into Jacobian form, with
+           no inversion: Z = xden yden, X = xnum xden yden^2, Y = y ynum
+           xden^3 yden^2 (ok: both Z nonzero);
+      add  one complete addition P + Q of two Jacobian points (the sum,
+           2P beside it, H and R; the segment loop makes jac_add_full's
+           selects, infinity being Z = 0), run six times: q0 + q1, then the
+           clearing's
+      chain_p  t1 = [x] P = -[|x|] P (the static |x| chain), -t1, t2 =
+           psi(P), -P, and the operands psi^2(2P) and -t2 of t3;
+      chain_u  -[|x|](t1 + t2).
+
+    The clearing is RFC 9380's sequence: t3 = psi^2(2P) - t2, t2 = [x](t1
+    + t2), then ((t3 + t2) - t1) - P, every addition complete.  The plain
+    version (kernels/ingest.py) makes the same curve operations in the
+    same order, so the Jacobian output equals it bit for bit."""
+    consts = dict(_consts(False), r2=R * R % P, r3=mont(R * R % P), raw1=1, half=mont(pow(2, P - 2, P)))
+    consts.update(_psi_consts())
+    mba = GT.fp2_mul(GT.fp2_neg(HC._B2), GT.fp2_inv(HC._A2))  # -B / A
+    bza = GT.fp2_mul(HC._B2, GT.fp2_inv(GT.fp2_mul(HC._Z2, HC._A2)))  # B / (Z A)
+    fp2_consts = {"z": HC._Z2, "a": HC._A2, "b": HC._B2, "mba": mba, "dba": GT.fp2_sub(bza, mba)}
+    fp2_consts.update({f"{name}{i}": c for name, coeffs in ISO3 for i, c in enumerate(coeffs)})
+    for name, c in fp2_consts.items():
+        consts[name + ".0"], consts[name + ".1"] = mont(c[0]), mont(c[1])
+    sg = _Segments(consts, HASH_LAYOUT)
+    e_t = (P - 3) // 4
+
+    def seg_a(tw, r):
+        t, out = tw.t, {"CX": []}
+        half = t.const("half")
+        for i in range(2):
+            u = tuple(t.mul(v, t.const("r2")) for v in r["UIN"][2 * i:2 * i + 2])
+            zu2 = tw.mul2(tw.sqr2(u), tw.const2("z"))
+            tv1 = tw.add2(tw.sqr2(zu2), zu2)
+            n = t.add(t.mul(tv1[0], tv1[0]), t.mul(tv1[1], tv1[1]))
+            ni = tw.inv_fp(n)
+            inv = (t.mul(tv1[0], ni), t.sub(tw.zero, t.mul(tv1[1], ni)))  # 0 for tv1 = 0
+            exc = t.sub(tw.one, t.mul(n, ni))  # 1 for tv1 = 0, else 0
+            x1 = tw.add2(tw.mul2(tw.add2(tw.fp2.one, inv), tw.const2("mba")), tw.mul2_fp(tw.const2("dba"), exc))
+            x2 = tw.mul2(zu2, x1)
+            out["CX"] += [*x1, *x2]
+            for j, x in enumerate((x1, x2)):
+                k = 2 * i + j
+                g = tw.add2(tw.mul2(tw.add2(tw.sqr2(x), tw.const2("a")), x), tw.const2("b"))
+                d = pow_window(t, t.add(t.mul(g[0], g[0]), t.mul(g[1], g[1])), SQRT_EXP)
+                sp = pow_window(t, g[0], SQRT_EXP)
+                out.update({f"A{k}": list(g), f"SP{k}": [sp], f"SP2{k}": [t.mul(sp, sp)],
+                            f"SM{k}": [t.sub(tw.zero, sp)], f"XP{k}": [t.mul(t.add(g[0], d), half)],
+                            f"XM{k}": [t.mul(t.sub(g[0], d), half)], f"H1{k}": [t.mul(g[1], half)]})
+        return out
+
+    def seg_b(tw, r):
+        t, out = tw.t, {}
+        for k in range(4):
+            for src, root, inv in (("XP", "RP", "IP"), ("XM", "RM", "IM")):
+                v = r[f"{src}{k}"][0]
+                tv = pow_window(t, v, e_t)
+                rv = t.mul(tv, v)
+                out[f"{root}{k}"], out[f"{inv}{k}"] = [rv], [t.mul(t.mul(tv, tv), rv)]
+                if root == "RP":
+                    out[f"RP2{k}"] = [t.mul(rv, rv)]
+        return out
+
+    def seg_c(tw, r):
+        return {f"Y1{k}": [tw.t.mul(r[f"H1{k}"][0], r[f"IX0{k}"][0])] for k in range(4)}
+
+    def seg_d(tw, r):
+        out = {}
+        for k in range(4):
+            y = tuple(r[f"Y{k}"])
+            out[f"NY{k}"] = list(tw.neg2(y))
+            out[f"RAW{k}"] = [tw.t.mul(v, tw.t.const("raw1")) for v in y]
+            if k % 2 == 0:
+                out[f"S{k}"] = list(tw.sqr2(y))
+        return out
+
+    def seg_iso(tw, r):
+        out = {}
+        for i, reg in ((0, "AP"), (1, "AQ")):
+            x, y = _pairs(r["AFF"][4 * i:4 * i + 4])
+            pw = [None, x, tw.sqr2(x)]
+            pw.append(tw.mul2(pw[2], x))
+            val = {}
+            for name, coeffs in ISO3:
+                acc = tw.const2(f"{name}0")
+                for e in range(1, len(coeffs)):
+                    acc = tw.add2(acc, _mul2_const(tw, pw[e], f"{name}{e}", coeffs[e]))
+                val[name] = acc
+            yd2 = tw.sqr2(val["yd"])
+            xd3 = tw.mul2(tw.sqr2(val["xd"]), val["xd"])
+            out[reg] = _flat((tw.mul2(tw.mul2(val["xn"], val["xd"]), yd2),
+                              tw.mul2(tw.mul2(y, val["yn"]), tw.mul2(xd3, yd2)), tw.mul2(val["xd"], val["yd"])))
+        return out
+
+    def seg_add(tw, r):
+        f = tw.fp2
+        p, q = _pairs(r["AP"]), _pairs(r["AQ"])
+        s, h, rr = jac_add_hr(f, p, q)
+        return {"AS": _flat(s), "AD": _flat(jac_dbl(f, p)), "AH": list(h), "AR": list(rr)}
+
+    def seg_chain_p(tw, r):
+        f = tw.fp2
+        p = _pairs(r["PT"])
+        m = _mul_x_abs(f, p)
+        t2 = tw.psi(p)
+        return {"T1": _flat(_neg_pt(f, m)), "MT1": _flat(m), "T2": _flat(t2), "MP": _flat(_neg_pt(f, p)),
+                "AP": _flat(tw.psi(tw.psi(jac_dbl(f, p)))), "AQ": _flat(_neg_pt(f, t2))}
+
+    def seg_chain_u(tw, r):
+        return {"T2B": _flat(_neg_pt(tw.fp2, _mul_x_abs(tw.fp2, _pairs(r["U"]))))}
+
+    sq = [f"{name}{k}" for k in range(4) for name in ("A", "SP", "SP2", "SM", "XP", "XM", "H1")]
+    sg.add("a", seg_a, ("UIN",), ["CX"] + sq)
+    sg.add("b", seg_b, tuple(f"{s}{k}" for k in range(4) for s in ("XP", "XM")),
+           [f"{s}{k}" for k in range(4) for s in ("RP", "RM", "RP2", "IP", "IM")])
+    sg.add("c", seg_c, tuple(f"{s}{k}" for k in range(4) for s in ("H1", "IX0")), [f"Y1{k}" for k in range(4)])
+    sg.add("d", seg_d, tuple(f"Y{k}" for k in range(4)),
+           [f"{s}{k}" for k in range(4) for s in ("NY", "RAW")] + ["S0", "S2"])
+    sg.add("iso", seg_iso, ("AFF",), ("AP", "AQ"))
+    sg.add("add", seg_add, ("AP", "AQ"), ("AS", "AD", "AH", "AR"))
+    sg.add("chain_p", seg_chain_p, ("PT",), ("T1", "MT1", "T2", "MP", "AP", "AQ"))
+    sg.add("chain_u", seg_chain_u, ("U",), ("T2B",))
+    order = ["a", "b", "c", "d", "iso", "add", "chain_p", "add", "add", "chain_u", "add", "add", "add"]
+    io = {r: r for r in HASH_LAYOUT if r not in {f"{name}{k}" for name, _, _ in HASH_SQ for k in range(4)}}
+    io.update({"SQ": HASH_SQ_BASE, "SQ_STRIDE": HASH_SQ_STRIDE})
+    io.update({f"SQ_{name}": off for name, off, _ in HASH_SQ})
+    return sg.program("HASH", order, io)
+
+
+# the Fp12 lane product's registers: the product's operands A and B, A B,
+# and the warp's tree element, two sets alternating by level
+PROD12_LAYOUT = {"A": (0, 12), "B": (12, 12), "C": (24, 12), "RES0": (36, 12), "RES1": (48, 12)}
+
+
+def prod12_program() -> Program:
+    """One Fp12 product of the lane product's tree (csrc/reduce.cu
+    lt_prod12): `Tower.mul12`, Karatsuba over Fp6 and Fp2, whose 54 Fp
+    products are independent of one another (2 rounds).  The kernel's driver
+    moves tree elements between the warps' RES registers and puts the Fp12
+    one (constant ONE in slot 0, zeros) in place of a dead lane."""
+    consts = _consts(False)
+    sg = _Segments(consts, PROD12_LAYOUT)
+    sg.add("mul", lambda tw, r: {"C": flat12(tw.mul12(unflat12(r["A"]), unflat12(r["B"])))}, ("A", "B"), ("C",))
+    io = {r: r for r in PROD12_LAYOUT}
+    io["ONE"] = list(consts).index("one")
+    return sg.program("PROD12", ["mul"], io)
+
+
 def programs() -> List[Program]:
     return [miller_program(), final_program(), rsig_program(), rpk_program(), decompress_program(), sumg2_program(),
-            affine_program()]
+            affine_program(), hash_program(), prod12_program()]
 
 
 # ---------------------------------------------------------------------------
@@ -1311,9 +1542,9 @@ def _words(ws, per_line=8) -> str:
 def cuda_programs() -> str:
     """Text of warp_prog.cuh (`kernels/build.py` writes it beside the
     build).  A kernel source defines LT_WANT_<name> (MILLER, FINAL, RSIG,
-    RPK, DECOMP, SUMG2, AFFINE) before including it and compiles those
-    programs' tables only; a wanted program with an inversion defines
-    LT_WANT_INV."""
+    RPK, DECOMP, SUMG2, AFFINE, HASH, PROD12) before including it and
+    compiles those programs' tables only; a wanted program with an
+    inversion defines LT_WANT_INV."""
     lines = [
         "// Written at build time by kernels/build.py from",
         "// kernels/warp_schedule.py cuda_programs().",

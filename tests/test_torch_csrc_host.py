@@ -173,7 +173,7 @@ def test_reduce_host_build_equals_plain(libs, n):
     """The lane reductions: the sum's tree within one block's span and over
     launches on the partials; P + P (other Z) and P + (-P) meet at its
     first level (both lanes live), the latter adding nothing to the sum.
-    The product: fewer lanes than slots, and lanes folded past one tile."""
+    The product: the same tree, n - 1 products, dead lanes the Fp12 one."""
     base = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(3)]
     pts = [base[i % 3] for i in range(n)]
     pts[3] = pts[2]  # lanes 2 and 3: a doubling
@@ -182,7 +182,7 @@ def test_reduce_host_build_equals_plain(libs, n):
     pts_p = g2_jac_planes(pts, [rand_fp2() for _ in range(n)])
     excl = torch.tensor([[int(i % 4 == 1) for i in range(n)]], dtype=torch.int32)
     lib = libs["reduce"]
-    lanes = lib.lt_sum_g2_scratch_lanes(n)
+    lanes = lib.lt_tree_scratch_lanes(n)
     scr, scr_inf, out, out_inf = i32(3 * 2 * LY.NL * lanes), i32(lanes), i32(3, 2, LY.NL, 1), i32(1, 1)
     made = ctypes.c_int(0)
     assert lib.lt_sum_g2(pts_p.data_ptr(), excl.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), out.data_ptr(),
@@ -201,10 +201,12 @@ def test_reduce_host_build_equals_plain(libs, n):
     f = torch.from_numpy(np.stack([LY.encode_batch([int.from_bytes(RNG.bytes(48), "little") % P for _ in range(n)])
                                    for _ in range(12)])).contiguous()
     live = 1 - excl
-    scr = i32(12, LY.NL, KV.BT)
-    assert lib.lt_prod12(live.data_ptr(), f.data_ptr(), scr.data_ptr(), n, None) == 0
-    assert lib.lt_host_fp_muls() == (max(n, KV.BT) - 1) * KV.FP_MULS_PER_LANE["prod12"]
-    assert torch.equal(scr[..., :1], KV.prod12_plain(live, f))
+    scr, out = i32(12 * LY.NL * lanes), i32(12, LY.NL, 1)
+    assert lib.lt_prod12(live.data_ptr(), f.data_ptr(), scr.data_ptr(), out.data_ptr(), n, ctypes.addressof(made),
+                         None) == 0
+    assert made.value == (1 if n <= 32 else 2)
+    assert lib.lt_host_fp_muls() == (n - 1) * KV.FP_MULS_PER_LANE["prod12"]
+    assert torch.equal(out, KV.prod12_plain(live, f))
 
 
 def test_tail_host_build_equals_plain(libs):
@@ -369,6 +371,13 @@ def test_needed_products_decompose_the_host_counts():
     # all of them needed; the one Fp inversion beside them is counted by
     # its binary GCD's multiplies on the data (test_torch_warp_sum.py)
     assert KV.FP_MULS_PER_LANE["affine_g2"] == KV.FP_MULS_NEEDED["affine_g2"] == 2 + 1 + 2 + 2 + 3 * 3
+    # hash_g2: the products its program makes (tests/test_torch_warp_hash.py
+    # splits them) less the doubling beside each of its six complete
+    # additions and the four candidates' square-root chains; the chains
+    # the data needs and its two inversions are counted on the data
+    assert KV.FP_MULS_NEEDED["hash_g2"] == (KV.FP_MULS_PER_LANE["hash_g2"] - KV.HASH_ADDITIONS * KV.DBL2_MULS
+                                            - 4 * sum(KV.HASH_ROOT_MULS.values()))
+    assert KV.FP_MULS_PER_LANE["prod12"] == KV.FP_MULS_NEEDED["prod12"] == 3 * 6 * 3  # 3 Fp6 products of 6 Fp2
     assert KV.FP_MULS_NEEDED.keys() == KV.FP_MULS_PER_LANE.keys()
     assert all(KV.FP_MULS_NEEDED[k] <= v for k, v in KV.FP_MULS_PER_LANE.items())
 

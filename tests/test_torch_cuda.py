@@ -154,8 +154,24 @@ def test_sum_g2_on_card(rlc, n):
     assert list(shape) == [n, -(-n // 32), 32 * 16, 32, smem, prog.nslots, prog.phases, prog.rounds]
 
 
-def test_prod12_on_card(rlc):
-    _equal(KV.prod12, KV.prod12_plain, rlc["live"], rlc["f"])
+@pytest.mark.parametrize("n", [1, 40, 128, 129, 512, 2048])
+def test_prod12_on_card(rlc, n):
+    """The Fp12 lane product's tree at one lane, the batch's 40, the
+    grouped paths' 128-lane tile, one past it, and the ungrouped batches'
+    512 and 2048 lanes (the batch's Miller values cycled, every seventh lane
+    dead), bit-equal to the plain version; relaunched on its partials, its
+    first launch as the library reports it."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    idx = torch.arange(n, device=rlc["f"].device) % N
+    f, live = rlc["f"][..., idx].contiguous(), rlc["live"][..., idx].contiguous()
+    live[0, 3::7] = 0
+    _equal(KV.prod12, KV.prod12_plain, live, f, launches=1 if n <= 32 else 2 if n <= 1024 else 3)
+    prog = W.prod12_program()
+    shape = (ctypes.c_int * 8)()
+    assert B.load("reduce").lt_warp_last_launch(b"prod12", shape) == 0
+    smem = LY.NL * 4 * (16 * prog.nslots + len(prog.consts))
+    assert list(shape) == [n, -(-n // 32), 32 * 16, 32, smem, prog.nslots, prog.phases, prog.rounds]
 
 
 def test_affine_g2_on_card(rlc):
@@ -223,15 +239,40 @@ def test_g2_decompress_on_card(dev):
     assert ok[0, : N - 8].all() and ok[0, -1] == 1
 
 
-def test_hash_g2_on_card(dev):
-    from lodestar_tpu_torch.crypto import hash_to_curve as HC
-
-    us = [HC.hash_to_field_fp2(b"on-card-%d" % i, 2, HC.DST_G2) for i in range(4)]
-    u = planes(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in us]) for k in range(2)])
+def _hash_operands(lanes, dev):
+    u = planes(np.stack([np.stack([LY.encode_plain_batch([v[i][k] for v in lanes]) for k in range(2)])
                          for i in range(2)]), dev)
-    sgn = planes(np.array([[HC._sgn0_fp2(v[i]) for v in us] for i in range(2)], np.int32), dev)
-    _, ok = _equal(KV.hash_g2, KV.hash_g2_plain, u, sgn)
+    sgn = planes(np.array([[GH._sgn0_fp2(v[i]) for v in lanes] for i in range(2)], np.int32), dev)
+    return u, sgn
+
+
+def test_hash_g2_on_card(dev):
+    """4 roots, u0 = 0 (SSWU's exceptional branch), u0 = u1 (q0 == q1: a
+    doubling) and u1 = -u0 (the hash at infinity), bit-equal to the plain
+    version; one warp per lane, its launch as the library reports it."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    lanes = [tuple(GH.hash_to_field_fp2(b"on-card-%d" % i, 2, GH.DST_G2)) for i in range(4)]
+    u0 = lanes[0][0]
+    lanes += [((0, 0), lanes[1][1]), (u0, u0), (u0, ((-u0[0]) % GT.P, (-u0[1]) % GT.P))]
+    _, ok = _equal(KV.hash_g2, KV.hash_g2_plain, *_hash_operands(lanes, dev))
     assert ok.all()
+    assert_warp_launch("ingest", "hash_g2", len(lanes))
+    prog = W.hash_program()
+    assert (prog.rounds, prog.fp_muls) == (KV.ROUNDS_PER_LANE["hash_g2"], KV.FP_MULS_PER_LANE["hash_g2"])
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_hash_g2_distinct_roots_on_card(dev, n):
+    """n distinct roots, as MessageCache encodes them: bit-equal to the
+    plain version, every point hash_to_g2 of its root."""
+    from lodestar_tpu_torch.bls.ingest import hash_field_planes, jacobian_to_affine
+
+    roots = [b"on-card-distinct-%d" % i for i in range(n)]
+    u, sgn = (planes(a, dev) for a in hash_field_planes(roots))
+    out, ok = _equal(KV.hash_g2, KV.hash_g2_plain, u, sgn)
+    assert ok.all()
+    assert jacobian_to_affine(out, n) == [GH.hash_to_g2(r) for r in roots]
 
 
 @pytest.mark.parametrize("k", [4, 64, 512])

@@ -461,33 +461,40 @@ def test_fp2_sqrt_and_decompress_equal_jax_values():
 @pytest.mark.slow
 def test_hash_to_g2_map_equals_jax_values(hashed):
     """IG.hash_to_g2_values of both packages up to the cofactor clearing:
-    JAX's sswu_map_g2, iso3_map (with its ok flags) and the mixed
-    addition of the two points, each under its own jit, against the
-    port's as Jacobian integers.  XLA cannot compile JAX's 636-bit
-    cofactor chain on a CPU host (past 12 GB under jit; compiling its
-    loops one by one crashed jaxlib), so the chain is held at the level of
-    its formulas (jac_dbl and jac_add_mixed_or_full against JAX's as
-    Jacobian integers in tests/test_torch_rlc_scalar.py) and of its result
-    (hash_to_g2 of the oracle, in the fast tier here)."""
+    JAX's sswu_map_g2 (as integers), iso3_map (with its ok flags) and the
+    mixed addition of the two points, each under its own jit, against the
+    port's SSWU points, its isogeny images in Jacobian form and their
+    complete addition, as points (the port's Jacobian triples are its own:
+    no inversion in the isogeny, a full addition).  XLA cannot compile
+    JAX's 636-bit cofactor chain on a CPU host (past 12 GB under jit;
+    compiling its loops one by one crashed jaxlib), and the port clears by
+    psi, so the clearing is held at the level of its result (hash_to_g2 of
+    the oracle, in the fast tier here and in tests/test_torch_warp_hash.py,
+    where the psi clearing is held against [h_eff] P outside G2)."""
     from lodestar_tpu.kernels import ingest as JIG
-    from lodestar_tpu_torch.kernels import curve as CV
+    from lodestar_tpu_torch.kernels import fp2 as F2
+
+    def affine(p):
+        return [to_affine(*v) for v in zip(*(fp2_ints(LY.digits_to_planes(c)) for c in p))]
 
     u, sgn, _, _ = hashed["call"]
     us = [fp2_ints(KV.mont_convert(u[i])) for i in range(2)]
     sswu, iso = jax.jit(JIG.sswu_map_g2), jax.jit(JIG.iso3_map)
     pts, jpts = [], []
     for i in range(2):
-        q, ok = IG.iso3_map(IG.sswu_map_g2(digits(fp2_planes(us[i])), sgn[i] != 0))
-        jq, jok = iso(sswu(_jfp2(us[i]), jnp.asarray(sgn[i].numpy())))
-        assert ok.tolist() == np.asarray(jok).tolist() == [True] * len(ROOTS)
-        assert [fp2_ints(LY.digits_to_planes(c)) for c in q] == [_jints(c) for c in jq]
+        a = IG.sswu_map_g2(digits(fp2_planes(us[i])), sgn[i] != 0)
+        ja = sswu(_jfp2(us[i]), jnp.asarray(sgn[i].numpy()))
+        assert [fp2_ints(LY.digits_to_planes(c)) for c in a] == [_jints(c) for c in ja]
+        q = IG.iso3_map_jac(a)
+        jq, jok = iso(ja)
+        assert (~F2.is_zero2(q[2])).tolist() == np.asarray(jok).tolist() == [True] * len(ROOTS)
+        assert affine(q) == list(zip(_jints(jq[0]), _jints(jq[1])))
         pts.append(q)
         jpts.append(jq)
-    one = CV.FP2_OPS.one(len(ROOTS), "cpu").expand_as(pts[0][0])
-    s = CV.jac_add_mixed(CV.FP2_OPS, (pts[0][0], pts[0][1], one), pts[1])
+    s = IG._add_complete(pts[0], pts[1])
     js = jax.jit(lambda a, b: JCV.jac_add_mixed(JCV.FP2_OPS, (a[0], a[1], JCV._one_plane_like(JCV.FP2_OPS, a[0])), b))(
         jpts[0], jpts[1])
-    assert [fp2_ints(LY.digits_to_planes(c)) for c in s] == [_jints(c) for c in js]
+    assert affine(s) == [to_affine(*v) for v in zip(*(_jints(c) for c in js))]
 
 
 @pytest.mark.slow

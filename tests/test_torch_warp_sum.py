@@ -185,7 +185,7 @@ def test_affine_program_simulation_equals_plain(reverse):
 def host_sum(lib, p, ex, order):
     """-> (the sum, its flag, the launches the entry point reports)."""
     n = p.shape[-1]
-    lanes = lib.lt_sum_g2_scratch_lanes(n)
+    lanes = lib.lt_tree_scratch_lanes(n)
     scr, scr_inf, out, out_inf = i32(3 * 2 * LY.NL * lanes), i32(lanes), i32(3, 2, LY.NL, 1), i32(1, 1)
     made = ctypes.c_int(-1)
     lib.lt_host_rounds(), lib.lt_host_fp_muls()  # the counters are the library's: drain another test's
@@ -241,7 +241,7 @@ def test_sum_launches_and_scratch(libs, n, launches):
     the first two launches' partials, and the sum (every lane but one
     excluded, so the plain tree runs no addition) is the one live lane."""
     lib = libs["reduce"]
-    assert lib.lt_sum_g2_scratch_lanes(n) == -(-n // 32) + -(-n // 1024)
+    assert lib.lt_tree_scratch_lanes(n) == -(-n // 32) + -(-n // 1024)
     p = planes([flat(rand_pt()) for _ in range(n)], (3, 2))
     ex = torch.ones((1, n), dtype=torch.int32)
     ex[0, n - 1] = 0

@@ -6,8 +6,11 @@
 //                    r pk (3), the G2 decompression (4) (these three: their
 //                    segments back to back, without the segment loops'
 //                    copies and selects between them), one complete G2
-//                    addition of the lane sum (5) or the affine conversion
-//                    (6), clock64() around every phase
+//                    addition of the lane sum (5), the affine conversion
+//                    (6), the hash to G2 (7; its segments back to back,
+//                    without the segment loop's selects and copies) or one
+//                    Fp12 product of the lane product (8), clock64() around
+//                    every phase
 //   lt_prof_op       256 dependent Fp operations on each thread of one warp
 //                    (0 Montgomery product, 1 fp_add, 2 fp_sub, 3 an
 //                    interpreter add from shared memory, 4 an interpreter
@@ -21,6 +24,8 @@
 #define LT_WANT_DECOMP
 #define LT_WANT_SUMG2
 #define LT_WANT_AFFINE
+#define LT_WANT_HASH
+#define LT_WANT_PROD12
 #include "pairing.cuh"
 
 template <int SLOTS, int NCONST>
@@ -72,6 +77,16 @@ __global__ void lt_prof_sumg2(long long *cyc, const uint32_t *init) {
 __global__ void lt_prof_affine(long long *cyc, const uint32_t *init) {
   prof_program<LT_AFFINE_SLOTS, LT_AFFINE_CONSTS>(LT_AFFINE_CONST, LT_AFFINE_PHASE, LT_AFFINE_PHASES,
                                                   LT_AFFINE_INS, cyc, init, LT_AFFINE_A + 4);
+}
+
+__global__ void lt_prof_hash(long long *cyc, const uint32_t *init) {
+  prof_program<LT_HASH_SLOTS, LT_HASH_CONSTS>(LT_HASH_CONST, LT_HASH_PHASE, LT_HASH_PHASES, LT_HASH_INS, cyc, init,
+                                              LT_HASH_OUT + 6);
+}
+
+__global__ void lt_prof_prod12(long long *cyc, const uint32_t *init) {
+  prof_program<LT_PROD12_SLOTS, LT_PROD12_CONSTS>(LT_PROD12_CONST, LT_PROD12_PHASE, LT_PROD12_PHASES,
+                                                  LT_PROD12_INS, cyc, init, LT_PROD12_RES1 + 12);
 }
 
 __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out, long long *cyc) {
@@ -133,10 +148,18 @@ extern "C" int lt_prof_program(int which, void *cyc, const void *init) {
     const size_t smem = w_smem_bytes(LT_SUMG2_SLOTS, LT_SUMG2_CONSTS);
     cudaFuncSetAttribute(lt_prof_sumg2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_sumg2<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
-  } else {
+  } else if (which == 6) {
     const size_t smem = w_smem_bytes(LT_AFFINE_SLOTS, LT_AFFINE_CONSTS);
     cudaFuncSetAttribute(lt_prof_affine, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_affine<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else if (which == 7) {
+    const size_t smem = w_smem_bytes(LT_HASH_SLOTS, LT_HASH_CONSTS);
+    cudaFuncSetAttribute(lt_prof_hash, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_hash<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else {
+    const size_t smem = w_smem_bytes(LT_PROD12_SLOTS, LT_PROD12_CONSTS);
+    cudaFuncSetAttribute(lt_prof_prod12, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_prod12<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
   }
   return (int)cudaDeviceSynchronize();
 }

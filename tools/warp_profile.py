@@ -9,11 +9,12 @@ generated ones), then prints
     ones on each thread of a warp): the Montgomery product, fp_add, fp_sub,
     and the interpreter's add and product with operands in shared memory;
   * one lane of the Miller loop, of the final exponentiation, of r sig
-    with the subgroup check, of r pk and of the G2 decompression (these
-    three: their segments back to back, without the segment loops' copies
-    and selects between segments), one complete G2 addition of the lane sum
-    (sum_g2's warp, without the driver's moves and selects) and one affine
-    conversion, with clock64() around every phase, summed by kind of phase
+    with the subgroup check, of r pk, of the G2 decompression and of the
+    hash to G2 (these four: their segments back to back, without the
+    segment loops' copies and selects between segments), one complete G2
+    addition of the lane sum (sum_g2's warp, without the driver's moves and
+    selects), one affine conversion and one Fp12 product of the lane
+    product, with clock64() around every phase, summed by kind of phase
     (products, linear only, the inversion) and by rows (the longest queue
     of operations on one thread).
 Values are random field elements: the programs' cost does not depend on

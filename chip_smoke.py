@@ -35,16 +35,20 @@ Needs one CUDA device; exits non-zero without one.  In order:
      g1_keyvalidate on one 65,536-key registration chunk and on the fault
      job with 128 valid keys; seg_sum_g1 on the grouped wire batch's
      randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 128 and
-     512 decompressed signatures grouped by root; the warp-per-lane pairing
+     512 decompressed signatures grouped by root, and both scans (one warp
+     per lane and round) at 1, 33, 512, 1024 and 2048 lanes (those
+     operands repeated), each call's launches (one per round of the scan)
+     and launch as the library reports them; the warp-per-lane pairing
      kernels at every lane count the paths give them: miller_loop at 1,
      128, 129 and 512 lanes, each_final and final_one at 1, 128 and 512,
      every verdict held against the ground truth, with the shape of each
      one's N = 512 launch as its library reports it under the kernel's
      name (threads and lanes per block, dynamic shared memory, slots,
      phases and rounds per lane) and its ptxas figures, the same for the
-     warp-per-lane g2_rsig_sub, and for the warp-per-lane g1_rpk and
-     g2_decompress also at 1, 128, 129 and 512 lanes (the batch's and the
-     wire mixed job's operands, sliced), g1_rpk also on agg_pk's Jacobian
+     warp-per-lane g2_rsig_sub, and for the warp-per-lane g1_rpk,
+     g2_decompress and g2_subgroup_check also at 1, 128, 129 and 512 lanes
+     (the batch's, the wire mixed job's and the per-set mixed job's
+     operands, sliced), g1_rpk also on agg_pk's Jacobian
      aggregates (Z != 1) with lanes at infinity and zero scalars; the
      warp-per-addition lane sum sum_g2 at 1, 2, 3, 128, 129, 512, 1024 and
      2048 lanes with excluded lanes, a doubling and a P + (-P) at its
@@ -82,10 +86,11 @@ Needs one CUDA device; exits non-zero without one.  In order:
      the N = 1024 and 2048 batches each run once more with each kernel's
      CUDA-event time inside the path and each of its kernel calls held
      against the plain version on the same inputs; every call of g1_rpk,
-     g2_decompress, sum_g2, affine_g2, prod12 and hash_g2 that a main-path
-     run or a bisection makes is copied and, after the last path, held
-     against the plain versions (one plain run per sum_g2 and prod12 call,
-     one per other kernel over all the calls' lanes); sets/s and a breakdown for each timed
+     g2_decompress, sum_g2, affine_g2, prod12, hash_g2, g2_subgroup_check,
+     seg_sum_g1 and seg_sum_g2 that a main-path run or a bisection makes
+     is copied and, after the last path, held against the plain versions
+     (one plain run per call of the reductions and scans, one per other
+     kernel over all the calls' lanes); sets/s and a breakdown for each timed
      path, its kernels timed inside one more run of the path, as the path
      launches them;
   4. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
@@ -192,6 +197,10 @@ AFFINE_LANES = (1, 128)
 # and 2048; the launches one product makes at each (as the lane sum's)
 PROD_LANES = (1, 128, 129, 512, 1024, 2048)
 PROD_LAUNCHES = {1: 1, 128: 2, 129: 2, 512: 2, 1024: 2, 2048: 3}
+# lane counts of the segmented scans' own phase (one lane, one past two
+# blocks of 16, the paths' N = 512, 1024 and 2048): one launch per round
+# of the scan at each, held against the launches the entry points report
+SEG_LANES = (1, 33, 512, 1024, 2048)
 # distinct signing roots of the cold MessageCache runs: the 8 roots of the
 # jobs (one 128-lane batch) and new roots filling one and four batches; the
 # kernel phase holds hash_g2 on the last two
@@ -531,7 +540,9 @@ def main() -> int:
     # every call of the redesigned warp kernels that a main-path run makes
     # (inputs and outputs copied on the stream), held at the end of the
     # main paths against the plain versions
-    path_calls = {"g1_rpk": [], "g2_decompress": [], "affine_g2": [], "sum_g2": [], "prod12": [], "hash_g2": []}
+    path_calls = {"g1_rpk": [], "g2_decompress": [], "affine_g2": [], "sum_g2": [], "prod12": [], "hash_g2": [],
+                  "g2_subgroup_check": [], "seg_sum_g1": [], "seg_sum_g2": []}
+    REDUCTIONS = ("sum_g2", "prod12", "seg_sum_g1", "seg_sum_g2")  # a lane's result depends on other lanes
     recording = [False]
 
     def recorder(name, f):
@@ -649,7 +660,8 @@ def main() -> int:
     if not bool(kv_ok.all()) or int(kv_ok256.sum()) != 256 - len(KEY_FAULTS):
         raise AssertionError(f"g1_keyvalidate: {int(kv_ok.sum())} of {REG_CHUNK} keys valid, "
                              f"{int(kv_ok256.sum())} of 256 on the fault job")
-    seg_units = {}  # name -> the additions the segmented sum needs on its row's data
+    seg_units = {}  # (name, n[, "lanes"]) -> the additions the segmented sum needs on the call's data
+    seg_made = {}  # the same -> the additions the kernel makes (where neither operand is infinity)
 
     def seg_needed(dead, group):
         """Live lanes less live groups: one addition per live lane after its group's first."""
@@ -666,6 +678,7 @@ def main() -> int:
         ops = KV.each_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid)
         sub = plain_and_kernel("g2_subgroup_check", n, KV.g2_subgroup_check, KV.g2_subgroup_check_plain,
                                *ops["sub"])
+        sweep["g2_subgroup_check"] = (ops["sub"], sub)
         f1 = plain_and_kernel("miller_loop", n, KV.miller_loop, KV.miller_loop_plain, *ops["miller_pk"])
         f2 = KV.miller_loop(*ops["miller_sig"])
         if not torch.equal(f2, KV.miller_loop_plain(*ops["miller_sig"])):
@@ -703,6 +716,8 @@ def main() -> int:
         gops = KV.grouped_operands(ops, rpk, rpk_inf, group, head_lanes, glive)
         pts, seg_inf = plain_and_kernel("seg_sum_g1", n, KV.seg_sum_g1, KV.seg_sum_g1_plain, *gops["seg_sum_g1"])
         seg_units["seg_sum_g1", n] = seg_needed(*gops["seg_sum_g1"][1:])
+        seg_made["seg_sum_g1", n] = KV.seg_additions("seg_sum_g1", *gops["seg_sum_g1"])
+        sweep["seg_sum_g1"] = gops["seg_sum_g1"]
         g, q, live_row = KV._group_heads(pts, seg_inf, *gops["heads"])
         ok = KV._batch_tail(KV.prod12(live_row, KV.miller_loop(g, q)), jsum, jsum_inf)
         if int(ok[0, 0]) != 1 or int(live_row.sum()) != n // N_KEYS:
@@ -734,6 +749,8 @@ def main() -> int:
         group = torch.from_numpy(verifier._grouping(wire_valid[:n], n)[0]).to(dev)
         _, seg_inf = plain_and_kernel("seg_sum_g2", n, KV.seg_sum_g2, KV.seg_sum_g2_plain, xy, bad, group)
         seg_units["seg_sum_g2", n] = seg_needed(bad, group)
+        seg_made["seg_sum_g2", n] = KV.seg_additions("seg_sum_g2", xy, bad, group)
+        sweep["seg_sum_g2"] = (xy, bad, group)
         if bool(seg_inf.any()) or bool(bad.any()):
             raise AssertionError("seg_sum_g2: a valid signature's running sum at infinity")
 
@@ -826,14 +843,16 @@ def main() -> int:
     for n in WARP_LANES:
         sl = lambda t: t[..., :n].contiguous()  # noqa: E731
         for name, (kernel, plain) in (("g1_rpk", (KV.g1_rpk, KV.g1_rpk_plain)),
-                                      ("g2_decompress", (KV.g2_decompress, KV.g2_decompress_plain))):
+                                      ("g2_decompress", (KV.g2_decompress, KV.g2_decompress_plain)),
+                                      ("g2_subgroup_check", (KV.g2_subgroup_check, KV.g2_subgroup_check_plain))):
             operands, flags = sweep[name]
-            _, flags_n = plain_and_kernel(name, n, kernel, plain, *map(sl, operands), plain_runs=0, tag="lanes")
+            out_n = plain_and_kernel(name, n, kernel, plain, *map(sl, operands), plain_runs=0, tag="lanes")
+            flags_n = out_n if name == "g2_subgroup_check" else out_n[1]
             if not torch.equal(flags_n, sl(flags)):
                 raise AssertionError(f"{name} at N={n}: flags differ from the N = {JOBS[-1]} run's")
     for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail"),
                          ("g2_rsig_sub", "randmul"), ("g1_rpk", "randmul"), ("g2_decompress", "ingest"),
-                         ("hash_g2", "ingest")):
+                         ("hash_g2", "ingest"), ("g2_subgroup_check", "subgroup")):
         # the shape and program figures of the last launch of the
         # library's kernel `name`, the N = 512 one made above (hash_g2's:
         # its 512-root batch), as its C entry point launched it
@@ -970,6 +989,48 @@ def main() -> int:
         f"{e['phases_per_product']} phases per product, {e['slots_per_warp']} slots per warp, "
         f"{e['dynamic_smem_bytes_per_block']} B dynamic shared memory per block; ptxas {e['ptxas']}; card ms by lanes "
         + ", ".join(f"{n}: {results['prod12', n, 'lanes'][0]:.3f} ({prod_launches[n]} launches)" for n in PROD_LANES))
+
+    # the segmented scans at every lane count of SEG_LANES: the grouped wire
+    # batch's N = 512 operands (G1) and the aggregation's (G2) repeated,
+    # each copy its own groups; one launch per round, as the entry point
+    # reports them, and each call's launch as its library records it
+    seg_launches = {}  # (name, lanes) -> the launches one call made
+    for name, (kernel, plain), key in (("seg_sum_g1", (KV.seg_sum_g1, KV.seg_sum_g1_plain), "seg_g1"),
+                                       ("seg_sum_g2", (KV.seg_sum_g2, KV.seg_sum_g2_plain), "seg_g2")):
+        pts0, dead0, group0 = sweep[name]
+        m0 = group0.shape[0]
+        for n in SEG_LANES:
+            idx = torch.arange(n, device=dev)
+            args = (pts0[..., idx % m0].contiguous(), dead0[..., idx % m0].contiguous(),
+                    (group0[idx % m0] + (idx // m0) * (int(group0.max()) + 1)).to(torch.int32).contiguous())
+            plain_and_kernel(name, n, kernel, plain, *args, plain_runs=0, tag="lanes")
+            before = KV.LAUNCHES[name]
+            kernel(*args)
+            seg_launches[name, n] = KV.LAUNCHES[name] - before
+            seg_units[name, n, "lanes"] = seg_needed(*args[1:])
+            seg_made[name, n, "lanes"] = KV.seg_additions(name, *args)
+            shape = (ctypes.c_int * 8)()
+            if B.load("segsum").lt_warp_last_launch(name.encode(), shape) != 0:
+                raise AssertionError(f"{name}: segsum reports no launch of it")
+            lanes, blocks, threads, wpb, smem, slots, phases, rounds = list(shape)
+            w = KV.seg_warps(n)
+            if (seg_launches[name, n] != KV.seg_rounds(n) or [lanes, blocks, threads, wpb] != [n, -(-n // w), 32 * w, w]
+                    or rounds != KV.ROUNDS_PER_LANE[name]):
+                raise AssertionError(f"{name} at N={n}: {seg_launches[name, n]} launches a call, launch {list(shape)}")
+            if n == JOBS[-1]:
+                entry = next(e for k, e in ptxas_entries(ptxas["segsum"]).items() if key in k)
+                warp_info[name] = {"rounds_per_addition": rounds, "fp_muls_per_addition": KV.FP_MULS_PER_LANE[name],
+                                   "phases_per_addition": phases, "slots_per_warp": slots, "warps_per_block": wpb,
+                                   "dynamic_smem_bytes_per_block": smem, "ptxas": entry}
+        e = warp_info[name]
+        log(f"warp kernel {name}: one warp per lane and round of the scan (a lane whose operand is infinity copies "
+            f"the other), {e['warps_per_block']} warps per block at N = {JOBS[-1]}; {e['rounds_per_addition']} rounds "
+            f"({e['fp_muls_per_addition']} Fp products) in {e['phases_per_addition']} phases per addition, "
+            f"{e['slots_per_warp']} slots per warp, {e['dynamic_smem_bytes_per_block']} B dynamic shared memory per "
+            f"block; ptxas {e['ptxas']}; card ms by lanes " + ", ".join(
+                f"{n}: {results[name, n, 'lanes'][0]:.3f} ({seg_launches[name, n]} launches, "
+                f"{seg_made[name, n, 'lanes']} additions made, {seg_units[name, n, 'lanes']} needed)"
+                for n in SEG_LANES))
 
     # -- 3. main paths -------------------------------------------------------------
     def host_ms(fn, runs=3):
@@ -1444,13 +1505,14 @@ def main() -> int:
         if not recs:
             raise AssertionError(f"{name}: no main-path run called it")
         sizes = [r[0][0].shape[-1] for r in recs]
-        if name in ("sum_g2", "prod12"):  # reductions: one plain run per call
+        if name in REDUCTIONS:  # one plain run per call
             hold_calls("main path calls", [(name, args, outs) for args, outs in recs])
             warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes)}
             continue
         args = [torch.cat([r[0][i] for r in recs], dim=-1) for i in range(len(recs[0][0]))]
         k_outs = [torch.cat([r[1][i] for r in recs], dim=-1) for i in range(len(recs[0][1]))]
         p_outs = getattr(KV, name + "_plain")(*args)
+        p_outs = p_outs if isinstance(p_outs, tuple) else (p_outs,)
         bad = torch.zeros(sum(sizes), dtype=torch.bool, device=dev)
         for k, p_out in zip(k_outs, p_outs):
             bad |= (k != p_out).reshape(-1, k.shape[-1]).any(dim=0)
@@ -1463,8 +1525,8 @@ def main() -> int:
     log("main path calls of the redesigned warp kernels: " + ", ".join(
         f"{name} {len(recs)} calls ({sum(r[0][0].shape[-1] for r in recs)} lanes)" for name, recs in
         path_calls.items()) + f", every one made by a counted main-path run or a bisection, each equal to its "
-        f"plain version bit for bit (sum_g2 and prod12 one plain run per call, the others one plain run per "
-        f"kernel over the calls' lanes side by side; {time.perf_counter() - t:.1f} s)")
+        f"plain version bit for bit (sum_g2, prod12 and the scans one plain run per call, the others one plain run "
+        f"per kernel over the calls' lanes side by side; {time.perf_counter() - t:.1f} s)")
 
     if not verifier._device_canary():
         raise AssertionError("device canary failed")
@@ -1495,7 +1557,8 @@ def main() -> int:
         elif name == "agg_pk":
             units = agg_live_rows - agg_live_lanes  # one addition per live row after a lane's first
         elif name in ("seg_sum_g1", "seg_sum_g2"):
-            units = seg_units[name, n]  # one addition per live lane after its group's first
+            # one addition per live lane after its group's first
+            units = seg_units[(name, n) if tail_lane else (name, n, "lanes")]
         else:
             units = n
         ops_ms = needed_muls(name, n, units) * KV.IMAD_PER_FP_MUL / imad_per_ms
@@ -1516,7 +1579,7 @@ def main() -> int:
         k_ms, p_ms, err = results[name, n]
         bound_ms, bound_by, units, _ = bound(name, n)
         if name in ("seg_sum_g1", "seg_sum_g2"):
-            done = KV.seg_rounds(n) * n  # one addition per lane and round
+            done = seg_made[name, n]  # one addition per lane and round where neither operand is infinity
         elif name == "agg_pk":
             done = agg_done  # every tree addition and the accumulations of live chunks
         elif name == "sum_g2":
@@ -1550,7 +1613,7 @@ def main() -> int:
             entry["ms_256"], entry["plain_ms_256"] = results[name, 256][:2]
             entry["bound_ms_256"] = bound(name, 256)[0]
         if name in ("seg_sum_g1", "seg_sum_g2"):
-            entry["additions_needed"] = seg_units[name, n]
+            entry["additions_needed"], entry["additions_made"] = seg_units[name, n], seg_made[name, n]
         if name in ("affine_g2", "hash_g2"):  # the inversions' multiplies, which fp_muls_needed leaves out
             steps = (affine_steps if name == "affine_g2" else hash_steps)[n]
             entry["gcd_steps"], entry["gcd_imad"] = steps, steps * KV.GCD_IMAD_PER_STEP
@@ -1562,7 +1625,8 @@ def main() -> int:
         if name in warp_info:  # the warp-per-lane kernels
             entry.update(warp_info[name])
         if (name, 1, "lanes") in results:  # every lane count of the kernel's own sweep
-            timed = [m for m in WARP_LANES + SUM_LANES + AFFINE_LANES + PROD_LANES if (name, m, "lanes") in results]
+            timed = [m for m in WARP_LANES + SUM_LANES + AFFINE_LANES + PROD_LANES + SEG_LANES
+                     if (name, m, "lanes") in results]
             timed = sorted(set(timed))
             entry["ms_by_lanes"] = {m: results[name, m, "lanes"][0] for m in timed}
             entry["plain_ms_by_lanes"] = {m: results[name, m, "lanes"][1] for m in timed}
@@ -1573,6 +1637,10 @@ def main() -> int:
                 entry["launches_per_call_by_lanes"] = {m: (sum_launches if name == "sum_g2" else prod_launches)[m]
                                                        for m in timed}
                 entry["ms_per_level"] = k_ms / (n - 1).bit_length()
+            elif name in ("seg_sum_g1", "seg_sum_g2"):
+                entry["launches_per_call_by_lanes"] = {m: seg_launches[name, m] for m in timed}
+                entry["additions_made_by_lanes"] = {m: seg_made[name, m, "lanes"] for m in timed}
+                entry["ms_per_round_of_scan"] = k_ms / KV.seg_rounds(n)
             else:
                 entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]
         elif name in warp_info:

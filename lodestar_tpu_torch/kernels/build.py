@@ -175,8 +175,8 @@ _ARGTYPES = {
     "lt_hash_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_pk": [_VP, _VP, _INT, _VP, _VP, _INT, _VP, _VP, _INT, _VP],
     "lt_g1_keyvalidate": [_VP, _VP, _VP, _VP, _INT, _VP],
-    "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
+    "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_warp_last_launch": [ctypes.c_char_p, _VP],
     "lt_agg_last_launch": [_VP],
     # host build only: the ingest building blocks and the pairing's

@@ -2,52 +2,71 @@
 //
 // Replaces lodestar_tpu/kernels/verify.py _k_sub_only (the per-set path's
 // check; _k_g2_rsig_sub runs the same check beside the RLC scalar multiply).
-// One thread per lane runs the whole static double-and-add chain (63
-// doublings, 5 mixed additions over Fp2), psi and the cross-multiplied
-// equality.
 //
-// Bound on this card: 32-bit integer multiplies.  The chain costs 1,181
-// Fp multiplications per lane (588 multiply instructions each) and no
-// memory traffic beyond 200 bytes per lane, so IMAD throughput bounds it.
-// One thread per lane leaves a 512-lane job on 16 of the 132 SMs and keeps
-// its Fp2 temporaries in a stack frame in local memory; the design accepts both
-// for a first version.  Warp-cooperative products are the next step.
-#include "curve.cuh"
+// One warp per lane on the warp engine (csrc/warp12.cuh): the program
+// (warp_prog.cuh, from kernels/warp_schedule.py sub_program) runs the
+// static chain [|x|] Q (63 doublings, 5 mixed additions: the plain
+// version's formulas, so its Jacobian triple), psi(Q) and jac_eq's cross
+// products of psi(Q) against -[|x|] Q in one segment, packing each step's
+// independent Fp products into rounds; the warp then compares the
+// products' canonical limbs on a vote.  A lane at infinity passes.  The
+// program makes no inversion: the interpreter is compiled without it.
+//
+// Bound on this card: 32-bit integer multiplies.  The check needs 1,181
+// Fp multiplications per lane (588 multiply instructions each) and moves
+// 200 bytes per lane.  One thread per lane ran them as one chain at
+// ~1.75 us a product; the warp runs them in 206 rounds of a product's
+// latency, and 512 lanes take 128 blocks of 4 warps.
+#define LT_WANT_SUB
+#include "warp12.cuh"
 
-LT_DEV void subgroup_lane(const int32_t *q, const int32_t *q_inf, int32_t *out, int n, int lane) {
-  aff<fp2> a;
-  fp2_load(a.x, q, n, lane);
-  fp2_load(a.y, q + 2 * LT_NL * n, n, lane);
-  out[lane] = g2_subgroup_check(a, q_inf[lane] != 0) ? 1 : 0;
+// q: affine planes [2, 2, 12, n] (x, y); q_inf, out: [n].  One warp.
+LT_DEV void g2_subgroup_warp(const wmem &m, const int32_t *q, const int32_t *q_inf, int32_t *out, int n,
+                             int lane) {
+  w_load_planes(m, LT_SUB_Q, q, 4, n, lane);
+  LT_SYNCWARP();
+  w_run<false>(m, LT_SUB_PHASE, LT_SUB_PHASES, LT_SUB_INS);
+  // X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3: the pairs at EQ + {0, 1} /
+  // {2, 3} and EQ + {4, 5} / {6, 7}
+  const bool eq = w_eq(m, LT_SUB_EQ, LT_SUB_EQ + 2, 2) && w_eq(m, LT_SUB_EQ + 4, LT_SUB_EQ + 6, 2);
+  if (LT_T0 == 0) out[lane] = eq || q_inf[lane] != 0 ? 1 : 0;  // O is in the subgroup
 }
 
 #ifdef __CUDACC__
 
-#define LT_LANE_BLOCK 32
-
-__global__ void __launch_bounds__(LT_LANE_BLOCK)
-    lt_g2_subgroup_kernel(const int32_t *__restrict__ q, const int32_t *__restrict__ q_inf,
-                          int32_t *__restrict__ out, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) subgroup_lane(q, q_inf, out, n, lane);
+__global__ void __launch_bounds__(LT_WARP * LT_LPB)
+    lt_g2_subgroup_check_kernel(const int32_t *__restrict__ q, const int32_t *__restrict__ q_inf,
+                                int32_t *__restrict__ out, int n) {
+  extern __shared__ uint32_t lt_sm[];
+  const int warp = threadIdx.x / LT_WARP;
+  const wmem m = w_block(lt_sm, LT_SUB_SLOTS, LT_SUB_CONSTS, LT_SUB_CONST, warp);
+  const int lane = blockIdx.x * LT_LPB + warp;
+  if (lane < n) g2_subgroup_warp(m, q, q_inf, out, n, lane);
 }
 
-extern "C" int lt_g2_subgroup_check(const void *q, const void *q_inf, void *out, int n,
-                                    void *stream) {
-  if (n > 0)
-    lt_g2_subgroup_kernel<<<(n + LT_LANE_BLOCK - 1) / LT_LANE_BLOCK, LT_LANE_BLOCK, 0,
-                            (cudaStream_t)stream>>>((const int32_t *)q, (const int32_t *)q_inf,
-                                                    (int32_t *)out, n);
+extern "C" int lt_g2_subgroup_check(const void *q, const void *q_inf, void *out, int n, void *stream) {
+  if (n > 0) {
+    const wlaunch l = w_launch("g2_subgroup_check", n, LT_SUB_SLOTS, LT_SUB_CONSTS, LT_SUB_PHASES, LT_SUB_ROUNDS);
+    cudaFuncSetAttribute(lt_g2_subgroup_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    lt_g2_subgroup_check_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
+        (const int32_t *)q, (const int32_t *)q_inf, (int32_t *)out, n);
+  }
   return (int)cudaGetLastError();
 }
 
 #else
 
-extern "C" int lt_g2_subgroup_check(const void *q, const void *q_inf, void *out, int n,
-                                    void *stream) {
+#include <stdlib.h>
+
+extern "C" int lt_g2_subgroup_check(const void *q, const void *q_inf, void *out, int n, void *stream) {
   (void)stream;
-  for (int lane = 0; lane < n; lane++)
-    subgroup_lane((const int32_t *)q, (const int32_t *)q_inf, (int32_t *)out, n, lane);
+  const wlaunch l = w_launch("g2_subgroup_check", n, LT_SUB_SLOTS, LT_SUB_CONSTS, LT_SUB_PHASES, LT_SUB_ROUNDS);
+  uint32_t *sm = (uint32_t *)malloc(l.smem);
+  for (int lane = 0; lane < n; lane++) {  // warp lane % LT_LPB of block lane / LT_LPB
+    const wmem m = w_block(sm, LT_SUB_SLOTS, LT_SUB_CONSTS, LT_SUB_CONST, lane % LT_LPB);
+    g2_subgroup_warp(m, (const int32_t *)q, (const int32_t *)q_inf, (int32_t *)out, n, lane);
+  }
+  free(sm);
   return 0;
 }
 

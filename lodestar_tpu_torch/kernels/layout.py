@@ -197,12 +197,8 @@ def cuda_constants() -> str:
     from ..crypto import curves as CU
     from ..crypto import fields as F
 
-    x_abs = -F.X_PARAM
     mont = lambda v: v % P * R_MOD_P % P  # noqa: E731
     mont2 = lambda v: (mont(v[0]), mont(v[1]))  # noqa: E731
-    u = (0, 1)
-    cx = mont2(F.fp2_mul(u, F.fp2_pow(F.XI, 2 * (P - 1) // 3)))
-    cy = mont2(F.fp2_mul(u, F.fp2_pow(F.XI, (P - 1) // 2)))
     lines = [
         "// Generated by lodestar_tpu_torch/kernels/layout.py cuda_constants();",
         "// do not edit.  Regenerate with",
@@ -211,13 +207,10 @@ def cuda_constants() -> str:
         "#pragma once",
         "",
         f"#define LT_N0 0x{N0:08x}u",
-        f"#define LT_X_ABS 0x{x_abs:016x}ull",
         f"LT_CONST uint32_t LT_P[12] = {_fp_words(P)};",
         f"LT_CONST uint32_t LT_ONE[12] = {_fp_words(R_MOD_P)};",
         f"LT_CONST uint32_t LT_R2[12] = {_fp_words(R2)};",
         f"LT_CONST uint32_t LT_P_MINUS_2[12] = {_fp_words(P - 2)};",
-        f"LT_CONST uint32_t LT_PSI_CX[2][12] = {_fp2_words(cx)};",
-        f"LT_CONST uint32_t LT_PSI_CY[2][12] = {_fp2_words(cy)};",
         f"LT_CONST uint32_t LT_G2X[2][12] = {_fp2_words(mont2(CU.G2_GEN[0]))};",
         f"LT_CONST uint32_t LT_G2Y[2][12] = {_fp2_words(mont2(CU.G2_GEN[1]))};",
     ]

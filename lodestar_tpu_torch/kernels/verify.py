@@ -63,7 +63,7 @@ kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
 for CPU tensors; any other device raises.  There is no fallback from one
 to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches
 (`mont_convert` on 4 planes under its own name, `mont_convert_4`; the
-segmented sums launch once per round of their scan, `seg_rounds(N)`, and
+segmented sums once per round of their scan, `seg_rounds(N)`, and
 `sum_g2` and `prod12` once per reduction of their elements by 32, as
 their entry points report).
 
@@ -129,8 +129,9 @@ LAUNCHES: Dict[str, int] = {
 # mont_convert; per combine for the reductions sum_g2 and prod12, which
 # make N - 1 of them; per addition for agg_pk, which needs
 # one per live row after a lane's first, and for the segmented sums,
-# which make one per lane and round and need one per live lane after its
-# group's first), from the structure of csrc/*.cuh;
+# which make one per lane and round where neither operand is infinity
+# (`seg_additions`) and need one per live lane after its group's first),
+# from the structure of csrc/*.cuh and the warp programs;
 # tests/test_torch_csrc_host.py checks them against a count taken by the
 # host build: the work each kernel does (FP_MULS_NEEDED below is the
 # work its function needs).  A 12-limb CIOS Montgomery product takes 12
@@ -158,11 +159,12 @@ IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 # Rounds per lane of the warp-per-lane kernels (csrc/warp12.cuh): phases
 # of up to 32 independent Fp products, one per thread, and the programs'
 # inversions (the final exponentiation's, affine_g2's, hash_g2's two in one
-# phase); sum_g2's per addition, prod12's per product (kernels/
-# warp_schedule.py; the host build counts them,
-# tests/test_torch_warp_{pairing,rsig,rpk,decompress,sum,hash}.py)
+# phase); sum_g2's and the segmented sums' per addition, prod12's per
+# product (kernels/warp_schedule.py; the host build counts them,
+# tests/test_torch_warp_{pairing,rsig,rpk,decompress,sum,hash,sub,segsum}.py)
 ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533, "g1_rpk": 533,
-                   "g2_decompress": 899, "sum_g2": 5, "affine_g2": 7, "hash_g2": 1361, "prod12": 2}
+                   "g2_decompress": 899, "sum_g2": 5, "affine_g2": 7, "hash_g2": 1361, "prod12": 2,
+                   "g2_subgroup_check": 206, "seg_sum_g1": 5, "seg_sum_g2": 5}
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
@@ -355,9 +357,9 @@ def _shape(t: torch.Tensor, shape, what: str) -> None:
 
 def _launch(name: str, source: str, symbol: str, *args, launches=1) -> None:
     """Call a kernel's C entry point on the current stream; `launches` is
-    the number of kernel launches it makes (the segmented sums launch once
-    per round), or a ctypes int that the entry point sets to it (sum_g2 and
-    prod12 relaunch on their partials until one is left)."""
+    the number of kernel launches it makes, or a ctypes int that the entry
+    point sets to it (sum_g2 and prod12 relaunch on their partials until
+    one is left, the segmented sums launch once per round)."""
     fn = getattr(B.load(source), symbol)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
@@ -829,6 +831,16 @@ def g1_keyvalidate(x: torch.Tensor, flags: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def seg_warps(n: int) -> int:
+    """Lanes (warps) per block of the scans' launches at n lanes: 4, 8 or
+    16, the fewest that keep a launch within 128 blocks (csrc/segsum.cu
+    seg_warps, whose launch records the tests and chip_smoke.py hold)."""
+    w = 4
+    while w < 16 and -(-n // w) > 128:
+        w *= 2
+    return w
+
+
 def seg_rounds(n: int) -> int:
     """Rounds of the segmented scan at n lanes, s = 1, 2, 4, .. < n (one
     round that adds nothing at n = 1): the kernel's launches."""
@@ -838,29 +850,49 @@ def seg_rounds(n: int) -> int:
 def _seg_scan(fo, pts, inf, group):
     """JAX's scan (`_j_seg_sum_g1` `:686`): in round s every lane adds the
     previous round's value of lane (l - s) mod n, which counts as infinity
-    unless l >= s and the two lanes share a group."""
+    unless l >= s and the two lanes share a group.  -> (points, infinity,
+    the additions made where neither operand is infinity: the kernel's,
+    whose other lanes only copy)."""
     n = group.shape[0]
     lane = torch.arange(n, device=group.device)
-    s = 1
+    s, made = 1, 0
     while s < n:
         prev = tuple(torch.roll(a, s, dims=-1) for a in pts)
         ok = (lane >= s) & (torch.roll(group, s) == group)
-        pts, inf = CV.jac_add_full(fo, pts, inf, prev, torch.roll(inf, s) | ~ok)
+        q_inf = torch.roll(inf, s) | ~ok
+        made += int((~inf & ~q_inf).sum())
+        pts, inf = CV.jac_add_full(fo, pts, inf, prev, q_inf)
         s *= 2
-    return pts, inf
+    return pts, inf, made
+
+
+def _seg_g1(pts, dead, group):
+    d = LY.planes_to_digits(pts)
+    return _seg_scan(CV.FP_OPS, (d[0], d[1], d[2]), dead[0] != 0, group)
+
+
+def _seg_g2(xy, dead, group):
+    d = LY.planes_to_digits(xy)
+    one = CV.FP2_OPS.one(xy.shape[-1], xy.device)
+    return _seg_scan(CV.FP2_OPS, (d[0], d[1], one), dead[0] != 0, group)
 
 
 def seg_sum_g1_plain(pts, dead, group):
-    d = LY.planes_to_digits(pts)
-    s, s_inf = _seg_scan(CV.FP_OPS, (d[0], d[1], d[2]), dead[0] != 0, group)
+    s, s_inf, _ = _seg_g1(pts, dead, group)
     return LY.digits_to_planes(torch.stack(s)), s_inf.to(torch.int32)[None, :]
 
 
 def seg_sum_g2_plain(xy, dead, group):
-    d = LY.planes_to_digits(xy)
-    one = CV.FP2_OPS.one(xy.shape[-1], xy.device)
-    s, s_inf = _seg_scan(CV.FP2_OPS, (d[0], d[1], one), dead[0] != 0, group)
+    s, s_inf, _ = _seg_g2(xy, dead, group)
     return LY.digits_to_planes(torch.stack(s)), s_inf.to(torch.int32)[None, :]
+
+
+def seg_additions(name: str, pts, dead, group) -> int:
+    """The complete additions `seg_sum_g1` or `seg_sum_g2` (name) makes on
+    these operands: one per lane and round where neither operand counts
+    as infinity (the other lanes copy); each makes FP_MULS_PER_LANE[name]
+    Fp products."""
+    return (_seg_g1 if name == "seg_sum_g1" else _seg_g2)(pts, dead, group)[2]
 
 
 def _seg_sum(name, symbol, pts, dead, group, shape):
@@ -869,8 +901,9 @@ def _seg_sum(name, symbol, pts, dead, group, shape):
     scr = torch.empty_like(out)
     out_inf = torch.empty((1, n), dtype=torch.int32, device=pts.device)
     scr_inf = torch.empty_like(out_inf)
+    made = ctypes.c_int(0)
     _launch(name, "segsum", symbol, pts.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(),
-            out_inf.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, launches=seg_rounds(n))
+            out_inf.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, ctypes.addressof(made), launches=made)
     return out, out_inf
 
 

@@ -1070,6 +1070,38 @@ def rsig_program() -> Program:
     return sg.program("RSIG", order, {r: r for r in RSIG_LAYOUT})
 
 
+# the subgroup check's registers: the affine signature Q and jac_eq's cross
+# products
+SUB_LAYOUT = {"Q": (0, 4), "EQ": (4, 8)}
+
+
+def sub_program() -> Program:
+    """The G2 subgroup check of an affine Q alone (lodestar_tpu/kernels/
+    verify.py _k_sub_only, curve.py g2_subgroup_check): one segment of
+    the static chain [|x|] Q (63 doublings, 5 mixed additions of Q, the
+    formulas of curve.py scalar_mul_static, as rsig_program's windows run
+    them), psi(Q), and jac_eq's cross products of psi(Q) against
+    -[|x|] Q, which csrc/subgroup.cu compares (the negation folded into
+    the comparison's operand, as rsig_program's last window does).  The
+    Jacobian triples are the plain version's, so the flag is too, on
+    every input."""
+    sg = _Segments(dict(_consts(False), **_psi_consts()), SUB_LAYOUT)
+
+    def body(tw, r):
+        f = tw.fp2
+        qa = _pairs(r["Q"])
+        q = (qa[0], qa[1], f.one)
+        S = q
+        for bit in bin(X_ABS)[3:]:
+            S = jac_dbl(f, S)
+            if bit == "1":
+                S = jac_add_mixed(f, S, qa)
+        return {"EQ": _flat(jac_eq_terms(f, tw.psi(q), _neg_pt(f, S)))}
+
+    sg.add("sub", body, ("Q",), ("EQ",))
+    return sg.program("SUB", ["sub"], {r: r for r in SUB_LAYOUT})
+
+
 # the r pk program's registers: the Jacobian pubkey P, the table
 # {P .. 15 P}, the accumulator T (two sets, alternating), the window's
 # addend and T after the window's doublings
@@ -1213,30 +1245,56 @@ def decompress_program() -> Program:
     return sg.program("DECOMP", ["a", "b", "c", "d"], {r: r for r in DECOMP_LAYOUT})
 
 
-# the lane sum's registers: the addition's operands P and Q, P + Q, 2P, the
-# H and R that the selects read, and the warp's tree element, two sets
-# alternating by level
-SUMG2_LAYOUT = {"P": (0, 6), "Q": (6, 6), "S": (12, 6), "DBL": (18, 6), "H": (24, 2), "R": (26, 2),
-                "RES0": (28, 6), "RES1": (34, 6)}
+def _add_layout(w: int) -> Dict[str, Tuple[int, int]]:
+    """A complete addition's registers over a field of w Fp values (1 in
+    G1, 2 in G2): the operands P and Q, P + Q, 2P, the H and R that the
+    selects read, and a tree element, two sets alternating by level (the
+    lane sum's; the scan leaves them unused)."""
+    lay, at = {}, 0
+    for name, n in (("P", 3), ("Q", 3), ("S", 3), ("DBL", 3), ("H", 1), ("R", 1), ("RES0", 3), ("RES1", 3)):
+        lay[name] = (at, n * w)
+        at += n * w
+    return lay
+
+
+SUMG2_LAYOUT = _add_layout(2)
+SUMG1_LAYOUT = _add_layout(1)
+
+
+def _add_program(name: str, g2: bool) -> Program:
+    """One complete addition over Fp2 (G2) or Fp (G1): P + Q by the
+    generic Jacobian addition (curve.py _add_core), 2P beside it in the
+    same rounds, and the H and R of the addition.  The kernels' drivers
+    make jac_add_full's selects from them: 2P where H = R = 0, P or Q
+    where the other is infinity, and the infinity flag.  Constants ONE and
+    ZERO give an affine operand its Z = 1."""
+    consts = _consts(False)
+    sg = _Segments(consts, SUMG2_LAYOUT if g2 else SUMG1_LAYOUT)
+
+    def add(tw, r):
+        f, pt = (tw.fp2, _pairs) if g2 else (tw.fp, tuple)
+        p, q = pt(r["P"]), pt(r["Q"])
+        s, h, rr = jac_add_hr(f, p, q)
+        flat = _flat if g2 else list
+        return {"S": flat(s), "DBL": flat(jac_dbl(f, p)), "H": list(h) if g2 else [h], "R": list(rr) if g2 else [rr]}
+
+    sg.add("add", add, ("P", "Q"), ("S", "DBL", "H", "R"))
+    io = {r: r for r in sg.layout}
+    io.update(ONE=list(consts).index("one"), ZERO=list(consts).index("zero"))
+    return sg.program(name, ["add"], io)
 
 
 def sumg2_program() -> Program:
-    """One complete G2 addition of the lane sum's tree (csrc/reduce.cu):
-    P + Q by the generic Jacobian addition (curve.py _add_core over Fp2),
-    2P beside it in the same rounds, and the H and R of the addition.  The
-    kernel's driver makes jac_add_full's selects from them: 2P where
-    H = R = 0, P or Q where the other is infinity, and the infinity flag;
-    it moves tree elements between the warps' RES registers."""
-    sg = _Segments(_consts(False), SUMG2_LAYOUT)
+    """One complete G2 addition (`_add_program`): the lane sum's tree
+    (csrc/reduce.cu), which moves tree elements between the warps' RES
+    registers, and the G2 scan's (csrc/segsum.cu lt_seg_sum_g2)."""
+    return _add_program("SUMG2", True)
 
-    def add(tw, r):
-        f = tw.fp2
-        p, q = _pairs(r["P"]), _pairs(r["Q"])
-        s, h, rr = jac_add_hr(f, p, q)
-        return {"S": _flat(s), "DBL": _flat(jac_dbl(f, p)), "H": list(h), "R": list(rr)}
 
-    sg.add("add", add, ("P", "Q"), ("S", "DBL", "H", "R"))
-    return sg.program("SUMG2", ["add"], {r: r for r in SUMG2_LAYOUT})
+def sumg1_program() -> Program:
+    """One complete G1 addition (`_add_program` over Fp): the G1 scan's
+    (csrc/segsum.cu lt_seg_sum_g1)."""
+    return _add_program("SUMG1", False)
 
 
 # the affine conversion's registers: the Jacobian point (X, Y, Z) and the
@@ -1496,7 +1554,7 @@ def prod12_program() -> Program:
 
 def programs() -> List[Program]:
     return [miller_program(), final_program(), rsig_program(), rpk_program(), decompress_program(), sumg2_program(),
-            affine_program(), hash_program(), prod12_program()]
+            affine_program(), hash_program(), prod12_program(), sub_program(), sumg1_program()]
 
 
 # ---------------------------------------------------------------------------

@@ -384,9 +384,11 @@ def test_needed_products_decompose_the_host_counts():
 
 @pytest.mark.parametrize("n", [1, 5, 16])
 def test_segsum_host_build_counts_and_equals_plain(libs, n):
-    """One complete addition per lane and round, log2 n rounds (one for
-    n = 1), in G1 and G2; groups of 1..3 lanes, a dead lane; the host build
-    equals the plain version bit for bit."""
+    """One complete addition per lane and round where neither operand is
+    infinity (the other lanes copy), log2 n rounds (one for n = 1), each
+    one launch as the entry point reports them, in G1 and G2; groups of
+    1..3 lanes, a dead lane; the host build equals the plain version bit
+    for bit."""
     assert KV.seg_rounds(n) == max(1, (n - 1).bit_length())
     group = torch.from_numpy(np.repeat(np.arange(n), 3)[:n].astype(np.int32))
     dead = torch.from_numpy((np.arange(n) % 4 == 3).astype(np.int32)[None, :]).contiguous()
@@ -394,15 +396,31 @@ def test_segsum_host_build_counts_and_equals_plain(libs, n):
     pts = [GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar()) for _ in range(n)]
     p = g1_planes(pts, [scalar() for _ in range(n)])
     out, out_inf, scr, scr_inf = i32(3, LY.NL, n), i32(1, n), i32(3, LY.NL, n), i32(1, n)
+    made = ctypes.c_int(-1)
+    lib.lt_host_fp_muls()
     assert lib.lt_seg_sum_g1(p.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
-                             scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
-    assert lib.lt_host_fp_muls() == KV.seg_rounds(n) * n * KV.FP_MULS_PER_LANE["seg_sum_g1"]
+                             scr.data_ptr(), scr_inf.data_ptr(), n, ctypes.addressof(made), None) == 0
+    assert made.value == KV.seg_rounds(n)
+    adds = KV.seg_additions("seg_sum_g1", p, dead, group)
+    assert lib.lt_host_fp_muls() == adds * KV.FP_MULS_PER_LANE["seg_sum_g1"]
+    # no sum is P + (-P) here, so in round s a lane's value is infinity
+    # where every lane of its group in (l - s, l] is dead, and it adds
+    # where both it and its partner's (l - 2s, l - s] hold a live lane
+    g, live = group.tolist(), (dead[0] == 0).tolist()
+
+    def finite(lo, hi):
+        return any(live[k] for k in range(max(lo, 0), hi + 1) if g[k] == g[hi])
+
+    assert adds == sum(1 for s in (1 << k for k in range(KV.seg_rounds(n))) for l in range(s, n)
+                       if g[l - s] == g[l] and finite(l - s + 1, l) and finite(l - 2 * s + 1, l - s))
     want = KV.seg_sum_g1_plain(p, dead, group)
     assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
     q = g2_planes([GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(n)])
     out, scr = i32(3, 2, LY.NL, n), i32(3, 2, LY.NL, n)
     assert lib.lt_seg_sum_g2(q.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
-                             scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
-    assert lib.lt_host_fp_muls() == KV.seg_rounds(n) * n * KV.FP_MULS_PER_LANE["seg_sum_g2"]
+                             scr.data_ptr(), scr_inf.data_ptr(), n, ctypes.addressof(made), None) == 0
+    assert made.value == KV.seg_rounds(n)
+    assert lib.lt_host_fp_muls() == adds * KV.FP_MULS_PER_LANE["seg_sum_g2"]
     want = KV.seg_sum_g2_plain(q, dead, group)
     assert torch.equal(out, want[0]) and torch.equal(out_inf, want[1])
+    lib.lt_host_rounds()  # leave the library's counters drained

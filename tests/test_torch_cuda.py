@@ -344,15 +344,75 @@ def _on_curve(key):
     return True
 
 
-def test_seg_sums_on_card(dev, points):
-    """The G1 and G2 segmented scans over groups of 1..7 lanes with dead
-    lanes, one launch per round."""
+@pytest.mark.parametrize("n", [1, 33, 512, 1024, 2048])
+def test_seg_sums_on_card(dev, points, n):
+    """The G1 and G2 segmented scans at 1, 33, 512, 1024 and 2048 lanes,
+    one warp per lane and round: groups of 1..60 lanes (spanning blocks
+    of 16 lanes), every sixth lane dead, the 40 points repeated (equal
+    points in a group: doublings) and every eleventh lane the negation of
+    the one before (P + (-P)); bit-equal to the plain versions, one launch
+    per round as the entry point reports it, each launch's shape the
+    library's record."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
     p, q = points
-    group = planes(np.repeat(np.arange(N), RNG.integers(1, 8, size=N))[:N].astype(np.int32), dev)
-    dead = planes((RNG.random((1, N)) < 0.2).astype(np.int32), dev)
-    rounds = KV.seg_rounds(N)
-    _equal(KV.seg_sum_g1, KV.seg_sum_g1_plain, p, dead, group, launches=rounds)
-    _equal(KV.seg_sum_g2, KV.seg_sum_g2_plain, q, dead, group, launches=rounds)
+    idx = torch.arange(n, device=dev) % N
+    p, q = p[..., idx].contiguous(), q[..., idx].contiguous()
+    def neg(col):  # Montgomery planes [12, 1] of y -> those of -y
+        y = LY.decode_batch(col.cpu().numpy())[0]
+        return planes(LY.encode_batch([(-y) % GT.P])[:, 0], dev)
+
+    for j in range(10, n, 11):
+        p[1, :, j] = neg(p[1, :, j - 1:j])
+        for k in range(2):
+            q[1, k, :, j] = neg(q[1, k, :, j - 1:j])
+    group = planes(np.repeat(np.arange(n), RNG.integers(1, 61, size=n))[:n].astype(np.int32), dev)
+    dead = (torch.arange(n, device=dev) % 6 == 5).to(torch.int32)[None].contiguous()
+    rounds = KV.seg_rounds(n)
+    for name, (kernel, plain), prog, pts in (
+            ("seg_sum_g1", (KV.seg_sum_g1, KV.seg_sum_g1_plain), W.sumg1_program(), p),
+            ("seg_sum_g2", (KV.seg_sum_g2, KV.seg_sum_g2_plain), W.sumg2_program(), q)):
+        _equal(kernel, plain, pts, dead, group, launches=rounds)
+        shape = (ctypes.c_int * 8)()
+        assert B.load("segsum").lt_warp_last_launch(name.encode(), shape) == 0
+        w = KV.seg_warps(n)
+        smem = LY.NL * 4 * (w * prog.nslots + len(prog.consts))
+        assert list(shape) == [n, -(-n // w), 32 * w, w, smem, prog.nslots, prog.phases, prog.rounds]
+        assert prog.rounds == KV.ROUNDS_PER_LANE[name]
+
+
+@pytest.mark.parametrize("n", [1, 5, 128, 129, 512])
+def test_g2_subgroup_check_on_card(dev, points, n):
+    """The warp-per-lane subgroup check at 1, 5 (a block's lanes 1..3
+    idle), 128, 129 and 512 lanes, bit-equal to the plain version: points
+    of G2, twist points outside it (j % 5 == 4), lanes flagged infinity
+    (j % 5 == 3; outside points among them where j % 10 == 8, whose
+    coordinates are set outside too) and the generator (j % 5 == 2, the
+    per-set path's padding).  The launch, as the library reports it, is
+    the generated program's."""
+    from lodestar_tpu_torch.kernels import warp_schedule as W
+
+    _, q = points
+    u = GH.hash_to_field_fp2(b"sub-on-card", 1, b"torch-cuda")[0]
+    out = GH.map_to_curve_svdw(GC.FP2_OPS, u)
+    assert not GC.g2_subgroup_check(out)
+    out_q = planes(np.stack([np.stack([LY.encode_batch([out[c][k]]) for k in range(2)]) for c in range(2)]), dev)
+    gen = planes(np.stack([np.stack([LY.encode_batch([GC.G2_GEN[c][k]]) for k in range(2)]) for c in range(2)]), dev)
+    qn = q[..., torch.arange(n, device=dev) % N].contiguous()
+    for j in range(n):
+        if j % 5 == 4 or j % 10 == 8:
+            qn[..., j] = out_q[..., 0]
+        elif j % 5 == 2:
+            qn[..., j] = gen[..., 0]
+    inf = (torch.arange(n, device=dev) % 5 == 3).to(torch.int32)[None].contiguous()
+    (sub,) = _equal(KV.g2_subgroup_check, KV.g2_subgroup_check_plain, qn, inf)
+    assert sub[0].tolist() == [int(j % 5 != 4) for j in range(n)]
+    prog = W.sub_program()
+    shape = (ctypes.c_int * 8)()
+    assert B.load("subgroup").lt_warp_last_launch(b"g2_subgroup_check", shape) == 0
+    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
+    assert prog.rounds == KV.ROUNDS_PER_LANE["g2_subgroup_check"]
 
 
 def test_grouped_wire_batch_and_aggregation_on_card(dev):

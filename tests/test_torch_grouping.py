@@ -16,6 +16,7 @@ against the plain versions here and in tests/test_torch_csrc_host.py,
 the CUDA build on the card in tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import ctypes
 import shutil
 from types import SimpleNamespace
 
@@ -70,8 +71,11 @@ def _host_seg(lib, symbol, pts, dead, group, shape):
     n = group.shape[0]
     out, scr = torch.empty(shape, dtype=torch.int32), torch.empty(shape, dtype=torch.int32)
     out_inf, scr_inf = torch.empty((1, n), dtype=torch.int32), torch.empty((1, n), dtype=torch.int32)
+    made = ctypes.c_int(-1)
     assert getattr(lib, symbol)(pts.data_ptr(), dead.data_ptr(), group.data_ptr(), out.data_ptr(),
-                                out_inf.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, None) == 0
+                                out_inf.data_ptr(), scr.data_ptr(), scr_inf.data_ptr(), n, ctypes.addressof(made),
+                                None) == 0
+    assert made.value == KV.seg_rounds(n)
     return out, out_inf
 
 

@@ -8,9 +8,10 @@
 //                    copies and selects between them), one complete G2
 //                    addition of the lane sum (5), the affine conversion
 //                    (6), the hash to G2 (7; its segments back to back,
-//                    without the segment loop's selects and copies) or one
-//                    Fp12 product of the lane product (8), clock64() around
-//                    every phase
+//                    without the segment loop's selects and copies), one
+//                    Fp12 product of the lane product (8), the per-set G2
+//                    subgroup check (9) or one complete G1 addition of the
+//                    G1 scan (10), clock64() around every phase
 //   lt_prof_op       256 dependent Fp operations on each thread of one warp
 //                    (0 Montgomery product, 1 fp_add, 2 fp_sub, 3 an
 //                    interpreter add from shared memory, 4 an interpreter
@@ -26,6 +27,8 @@
 #define LT_WANT_AFFINE
 #define LT_WANT_HASH
 #define LT_WANT_PROD12
+#define LT_WANT_SUB
+#define LT_WANT_SUMG1
 #include "pairing.cuh"
 
 template <int SLOTS, int NCONST>
@@ -87,6 +90,16 @@ __global__ void lt_prof_hash(long long *cyc, const uint32_t *init) {
 __global__ void lt_prof_prod12(long long *cyc, const uint32_t *init) {
   prof_program<LT_PROD12_SLOTS, LT_PROD12_CONSTS>(LT_PROD12_CONST, LT_PROD12_PHASE, LT_PROD12_PHASES,
                                                   LT_PROD12_INS, cyc, init, LT_PROD12_RES1 + 12);
+}
+
+__global__ void lt_prof_sub(long long *cyc, const uint32_t *init) {
+  prof_program<LT_SUB_SLOTS, LT_SUB_CONSTS>(LT_SUB_CONST, LT_SUB_PHASE, LT_SUB_PHASES, LT_SUB_INS, cyc, init,
+                                            LT_SUB_EQ + 8);
+}
+
+__global__ void lt_prof_sumg1(long long *cyc, const uint32_t *init) {
+  prof_program<LT_SUMG1_SLOTS, LT_SUMG1_CONSTS>(LT_SUMG1_CONST, LT_SUMG1_PHASE, LT_SUMG1_PHASES, LT_SUMG1_INS,
+                                                cyc, init, LT_SUMG1_RES1 + 3);
 }
 
 __global__ void lt_prof_op_kernel(int which, const uint32_t *init, uint32_t *out, long long *cyc) {
@@ -156,10 +169,18 @@ extern "C" int lt_prof_program(int which, void *cyc, const void *init) {
     const size_t smem = w_smem_bytes(LT_HASH_SLOTS, LT_HASH_CONSTS);
     cudaFuncSetAttribute(lt_prof_hash, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_hash<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
-  } else {
+  } else if (which == 8) {
     const size_t smem = w_smem_bytes(LT_PROD12_SLOTS, LT_PROD12_CONSTS);
     cudaFuncSetAttribute(lt_prof_prod12, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     lt_prof_prod12<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else if (which == 9) {
+    const size_t smem = w_smem_bytes(LT_SUB_SLOTS, LT_SUB_CONSTS);
+    cudaFuncSetAttribute(lt_prof_sub, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_sub<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
+  } else {
+    const size_t smem = w_smem_bytes(LT_SUMG1_SLOTS, LT_SUMG1_CONSTS);
+    cudaFuncSetAttribute(lt_prof_sumg1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    lt_prof_sumg1<<<1, LT_WARP * LT_LPB, smem>>>((long long *)cyc, (const uint32_t *)init);
   }
   return (int)cudaDeviceSynchronize();
 }

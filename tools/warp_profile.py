@@ -13,8 +13,10 @@ generated ones), then prints
     hash to G2 (these four: their segments back to back, without the
     segment loops' copies and selects between segments), one complete G2
     addition of the lane sum (sum_g2's warp, without the driver's moves and
-    selects), one affine conversion and one Fp12 product of the lane
-    product, with clock64() around every phase, summed by kind of phase
+    selects; the G2 scan's addition), one affine conversion, one Fp12
+    product of the lane product, one lane of the per-set G2 subgroup check
+    and one complete G1 addition of the G1 scan, with clock64() around
+    every phase, summed by kind of phase
     (products, linear only, the inversion) and by rows (the longest queue
     of operations on one thread).
 Values are random field elements: the programs' cost does not depend on

@@ -11,7 +11,8 @@ Needs one CUDA device; exits non-zero without one.  In order:
      fixed seed with the port's own crypto/ copy; the 1,048,576-row pubkey
      table registered from compressed keys (row r holds key r % 64) by
      `PubkeyTable.register_compressed`, 16 KeyValidate launches of 65,536
-     lanes, its planes equal to the unchecked table's, and a 128-key job
+     lanes, its planes equal to the unchecked table's, its time split into
+     host encoding, kernel (CUDA events) and the rest, and a 128-key job
      with one key of each fault kind rejected at the first fault's
      position, leaving its table empty; a 512-set job mixing
      valid sets, wrong messages, swapped signatures, signatures at infinity
@@ -33,8 +34,11 @@ Needs one CUDA device; exits non-zero without one.  In order:
      roots as MessageCache encodes them, every point hash_to_g2 of its
      root, with its 512-lane launch as its library reports it;
      g1_keyvalidate on one 65,536-key registration chunk and on the fault
-     job with 128 valid keys; seg_sum_g1 on the grouped wire batch's
-     randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 128 and
+     job beside 128 keys made from E(Fp)'s cofactor components (points of
+     each prime order dividing h1, their sums with a key of G1, the
+     cofactor part [r] Q, curve points; both sort flags), every verdict the
+     oracle's, with its launch shape, occupancy and ptxas figures;
+     seg_sum_g1 on the grouped wire batch's randomized pubkeys (N = 128 and 512) and seg_sum_g2 on the 128 and
      512 decompressed signatures grouped by root, and both scans (one warp
      per lane and round) at 1, 33, 512, 1024 and 2048 lanes (those
      operands repeated), each call's launches (one per round of the scan)
@@ -133,6 +137,12 @@ AGG_SETS, AGG_K = 256, 128  # BASELINE.json config 2: 1 signature over 128 pubke
 SYNC_SETS, SYNC_K = 4, 512  # a block's sync-committee aggregate
 SYNC_MISSING = 2  # the K = 512 set whose signature leaves out one signer
 REG_CHUNK = 65536  # keys per KeyValidate launch at registration (register_compressed's device_batch)
+# G1's cofactor h1 = prod l^k over these primes; the 256-lane KeyValidate
+# call holds 128 keys made from E(Fp)'s cofactor components (COFACTOR_KINDS
+# points, both sort flags of each) beside the fault job
+H1_PRIMES = {3: 1, 11: 2, 10177: 2, 859267: 2, 52437899: 2}
+COFACTOR_KINDS = [("order", ell) for ell in H1_PRIMES] * 4 + [("g1_plus_order", ell) for ell in H1_PRIMES] * 4 + [
+    ("cofactor_part", 0)] * 8 + [("g1_plus_cofactor_part", 0)] * 8 + [("on_curve", 0)] * 8
 # fault keys of the 128-key rejection job, at these positions among valid keys
 KEY_FAULTS = {5: "infinity", 17: "x_off_curve", 29: "outside_G1", 41: "x_zero_order_3", 53: "x_not_below_p",
               77: "no_compression_bit", 101: "47_bytes"}
@@ -277,6 +287,41 @@ def _aggregate_truth(args):
     return GB.fast_aggregate_verify(keys, root, sig)
 
 
+def _cofactor_keys(args):
+    """Both sort flags of one point made from E(Fp)'s cofactor components
+    ([#E / l^k] Q of order l, with a key of G1 added, the cofactor part
+    [r] Q, or Q itself, Q a curve point from the seed), each with its
+    verdict by the oracle (g1_decompress and the [r]P subgroup check)."""
+    import random
+
+    from lodestar_tpu_torch.crypto import curves as GC
+    from lodestar_tpu_torch.crypto import fields as GT
+
+    (kind, ell), seed, pk = args
+    rng = random.Random(seed)
+
+    def on_curve():
+        while True:
+            x = rng.randrange(GT.P)
+            y = GT.fp_sqrt((x * x * x + 4) % GT.P)
+            if y is not None:
+                return x, y
+
+    n_e = GT.H1_COFACTOR * GT.R  # #E(Fp)
+    pt = None
+    while pt is None:  # Q's component may be 0
+        pt = q = on_curve()
+        if kind.endswith("order"):
+            pt = GC.scalar_mul(GC.FP_OPS, q, n_e // ell ** H1_PRIMES[ell])
+        elif kind.endswith("cofactor_part"):
+            pt = GC.scalar_mul(GC.FP_OPS, q, GT.R)
+    if kind.startswith("g1_plus_"):
+        pt = GC.affine_add(GC.FP_OPS, pk, pt)
+    c = GC.g1_compress(pt)
+    keys = [c, bytes([c[0] ^ 0x20]) + c[1:]]
+    return [(k, GC.g1_subgroup_check(GC.g1_decompress(k))) for k in keys]
+
+
 def _decompress(sig: bytes):
     """(decodable, point) by crypto/curves.py g2_decompress."""
     from lodestar_tpu_torch.crypto import curves as GC
@@ -304,6 +349,9 @@ def make_job(pool) -> dict:
     hs = [GH.hash_to_g2(r) for r in roots]
     hash_roots = [rng.bytes(32) for _ in range(HASH_ROOTS[-1])]  # distinct from the jobs' roots
     hash_async = pool.map_async(_hash_to_g2, hash_roots)
+    assert np.prod([ell**k for ell, k in H1_PRIMES.items()], dtype=object) == GT.H1_COFACTOR
+    cof_async = pool.map_async(_cofactor_keys, [(kind, rng.bytes(16), pks[i % N_KEYS])
+                                                for i, kind in enumerate(COFACTOR_KINDS)])
     n = JOBS[-1]
     # aggregates: distinct table rows (row r holds key r % 64); the
     # signature is sum_k c_k sig_k, c_k the count of key k among the rows
@@ -424,11 +472,13 @@ def make_job(pool) -> dict:
             "no_compression_bit": bytes([rej_keys[i][0] & 0x7F]) + rej_keys[i][1:],
             "47_bytes": rej_keys[i][:47],
         }[fault]
+    cof = cof_async.get()
     return dict(
         pks=pks, roots=roots, hs=hs, sets=sets, kinds=kinds, truth=truth, valid_sets=valid_sets,
         wire_valid=wire_valid, wire_mixed=wire_mixed, wire_kinds=wire_kinds, wire_truth=wire_truth,
         wire_agg=wire_agg, agg_truth=agg_truth[:AGG_SETS], wire_sync=wire_sync, sync_truth=agg_truth[AGG_SETS:],
         comp=comp, rej_keys=rej_keys, hash_roots=hash_roots, hash_pts=hash_async.get(),
+        cof_keys=[k for pair in cof for k, _ in pair], cof_truth=[v for pair in cof for _, v in pair],
     )
 
 
@@ -490,6 +540,7 @@ def main() -> int:
 
     from lodestar_tpu_torch.bls import ingest as IN
     from lodestar_tpu_torch.bls.ingest import MessageCache, encode_pubkey_planes, hash_field_planes, jacobian_to_affine
+    from lodestar_tpu_torch.bls import pubkey_table as PT
     from lodestar_tpu_torch.bls.pubkey_table import PubkeyTable
     from lodestar_tpu_torch.bls.rand import make_rand_words
     from lodestar_tpu_torch.bls.signature_set import WireSignatureSet
@@ -579,9 +630,35 @@ def main() -> int:
     reg_planes, reg_flags, reg_bad = encode_pubkey_planes(keys[:REG_CHUNK])
     encode_ms = (time.perf_counter() - t) * 1e3
     table = PubkeyTable()
-    t = time.perf_counter()
-    idx, counts = counted(lambda: table.register_compressed(keys, device_batch=REG_CHUNK))
-    reg_s = time.perf_counter() - t
+    # the registration's split: host encoding (host clock, summed over the
+    # chunks), the kernel (CUDA events around each launch) and the rest
+    reg_encode_ms, reg_events = [0.0], []
+    encode_orig, kv_orig = PT.encode_pubkey_planes, KV.g1_keyvalidate
+
+    def timed_encode(chunk):
+        t0 = time.perf_counter()
+        out = encode_orig(chunk)
+        reg_encode_ms[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_kv(x, flags):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = kv_orig(x, flags)
+        b.record()
+        reg_events.append((a, b))
+        return out
+
+    PT.encode_pubkey_planes, KV.g1_keyvalidate = timed_encode, timed_kv
+    try:
+        t = time.perf_counter()
+        idx, counts = counted(lambda: table.register_compressed(keys, device_batch=REG_CHUNK))
+        reg_s = time.perf_counter() - t
+    finally:
+        PT.encode_pubkey_planes, KV.g1_keyvalidate = encode_orig, kv_orig
+    reg_kernel_ms = sum(a.elapsed_time(b) for a, b in reg_events)
+    reg_split = {"total_ms": reg_s * 1e3, "host_encoding_ms": reg_encode_ms[0], "kernel_ms": reg_kernel_ms,
+                 "rest_ms": reg_s * 1e3 - reg_encode_ms[0] - reg_kernel_ms, "chunks": len(reg_events)}
     unchecked = PubkeyTable()
     unchecked.register_points_unchecked(d["pks"], tile_to=TABLE_ROWS)
     same = all(np.array_equal(getattr(table, a)[:, :TABLE_ROWS], getattr(unchecked, a)[:, :TABLE_ROWS])
@@ -594,8 +671,10 @@ def main() -> int:
     log(f"main path registration: PubkeyTable.register_compressed of {TABLE_ROWS} compressed keys: "
         f"{counts['g1_keyvalidate']} g1_keyvalidate launches of {REG_CHUNK} lanes; every row equals "
         f"register_points_unchecked's planes bit for bit; {reg_s * 1e3:.1f} ms = {TABLE_ROWS / reg_s:.1f} keys/s "
-        f"(host clock, one run: host encoding, copies and the kernel); host encoding {encode_ms:.1f} ms per "
-        f"{REG_CHUNK}-key chunk (encode_pubkey_planes, numpy)")
+        f"(host clock, one run) = host encoding {reg_encode_ms[0]:.1f} ms (encode_pubkey_planes, numpy, summed over "
+        f"{len(reg_events)} chunks; {encode_ms:.1f} ms for one chunk alone) + kernel {reg_kernel_ms:.3f} ms (CUDA "
+        f"events around each launch) + the rest {reg_split['rest_ms']:.1f} ms (copies, the verdicts' reads, "
+        f"appending the planes)")
     rej_table = PubkeyTable()
     first = min(KEY_FAULTS)
     try:
@@ -649,17 +728,37 @@ def main() -> int:
         return k_out
 
     # KeyValidate on one registration chunk (the main path's shape), and on
-    # the fault job beside 128 valid keys
+    # the fault job beside 128 keys made from E(Fp)'s cofactor components
     kv_x, kv_flags = torch.from_numpy(reg_planes).to(dev), torch.from_numpy(reg_flags).to(dev)
     _, kv_ok = plain_and_kernel("g1_keyvalidate", REG_CHUNK, KV.g1_keyvalidate, KV.g1_keyvalidate_plain, kv_x,
                                 kv_flags, plain_runs=0)
-    kv_x = torch.from_numpy(np.concatenate([rej_planes, reg_planes[:, :128]], axis=1)).to(dev)
-    kv_flags = torch.from_numpy(np.concatenate([rej_flags, reg_flags[:, :128]], axis=1)).to(dev)
+    cof_planes, cof_flags, cof_bad = encode_pubkey_planes(d["cof_keys"])
+    kv_x = torch.from_numpy(np.concatenate([rej_planes, cof_planes], axis=1)).to(dev)
+    kv_flags = torch.from_numpy(np.concatenate([rej_flags, cof_flags], axis=1)).to(dev)
     _, kv_ok256 = plain_and_kernel("g1_keyvalidate", 256, KV.g1_keyvalidate, KV.g1_keyvalidate_plain, kv_x,
                                    kv_flags, plain_runs=0)
-    if not bool(kv_ok.all()) or int(kv_ok256.sum()) != 256 - len(KEY_FAULTS):
-        raise AssertionError(f"g1_keyvalidate: {int(kv_ok.sum())} of {REG_CHUNK} keys valid, "
-                             f"{int(kv_ok256.sum())} of 256 on the fault job")
+    want256 = [int(i not in KEY_FAULTS) for i in range(128)] + [int(v) for v in d["cof_truth"]]
+    if not bool(kv_ok.all()) or cof_bad.any() or kv_ok256[0].tolist() != want256:
+        raise AssertionError(f"g1_keyvalidate: {int(kv_ok.sum())} of {REG_CHUNK} keys valid; on the fault job and "
+                             f"the cofactor keys {kv_ok256[0].tolist()} where the oracle says {want256}")
+    kv_shape = torch.zeros(4, dtype=torch.int32)
+    if B.load("keyvalidate").lt_kv_launch_shape(kv_shape.data_ptr()) != 0:
+        raise AssertionError("g1_keyvalidate: lt_kv_launch_shape failed")
+    threads, smem, per_sm, slots = kv_shape.tolist()
+    kv_blocks = -(-REG_CHUNK // threads)
+    kv_info = {"threads_per_block": threads, "dynamic_smem_bytes_per_block": smem, "slots_per_lane": slots,
+               "blocks_per_sm_occupancy_api": per_sm, "warps_per_sm_occupancy_api": per_sm * threads // 32,
+               "blocks": kv_blocks, "warps_per_sm_from_grid": kv_blocks * threads / 32 / N_SM,
+               "waves": kv_blocks / (per_sm * N_SM), "cofactor_keys": len(d["cof_keys"]),
+               "cofactor_keys_in_g1": sum(d["cof_truth"]),
+               "ptxas": next(e for k, e in ptxas_entries(ptxas["keyvalidate"]).items() if "keyvalidate" in k)}
+    log(f"kernel g1_keyvalidate: the fault job (refused exactly at {sorted(KEY_FAULTS)}) and {len(d['cof_keys'])} "
+        f"keys from E(Fp)'s cofactor components ({sum(d['cof_truth'])} in G1 by the oracle's [r]P), every verdict "
+        f"the oracle's; launch {threads} threads a block, {smem} B dynamic shared memory a block ({slots} slots a "
+        f"lane), {per_sm} blocks ({per_sm * threads // 32} warps) an SM by "
+        f"cudaOccupancyMaxActiveBlocksPerMultiprocessor; {REG_CHUNK} lanes = {kv_blocks} blocks, "
+        f"{kv_info['warps_per_sm_from_grid']:.2f} warps an SM from the grid, {kv_info['waves']:.2f} waves; "
+        f"ptxas {kv_info['ptxas']}")
     seg_units = {}  # (name, n[, "lanes"]) -> the additions the segmented sum needs on the call's data
     seg_made = {}  # the same -> the additions the kernel makes (where neither operand is infinity)
 
@@ -1612,6 +1711,12 @@ def main() -> int:
         if name == "g1_keyvalidate":
             entry["ms_256"], entry["plain_ms_256"] = results[name, 256][:2]
             entry["bound_ms_256"] = bound(name, 256)[0]
+            # the bound on the [r]P design's need (KV.R_CHAIN_NEEDED), the yardstick before
+            for m, key in ((n, "bound_ms_r_chain_need"), (256, "bound_ms_256_r_chain_need")):
+                entry[key] = max(KV.R_CHAIN_NEEDED * m * KV.IMAD_PER_FP_MUL / imad_per_ms,
+                                 BYTES_PER_LANE[name] * m / PEAK_BYTES_PER_S * 1e3)
+            entry["registration_split_ms"] = reg_split
+            entry.update(kv_info)
         if name in ("seg_sum_g1", "seg_sum_g2"):
             entry["additions_needed"], entry["additions_made"] = seg_units[name, n], seg_made[name, n]
         if name in ("affine_g2", "hash_g2"):  # the inversions' multiplies, which fp_muls_needed leaves out

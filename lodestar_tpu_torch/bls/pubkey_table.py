@@ -55,7 +55,8 @@ class PubkeyTable:
     def register_compressed(self, keys: Sequence[bytes], device_batch: int = 65536, device=None) -> List[int]:
         """Register 48-byte compressed pubkeys with KeyValidate on the
         device (`kernels/verify.py g1_keyvalidate`: decompression, the
-        on-curve check and the [r]P subgroup check, one lane per key);
+        on-curve check and the subgroup check, one lane per key: sigma(P)
+        = [-z^2] P in the CUDA kernel, [r]P = O in its plain version);
         returns their indices.  `device` None means the CUDA device; on the
         CPU the kernel's plain version runs.
 

@@ -11,8 +11,10 @@ edit to any header or to a generator rebuilds everything and an unchanged
 tree reuses the libraries.
 
 Generated headers: `warp_prog.cuh`, the warp-per-lane kernels' programs,
-is written by `kernels/warp_schedule.py cuda_programs()` into
-`_build/gen-<hash>/` at build time and found there through `-I`.
+and `kv_prog.cuh`, KeyValidate's lane program, are written by
+`kernels/warp_schedule.py cuda_programs()` and `kernels/kv_program.py
+cuda_program()` into `_build/gen-<hash>/` at build time and found there
+through `-I`.
 
 `ptxas -v` output (registers, spills, stack frame) is kept beside each
 library as `<name>-<hash>.ptxas.txt`.
@@ -54,9 +56,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 @functools.lru_cache(maxsize=None)
 def generated_headers() -> Dict[str, str]:
     """Name -> text of the headers the generators write (once per process)."""
-    from . import warp_schedule
+    from . import kv_program, warp_schedule
 
-    return {"warp_prog.cuh": warp_schedule.cuda_programs()}
+    return {"warp_prog.cuh": warp_schedule.cuda_programs(), "kv_prog.cuh": kv_program.cuda_program()}
 
 
 def include_dir() -> Path:
@@ -175,6 +177,7 @@ _ARGTYPES = {
     "lt_hash_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_pk": [_VP, _VP, _INT, _VP, _VP, _INT, _VP, _VP, _INT, _VP],
     "lt_g1_keyvalidate": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_kv_launch_shape": [_VP],
     "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_warp_last_launch": [ctypes.c_char_p, _VP],

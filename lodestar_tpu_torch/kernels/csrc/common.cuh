@@ -15,10 +15,12 @@
 #define LT_DEV __device__ __forceinline__
 #define LT_NOINL __device__ __noinline__
 #define LT_CONST static __constant__
+#define LT_PROG static __device__ const  // the generated programs' tables
 #else
 #define LT_DEV static inline
 #define LT_NOINL static
 #define LT_CONST static const
+#define LT_PROG static const
 #endif
 
 #include "constants.cuh"

@@ -1,5 +1,5 @@
 // Jacobian arithmetic on a = 0 short Weierstrass curves for the
-// one-thread-per-lane G1 kernels (csrc/aggpk.cu, csrc/keyvalidate.cu),
+// one-thread-per-lane G1 kernel (csrc/aggpk.cu),
 // generic over the base field; the G2 operations run on the warp engine
 // (csrc/warp12.cuh, kernels/warp_schedule.py).  The CUDA twin of
 // lodestar_tpu_torch/kernels/curve.py; formulas and infinity-mask semantics

@@ -26,12 +26,6 @@
 
 #include "fp.cuh"
 
-#ifdef __CUDACC__
-#define LT_PROG static __device__ const
-#else
-#define LT_PROG static const
-#endif
-
 #include "warp_prog.cuh"
 
 #define LT_WARP 32

@@ -19,7 +19,9 @@ coordinates) equal the JAX functions' exactly:
     G.3): the same points, other Jacobian triples, which the CUDA kernel
     equals bit for bit;
   - `g1_keyvalidate`: a compressed pubkey's y (one Fp sqrt) and the
-    on-curve and [r]P subgroup checks of blst KeyValidate.
+    on-curve and [r]P subgroup checks of blst KeyValidate; the CUDA
+    kernel decides membership by sigma(P) = [-z^2] P instead
+    (`kernels/kv_program.py`), the same verdict.
 
 Fp2 values are digit tensors [..., 2, ND, N]; the two SSWU maps of a
 message run as one batched call on a leading axis.

@@ -24,6 +24,8 @@ without a device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -183,10 +185,20 @@ def _fp2_words(v) -> str:
     return "{" + _fp_words(v[0]) + ", " + _fp_words(v[1]) + "}"
 
 
-def _exp_words(e: int) -> str:
-    """A static exponent as little-endian 32-bit words (csrc pow loops)."""
-    n = -(-e.bit_length() // 32)
-    return "{" + ", ".join(f"0x{(e >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(n)) + "}"
+@functools.lru_cache(maxsize=None)
+def g1_beta() -> int:
+    """The cube root of unity beta of sigma(x, y) = (beta x, y) for which
+    sigma(P) = [-z^2] P on G1 (z = crypto/fields.py X_PARAM < 0): of the
+    two nontrivial roots, 2^((p - 1) / 3) and its square, the one the G1
+    generator pins (sigma acts on G1 as one of the two roots of
+    l^2 + l + 1 mod r, -z^2 being one of them)."""
+    from ..crypto import curves as CU
+
+    w = pow(2, (P - 1) // 3, P)
+    assert w != 1 and pow(w, 3, P) == 1
+    want = CU.affine_neg(CU.FP_OPS, CU.scalar_mul(CU.FP_OPS, CU.G1_GEN, GT.X_PARAM ** 2))
+    (beta,) = [b for b in (w, w * w % P) if (CU.G1_GEN[0] * b % P, CU.G1_GEN[1]) == want]
+    return beta
 
 
 def cuda_constants() -> str:
@@ -223,12 +235,12 @@ def cuda_constants() -> str:
         f"LT_CONST uint32_t LT_HALF_P[12] = {_fp_words((P - 1) // 2)};",
         f"LT_CONST uint32_t LT_G2_B[2][12] = {_fp2_words(mont2(CU.FP2_OPS.b_coeff))};",
     ]
-    # G1 KeyValidate: E1's b = 4 and the group order r for the [r]P check
-    r = F.R
+    # G1 KeyValidate: E1's b = 4, and the subgroup test sigma(P) = [-z^2] P:
+    # sigma's beta and |z|, whose bits the lane program's chains follow
     lines += [
         f"LT_CONST uint32_t LT_G1_B[12] = {_fp_words(mont(CU.FP_OPS.b_coeff))};",
-        f"#define LT_R_TOP {r.bit_length() - 1}",
-        f"LT_CONST uint32_t LT_R_ORDER[{-(-r.bit_length() // 32)}] = {_exp_words(r)};",
+        f"LT_CONST uint32_t LT_G1_BETA[12] = {_fp_words(mont(g1_beta()))};",
+        f"#define LT_Z_ABS 0x{-F.X_PARAM:016x}ull",
     ]
     return "\n".join(lines) + "\n"
 

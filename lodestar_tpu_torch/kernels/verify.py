@@ -90,6 +90,7 @@ from . import build as B
 from . import core as C
 from . import curve as CV
 from . import ingest as IG
+from . import kv_program as KVP
 from . import layout as LY
 from . import pairing as KP
 from . import tower as TW
@@ -151,7 +152,7 @@ FP_MULS_PER_LANE = {
     "g2_decompress": 1864,
     "hash_g2": 10412,
     "agg_pk": 23,
-    "g1_keyvalidate": 5448,
+    "g1_keyvalidate": 1488,
     "seg_sum_g1": 23,
     "seg_sum_g2": 60,
 }
@@ -173,14 +174,26 @@ ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_
 # addition and selects it only where P == Q.
 DBL_MULS, ADD_MULS, MADD_MULS = 7, 16, 11
 DBL2_MULS, ADD2_MULS = 16, 44
-# KeyValidate's [r]P chain: r's top bit starts it, 254 doublings, and one
-# addition of P for each of the 133 lower bits that are set
-R_DOUBLINGS, R_ADDITIONS = 254, 133
+# KeyValidate's subgroup test (kernels/kv_program.py): two chains over
+# |z|, each started by its top bit, 63 doublings and one addition for each
+# of the 5 lower bits that are set (mixed in the first, whose addend P is
+# affine; generic in the second); its square root's 4-bit sliding window:
+# the table's 8 products, then a squaring per bit and a product per window
+# after the first.  The kernel makes just these: FP_MULS_NEEDED is its count.
+# Beside them 10 products: x to Montgomery, x^3 (2), the square check and
+# the sign's conversion; the test's Z^2, Z^3, beta x, beta x Z^2, y Z^3.
+Z_DOUBLINGS, Z_ADDITIONS = 63, 5
+KV_SQRT_MULS = 2 ** (KVP.WIDTH - 1) + sum(sq + (d != 0) for sq, d in KVP.windows(KVP.SQRT_EXP)[1:])
+KV_EDGE_MULS = 10
+# The [r]P design it replaced needed 3,852 (5 beside the chain, the binary
+# ladder's 606, r's 254 doublings and 133 mixed additions): the yardstick
+# of the bound before (chip_smoke.py reports the bound both ways)
+R_CHAIN_NEEDED = 5 + 606 + 254 * DBL_MULS + 133 * MADD_MULS
 
 # The Fp products the function needs where the kernel makes more; the
 # bound counts these.  A sum of distinct points never takes the doubling
-# jac_add_full makes, and a sum whose addend is affine (KeyValidate's P,
-# agg_pk's table rows) needs only the mixed addition.  affine_g2 needs all
+# jac_add_full makes, and a sum whose addend is affine (agg_pk's table
+# rows) needs only the mixed addition.  affine_g2 needs all
 # of its 16 products and, beside them, its one Fp inversion, which both
 # counts leave out: the bound adds the binary GCD's multiplies on the
 # call's data (GCD_IMAD_PER_STEP, affine_g2_gcd_steps).  hash_g2 (the psi
@@ -212,7 +225,7 @@ _POW_S, _POW_T = _pow_window_muls(W.SQRT_EXP), _pow_window_muls((GT.P - 3) // 4)
 HASH_ROOT_MULS = {"norm": 2 + _POW_S, "sp": _POW_S + 1, "rp": _POW_T + 4, "rm": _POW_T + 3}
 FP_MULS_NEEDED = dict(
     FP_MULS_PER_LANE,
-    g1_keyvalidate=FP_MULS_PER_LANE["g1_keyvalidate"] - R_ADDITIONS * (ADD_MULS + DBL_MULS - MADD_MULS),
+    g1_keyvalidate=KV_EDGE_MULS + KV_SQRT_MULS + 2 * Z_DOUBLINGS * DBL_MULS + Z_ADDITIONS * (MADD_MULS + ADD_MULS),
     agg_pk=MADD_MULS,
     sum_g2=ADD2_MULS,
     seg_sum_g1=ADD_MULS,

@@ -336,19 +336,42 @@ def test_keyvalidate_host_build_counts_and_equals_plain(libs):
     assert ok.tolist() == [[1, 0, 0]] and LY.decode_batch(xy[1, :, :1].numpy()) == [pk[1]]
 
 
+def _window_steps(e: int, width: int):
+    """(bits of the first window, windows) of e's MSB-first sliding window."""
+    bits, i, first, count = bin(e)[2:], 0, None, 0
+    while i < len(bits):
+        if bits[i] == "1":
+            j = min(i + width, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            first = j - i if first is None else first
+            count, i = count + 1, j
+        else:
+            i += 1
+    return first, count
+
+
 def test_needed_products_decompose_the_host_counts():
     """The bounds count `FP_MULS_NEEDED`: the host-build counts (checked
     in the tests above) split into curve operations, less the doubling
     that each complete addition makes beside it and, where the addend is
     affine, the mixed addition's saving."""
-    assert (GT.R.bit_length() - 1, bin(GT.R).count("1") - 1) == (KV.R_DOUBLINGS, KV.R_ADDITIONS)
-    e = (GT.P + 1) // 4  # the square root's power: squarings and multiplies
-    sqrt = e.bit_length() - 1 + bin(e).count("1") - 1
-    chain = KV.R_DOUBLINGS * KV.DBL_MULS
+    z = -GT.X_PARAM  # KeyValidate's two chains over |z|
+    assert (z.bit_length() - 1, bin(z).count("1") - 1) == (KV.Z_DOUBLINGS, KV.Z_ADDITIONS)
+    e = (GT.P + 1) // 4  # the square root's power: 8 odd powers, a squaring a bit after the first window, a product a window after it
+    first, count = _window_steps(e, 4)
+    sqrt = 8 + e.bit_length() - first + count - 1
+    chains = 2 * KV.Z_DOUBLINGS * KV.DBL_MULS + KV.Z_ADDITIONS * (KV.MADD_MULS + KV.ADD_MULS)
     full, full2 = KV.ADD_MULS + KV.DBL_MULS, KV.ADD2_MULS + KV.DBL2_MULS
-    # 5: x to Montgomery, x^3 (2), the square check, fp_sgn's conversion
-    assert KV.FP_MULS_PER_LANE["g1_keyvalidate"] == 5 + sqrt + chain + KV.R_ADDITIONS * full
-    assert KV.FP_MULS_NEEDED["g1_keyvalidate"] == 5 + sqrt + chain + KV.R_ADDITIONS * KV.MADD_MULS
+    # 10: x to Montgomery, x^3 (2), the square check, fp_sgn's conversion;
+    # the test's Z^2, Z^3, beta x, beta x Z^2 and y Z^3.  The kernel makes
+    # only what the function needs (mixed additions where P is the addend)
+    assert KV.FP_MULS_PER_LANE["g1_keyvalidate"] == KV.FP_MULS_NEEDED["g1_keyvalidate"] == 10 + sqrt + chains
+    # the [r]P design's need, the earlier bound's yardstick: the binary
+    # ladder's squarings and multiplies, r's doublings and mixed additions
+    ladder = e.bit_length() - 1 + bin(e).count("1") - 1
+    r_chain = (GT.R.bit_length() - 1) * KV.DBL_MULS + (bin(GT.R).count("1") - 1) * KV.MADD_MULS
+    assert KV.R_CHAIN_NEEDED == 5 + ladder + r_chain == 3852
     assert KV.FP_MULS_PER_LANE["seg_sum_g1"] == KV.FP_MULS_PER_LANE["agg_pk"] == full
     assert KV.FP_MULS_PER_LANE["seg_sum_g2"] == KV.FP_MULS_PER_LANE["sum_g2"] == full2
     # an Fp2 product is 3 Fp products, an Fp2 square 2

@@ -314,9 +314,34 @@ def test_wire_verifier_on_card(dev):
     assert (KV.LAUNCHES["final_one"], KV.LAUNCHES["each_final"], KV.LAUNCHES["hash_g2"]) == (1, 0, 0)
 
 
+def _cofactor_points():
+    """A point of each prime order l dividing h1 ([#E / l^k] Q, l^k the
+    l-part of #E, Q a curve point), its sum with a key of G1, and the
+    cofactor part [r] Q."""
+    def on_curve():
+        while True:
+            x = int.from_bytes(RNG.bytes(48), "big") % GT.P
+            y = GT.fp_sqrt((x * x * x + 4) % GT.P)
+            if y is not None:
+                return x, y
+
+    n_e = GT.H1_COFACTOR * GT.R
+    pk = GC.scalar_mul(GC.FP_OPS, GC.G1_GEN, scalar())
+    out = []
+    for ell, k in ((3, 1), (11, 2), (10177, 2), (859267, 2), (52437899, 2)):
+        t = None
+        while t is None:
+            t = GC.scalar_mul(GC.FP_OPS, on_curve(), n_e // ell**k)
+        out += [t, GC.affine_add(GC.FP_OPS, pk, t)]
+    return out + [GC.scalar_mul(GC.FP_OPS, on_curve(), GT.R)]
+
+
 def test_g1_keyvalidate_on_card(dev):
     """Keys of G1 with both signs, the order-3 key x = 0, an on-curve key
-    outside G1, an x off the curve and a lane flagged infinity."""
+    outside G1, an x off the curve, a lane flagged infinity, and keys made
+    from E(Fp)'s cofactor components (_cofactor_points, both signs): the
+    kernel (the sigma test) bit-equal to the plain version ([r]P), each
+    verdict the oracle's."""
     from lodestar_tpu_torch.bls.ingest import encode_pubkey_planes
 
     def x_key(x, sign=0):
@@ -328,6 +353,8 @@ def test_g1_keyvalidate_on_card(dev):
     keys = [GC.g1_compress(p) for p in pks]
     keys += [bytes([keys[0][0] ^ 0x20]) + keys[0][1:], x_key(0), x_key(0, 1), x_key(4), x_key(5),
              GC.g1_compress(None), x_key(7), x_key(11)]
+    for c in map(GC.g1_compress, _cofactor_points()):
+        keys += [c, bytes([c[0] ^ 0x20]) + c[1:]]
     x, flags, host_bad = encode_pubkey_planes(keys)
     assert not host_bad.any()
     xy, ok = _equal(KV.g1_keyvalidate, KV.g1_keyvalidate_plain, planes(x, dev), planes(flags, dev))

@@ -24,12 +24,18 @@ Needs one CUDA device; exits non-zero without one.  In order:
      (BASELINE.json config 2) and 4 sets of K = 512 (a sync committee), one
      of them missing a signer; the host ground truth (crypto/bls.py verify
      and fast_aggregate_verify) of every set;
-  2. kernel phases: each of the seventeen kernel rows against its plain
-     torch version on the same device inputs, bit for bit: the per-set
-     path's four on the mixed job's operands and the RLC batch path's six
-     (and the one-lane Miller loop of its tail) on the all-valid job's;
-     mont_convert on the 4 message planes and g2_decompress of the wire
-     mixed job, at N = 128 and N = 512; agg_pk on the K = 128 job (N = 256,
+  2. kernel phases: each of the fifteen kernels against its plain torch
+     version on the same device inputs, bit for bit: the per-set path's
+     three on the mixed job's operands and the RLC batch path's six (and
+     the one-lane Miller loop of its tail) on the all-valid job's, the
+     heading kernel of each taking the job's plain limb planes and making
+     its Montgomery ingest (g2_subgroup_check per set, g2_rsig_sub in the
+     batch: the work of _k_mont8), each also timed on Montgomery points
+     (the wire paths' launch, without the ingest); g2_decompress of the
+     wire mixed job with its 4 message planes (the work of _k_mont4) and
+     without them, at N = 128 and N = 512; the Montgomery planes each
+     heading kernel writes held against mont_convert_plain on the card
+     (the rows of _k_mont8 and _k_mont4 read those launches); agg_pk on the K = 128 job (N = 256,
      K bucket 512) and hash_g2 (one warp per lane) on 128 and 512 distinct
      roots as MessageCache encodes them, every point hash_to_g2 of its
      root, with its 512-lane launch as its library reports it;
@@ -69,7 +75,9 @@ Needs one CUDA device; exits non-zero without one.  In order:
      once, without a warm-up, for agg_pk, hash_g2, g1_keyvalidate and the
      warp kernels' extra lane counts, whose plain versions take seconds);
   3. main paths, each driven with the launch counts set to 0 just before
-     and read just after, every verdict held against the ground truth and
+     and read just after (the per-set, batch, wire batch and wire per-set
+     jobs' counts held exactly: no launch of a conversion of its own),
+     every verdict held against the ground truth and
      every job's host-routed set count (`job.host_sets`) 0: decoded per
      set, RLC batch, bisection and mixed-batchable; cold MessageCaches of
      the 8 roots and of 128 and 512 new ones (one hash_g2 launch each, the
@@ -153,9 +161,13 @@ PEAK_BYTES_PER_S = 3.35e12
 IMAD_PER_CLK_PER_SM = 64
 N_SM = 132
 
-# TPU kernel each CUDA kernel replaces, and its source in this checkout
+# TPU kernel each CUDA kernel replaces, and its source in this checkout.
+# The Montgomery ingest (_k_mont8 on the decoded paths, _k_mont4 on the wire
+# paths) has no kernel of its own: the kernel that heads each path makes it
+# in its first phase, and the two rows read that kernel's launch on their
+# main path (FUSED).
 KERNELS = {
-    "mont_convert": ("lodestar_tpu_torch/kernels/csrc/mont.cu", "lodestar_tpu/kernels/verify.py:116"),
+    "mont_convert": ("lodestar_tpu_torch/kernels/csrc/randmul.cu", "lodestar_tpu/kernels/verify.py:116"),
     "g2_subgroup_check": ("lodestar_tpu_torch/kernels/csrc/subgroup.cu", "lodestar_tpu/kernels/verify.py:190"),
     "miller_loop": ("lodestar_tpu_torch/kernels/csrc/miller.cu", "lodestar_tpu/kernels/verify.py:269"),
     "each_final": ("lodestar_tpu_torch/kernels/csrc/final.cu", "lodestar_tpu/kernels/verify.py:328"),
@@ -165,7 +177,7 @@ KERNELS = {
     "prod12": ("lodestar_tpu_torch/kernels/csrc/reduce.cu", "lodestar_tpu/kernels/verify.py:285"),
     "affine_g2": ("lodestar_tpu_torch/kernels/csrc/tail.cu", "lodestar_tpu/kernels/verify.py:231"),
     "final_one": ("lodestar_tpu_torch/kernels/csrc/tail.cu", "lodestar_tpu/kernels/verify.py:312"),
-    "mont_convert_4": ("lodestar_tpu_torch/kernels/csrc/mont.cu", "lodestar_tpu/kernels/verify.py:454"),
+    "mont_convert_4": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/verify.py:454"),
     "g2_decompress": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:247"),
     "agg_pk": ("lodestar_tpu_torch/kernels/csrc/aggpk.cu", "lodestar_tpu/kernels/verify.py:246"),
     "hash_g2": ("lodestar_tpu_torch/kernels/csrc/ingest.cu", "lodestar_tpu/kernels/ingest.py:219"),
@@ -173,21 +185,25 @@ KERNELS = {
     "seg_sum_g1": ("lodestar_tpu_torch/kernels/csrc/segsum.cu", "lodestar_tpu/kernels/verify.py:686"),
     "seg_sum_g2": ("lodestar_tpu_torch/kernels/csrc/segsum.cu", "lodestar_tpu/kernels/verify.py:845"),
 }
-PER_SET = ("mont_convert", "g2_subgroup_check", "miller_loop", "each_final")
-BATCH = ("mont_convert", "g1_rpk", "g2_rsig_sub", "sum_g2", "miller_loop", "prod12", "affine_g2", "final_one")
-WIRE_PER_SET = ("mont_convert_4", "g2_decompress", "g2_subgroup_check", "miller_loop", "each_final")
-WIRE_BATCH = ("mont_convert_4", "g2_decompress") + BATCH[1:]
+# the launch that makes each ingest row's work on its main path, and the
+# planes it converts per lane (the decoded per-set path's is
+# g2_subgroup_check's)
+FUSED = {"mont_convert": "g2_rsig_sub", "mont_convert_4": "g2_decompress"}
+INGEST_PLANES = {"mont_convert": 8, "mont_convert_4": 4}
+PER_SET = ("g2_subgroup_check", "miller_loop", "each_final")
+BATCH = ("g1_rpk", "g2_rsig_sub", "sum_g2", "miller_loop", "prod12", "affine_g2", "final_one")
+WIRE_PER_SET = ("g2_decompress", "g2_subgroup_check", "miller_loop", "each_final")
+WIRE_BATCH = ("g2_decompress",) + BATCH
 GROUPED_BATCH = WIRE_BATCH + ("seg_sum_g1",)  # a wire batch with a repeated root
 AGG_BATCH = GROUPED_BATCH + ("agg_pk",)
 PREAGG = ("g2_decompress", "seg_sum_g2", "affine_g2")
 TAIL = ("affine_g2", "final_one")  # one lane per launch on the batch path
 # the kernel wrappers of kernels/verify.py that the grouped wire batch calls
-# (mont_convert there on the 4 message planes)
-GROUPED_WRAPPERS = ("mont_convert", "g2_decompress", "g1_rpk", "g2_rsig_sub", "sum_g2", "seg_sum_g1", "miller_loop",
-                    "prod12", "affine_g2", "final_one")
+GROUPED_WRAPPERS = ("g2_decompress", "g1_rpk", "g2_rsig_sub", "sum_g2", "seg_sum_g1", "miller_loop", "prod12",
+                    "affine_g2", "final_one")
 AGG_WRAPPERS = GROUPED_WRAPPERS + ("agg_pk",)  # the aggregate batch (one root)
 MERGED_WRAPPERS = tuple(w for w in AGG_WRAPPERS if w != "seg_sum_g1")  # the merged sets (distinct roots)
-PER_SET_WRAPPERS = ("g2_subgroup_check", "each_final")  # besides mont_convert, g2_decompress, miller_loop
+PER_SET_WRAPPERS = ("g2_subgroup_check", "each_final")  # besides g2_decompress, miller_loop
 # lane counts of the warp-per-lane pairing kernels' own phase: the tail's
 # one lane, the 128-lane tile, one lane past it, N = 512
 WARP_LANES = (1, 128, 129, 512)
@@ -217,25 +233,26 @@ SEG_LANES = (1, 33, 512, 1024, 2048)
 HASH_ROOTS = (N_ROOTS, 128, 512)
 # the path whose launch count is a row's "launches", and its lanes
 MAIN_PATH = {name: ("batch" if name in BATCH else "per_set", JOBS[-1]) for name in KERNELS}
-MAIN_PATH.update({"mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
+MAIN_PATH.update({"mont_convert": ("batch", JOBS[-1]),
+                  "mont_convert_4": ("wire_batch", JOBS[-1]), "g2_decompress": ("wire_batch", JOBS[-1]),
                   "agg_pk": ("agg_batch", AGG_SETS), "hash_g2": ("cold_hash", 128),
                   "g1_keyvalidate": ("registration", REG_CHUNK), "seg_sum_g1": ("wire_batch", JOBS[-1]),
                   "seg_sum_g2": ("preagg", JOBS[-1])})
 # bytes each kernel must move per lane (per launch for the reductions'
-# one output and the tail): inputs read once, outputs written once
+# one output and the tail): inputs read once, outputs written once; the
+# heading kernels as their main paths launch them, with the ingest's
+# planes in (plain) and out (Montgomery)
 BYTES_PER_LANE = {
-    "mont_convert": 8 * 48 * 2,
-    "g2_subgroup_check": 4 * 48 + 4 + 4,
+    "g2_subgroup_check": (8 * 48 + 4) + (4 + 8 * 48),
     "miller_loop": 7 * 48 + 12 * 48,
     "each_final": 4 + 24 * 48 + 4,
     "g1_rpk": (3 * 48 + 4 + 16) + (3 * 48 + 4),
-    "g2_rsig_sub": (4 * 48 + 4 + 16) + (6 * 48 + 4 + 4),
+    "g2_rsig_sub": (8 * 48 + 4 + 16) + (6 * 48 + 4 + 4 + 4 * 48),
     "sum_g2": 6 * 48 + 4,
     "prod12": 4 + 12 * 48,
     "affine_g2": (6 * 48 + 4) + (4 * 48 + 4),
     "final_one": 4 + 24 * 48 + 4,
-    "mont_convert_4": 4 * 48 * 2,
-    "g2_decompress": (2 * 48 + 8) + (4 * 48 + 4),
+    "g2_decompress": (2 * 48 + 8 + 4 * 48) + (4 * 48 + 4 + 4 * 48),
     "hash_g2": (4 * 48 + 8) + (6 * 48 + 4),
     "g1_keyvalidate": (48 + 8) + (2 * 48 + 4),
     "seg_sum_g1": (3 * 48 + 8) + (3 * 48 + 4),  # Jacobian in and out, dead flag and group id
@@ -723,7 +740,8 @@ def main() -> int:
             raise AssertionError(f"{name} at N={n}: kernel differs from plain version (max {err})")
         results[(name, n) if tag is None else (name, n, tag)] = (k_ms, p_ms, err)
         how = f"median of {plain_runs}" if plain_runs else "one run"
-        log(f"kernel {name} N={n}: equal to plain bit for bit; kernel {k_ms:.3f} ms (median of {TIMED_RUNS}), "
+        log(f"kernel {name} N={n}{'' if tag is None else f' ({tag})'}: equal to plain bit for bit; kernel "
+            f"{k_ms:.3f} ms (median of {TIMED_RUNS}), "
             f"plain {p_ms:.3f} ms ({how}) (CUDA events)")
         return k_out
 
@@ -769,37 +787,63 @@ def main() -> int:
 
     sweep = {}  # name -> (operands, flag output) at N = 512, for the lane sweep of g1_rpk and g2_decompress
     affine_steps = {}  # the timed affine_g2 call's key -> its inversions' binary-GCD steps on its data
+    ingest = {}  # (row, n, path) -> (max abs err, mont_convert_plain's ms on the same planes)
+
+    def ingest_held(row, n, path, got, plain_in):
+        """The Montgomery planes a heading kernel wrote against
+        mont_convert_plain of its plain input planes, on the card, bit for
+        bit (the rows of _k_mont8 and _k_mont4)."""
+        p_ms, want = cuda_ms(lambda: tuple(KV.mont_convert_plain(x) for x in plain_in), PLAIN_RUNS)
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{row} ({FUSED.get(row)} on the {path} path) at N={n}: the Montgomery planes "
+                                 f"differ from mont_convert_plain's (max {err})")
+        ingest[row, n, path] = (err, p_ms)
+        log(f"kernel {row} N={n} ({path}): the Montgomery planes the heading kernel wrote equal mont_convert_plain's "
+            f"bit for bit; mont_convert_plain {p_ms:.3f} ms on the same planes (median of {PLAIN_RUNS})")
+
     for n in JOBS:
-        # the per-set path's kernels on the mixed job
+        # the per-set path's kernels on the mixed job: g2_subgroup_check
+        # takes the plain signature and message and makes the path's
+        # Montgomery ingest (_k_mont8); timed first on the Montgomery points
+        # (the wire per-set path's launch, without the ingest)
         idx, kmask, planes, sig_inf, valid = verifier._prepare(sets[:n])
-        m = plain_and_kernel("mont_convert", n, KV.mont_convert, KV.mont_convert_plain, planes)
-        msg, sig = m[:4].reshape(2, 2, LY.NL, n), m[4:].reshape(2, 2, LY.NL, n)
-        ops = KV.each_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid)
-        sub = plain_and_kernel("g2_subgroup_check", n, KV.g2_subgroup_check, KV.g2_subgroup_check_plain,
-                               *ops["sub"])
+        msg_p, sig_p = KV._decoded_inputs(idx, kmask, planes, n)
+        ops = KV.each_operands(tx, ty, idx, kmask, msg_p, sig_p, sig_inf != 0, valid, plain=True)
+        plain_and_kernel("g2_subgroup_check", n, KV.g2_subgroup_check, KV.g2_subgroup_check_plain,
+                         KV.mont_convert_plain(ops["sub"][0]), ops["sub"][1], plain_runs=0, tag="no_ingest")
+        sub_out = plain_and_kernel("g2_subgroup_check", n, KV.g2_subgroup_check, KV.g2_subgroup_check_plain,
+                                   *ops["sub"])
+        ingest_held("mont_convert", n, "per_set", sub_out[1:], (ops["sub"][0], ops["sub"][2]))
+        sub, miller_pk, miller_sig = KV.each_miller_operands(ops, sub_out)
         sweep["g2_subgroup_check"] = (ops["sub"], sub)
-        f1 = plain_and_kernel("miller_loop", n, KV.miller_loop, KV.miller_loop_plain, *ops["miller_pk"])
-        f2 = KV.miller_loop(*ops["miller_sig"])
-        if not torch.equal(f2, KV.miller_loop_plain(*ops["miller_sig"])):
+        f1 = plain_and_kernel("miller_loop", n, KV.miller_loop, KV.miller_loop_plain, *miller_pk)
+        f2 = KV.miller_loop(*miller_sig)
+        if not torch.equal(f2, KV.miller_loop_plain(*miller_sig)):
             raise AssertionError(f"miller_loop (-G1, sig) at N={n}: kernel differs from plain version")
         ok = plain_and_kernel("each_final", n, KV.each_final, KV.each_final_plain, ops["live_row"], f1, f2)
         log(f"kernel outputs N={n}: {int(sub.sum())} lanes in G2, {int(ok.sum())} final exps equal to one")
-        pairing_ops = (ops["miller_pk"], ops["miller_sig"], ops["live_row"])
+        pairing_ops = (miller_pk, miller_sig, ops["live_row"])
 
-        # the RLC batch path's kernels on the all-valid job
+        # the RLC batch path's kernels on the all-valid job: g2_rsig_sub
+        # makes the path's ingest (_k_mont8), timed first on the Montgomery
+        # signature (the wire paths' launch)
         idx, kmask, planes, sig_inf, valid = verifier._prepare(valid_sets[:n])
-        m = KV.mont_convert(planes)
-        msg, sig = m[:4].reshape(2, 2, LY.NL, n), m[4:].reshape(2, 2, LY.NL, n)
+        msg_p, sig_p = KV._decoded_inputs(idx, kmask, planes, n)
         rwords = torch.from_numpy(make_rand_words(n, np.random.default_rng(SEED + n))).to(dev)
-        ops = KV.batch_operands(tx, ty, idx, kmask, msg, sig, sig_inf != 0, valid, rwords)
+        ops = KV.batch_operands(tx, ty, idx, kmask, msg_p, sig_p, sig_inf != 0, valid, rwords, plain=True)
         rpk, rpk_inf = plain_and_kernel("g1_rpk", n, KV.g1_rpk, KV.g1_rpk_plain, *ops["g1_rpk"])
         sweep["g1_rpk"] = (ops["g1_rpk"], rpk_inf)
-        rsig, rsig_inf, sub = plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain,
-                                               *ops["g2_rsig_sub"])
+        rs_ops = ops["g2_rsig_sub"]
+        plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain, KV.mont_convert_plain(rs_ops[0]),
+                         *rs_ops[1:3], plain_runs=0, tag="no_ingest")
+        rs = plain_and_kernel("g2_rsig_sub", n, KV.g2_rsig_sub, KV.g2_rsig_sub_plain, *rs_ops)
+        (rsig, rsig_inf, sub), msg = rs[:3], KV.batch_msg(ops, rs)
+        ingest_held("mont_convert", n, "batch", (msg,), (rs_ops[3],))
         excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
         sweep["sum_g2"] = (rsig, excl)
         jsum, jsum_inf = plain_and_kernel("sum_g2", n, KV.sum_g2, KV.sum_g2_plain, rsig, excl)
-        f_msg = KV.miller_loop(rpk, ops["msg"])
+        f_msg = KV.miller_loop(rpk, msg)
         sweep["prod12"] = (ops["live_row"], f_msg)
         fprod = plain_and_kernel("prod12", n, KV.prod12, KV.prod12_plain, ops["live_row"], f_msg)
         a, a_inf = plain_and_kernel("affine_g2", n, KV.affine_g2, KV.affine_g2_plain, jsum, jsum_inf)
@@ -812,7 +856,7 @@ def main() -> int:
             f"final exp of the product equal to one")
         # its grouped G1 side: the sets of a root are one run of 64 lanes
         group, head_lanes, glive = (torch.from_numpy(a).to(dev) for a in verifier._grouping(wire_valid[:n], n))
-        gops = KV.grouped_operands(ops, rpk, rpk_inf, group, head_lanes, glive)
+        gops = KV.grouped_operands(ops, msg, rpk, rpk_inf, group, head_lanes, glive)
         pts, seg_inf = plain_and_kernel("seg_sum_g1", n, KV.seg_sum_g1, KV.seg_sum_g1_plain, *gops["seg_sum_g1"])
         seg_units["seg_sum_g1", n] = seg_needed(*gops["seg_sum_g1"][1:])
         seg_made["seg_sum_g1", n] = KV.seg_additions("seg_sum_g1", *gops["seg_sum_g1"])
@@ -824,14 +868,17 @@ def main() -> int:
         log(f"kernel outputs N={n}: grouped: {int(live_row.sum())} group totals on one {KV.BT}-lane Miller "
             f"tile, final exp of the product equal to one")
 
-        # the wire paths' ingest: the message planes of the all-valid job
-        # (4 planes) and the signatures of the wire mixed job
-        args, _ = verifier._prepare_wire(wire_valid[:n])
-        plain_and_kernel("mont_convert_4", n, KV.mont_convert, KV.mont_convert_plain, args.msg)
+        # the wire paths' ingest: the signatures of the wire mixed job and
+        # its 4 message planes (_k_mont4's work), timed first without the
+        # messages (the pre-verify aggregation's launch)
         args, host_bad = verifier._prepare_wire(wire_mixed[:n])
-        _, dec_ok = plain_and_kernel("g2_decompress", n, KV.g2_decompress, KV.g2_decompress_plain,
-                                     args.sig_x, args.sig_flags)
-        sweep["g2_decompress"] = ((args.sig_x, args.sig_flags), dec_ok)
+        msg_w = args.msg.reshape(2, 2, LY.NL, n)
+        plain_and_kernel("g2_decompress", n, KV.g2_decompress, KV.g2_decompress_plain, args.sig_x, args.sig_flags,
+                         plain_runs=0, tag="no_ingest")
+        _, dec_ok, msg_m = plain_and_kernel("g2_decompress", n, KV.g2_decompress, KV.g2_decompress_plain,
+                                            args.sig_x, args.sig_flags, msg_w)
+        ingest_held("mont_convert_4", n, "wire_batch", (msg_m,), (msg_w,))
+        sweep["g2_decompress"] = ((args.sig_x, args.sig_flags, msg_w), dec_ok)
         off = [i for i in range(n) if dec_ok[0, i] == 0]
         if off != [i for i in WIRE_FAULTS if WIRE_FAULTS[i] == "x_off_curve"]:
             raise AssertionError(f"g2_decompress at N={n}: lanes off the curve {off}")
@@ -946,7 +993,7 @@ def main() -> int:
                                       ("g2_subgroup_check", (KV.g2_subgroup_check, KV.g2_subgroup_check_plain))):
             operands, flags = sweep[name]
             out_n = plain_and_kernel(name, n, kernel, plain, *map(sl, operands), plain_runs=0, tag="lanes")
-            flags_n = out_n if name == "g2_subgroup_check" else out_n[1]
+            flags_n = out_n[0] if name == "g2_subgroup_check" else out_n[1]
             if not torch.equal(flags_n, sl(flags)):
                 raise AssertionError(f"{name} at N={n}: flags differ from the N = {JOBS[-1]} run's")
     for name, source in (("miller_loop", "miller"), ("each_final", "final"), ("final_one", "tail"),
@@ -968,13 +1015,26 @@ def main() -> int:
                            "phases_per_lane": phases, "slots_per_lane": slots, "lanes_per_block": lpb,
                            "threads_per_lane": threads // lpb, "dynamic_smem_bytes_per_block": smem,
                            "ptxas": entry}
+        ingest_words = ""
+        if (name, want, "no_ingest") in results:  # the heading kernels: the launch without the ingest beside it
+            skip = (KV.INGEST_ROUNDS, KV.INGEST_MULS) if name in ("g2_subgroup_check", "g2_rsig_sub") else (0, 0)
+            warp_info[name].update({
+                "ingest_planes_per_lane": 4 if name == "g2_decompress" else 8,
+                "rounds_per_lane_without_ingest": rounds - skip[0],
+                "fp_muls_per_lane_without_ingest": KV.FP_MULS_PER_LANE[name] - skip[1],
+                "ms_by_n_without_ingest": {m: results[name, m, "no_ingest"][0] for m in JOBS},
+                "ms_by_n_with_ingest": {m: results[name, m][0] for m in JOBS}})
+            ingest_words = (f"; with the Montgomery ingest of {warp_info[name]['ingest_planes_per_lane']} planes a "
+                            f"lane against without it: {rounds} / {rounds - skip[0]} "
+                            f"rounds, card ms " + ", ".join(f"N={m}: {results[name, m][0]:.3f} / "
+                                                            f"{results[name, m, 'no_ingest'][0]:.3f}" for m in JOBS))
         log(f"warp kernel {name} (its N = {lanes} launch: {blocks} blocks of {threads} threads): "
             f"{threads // lpb} threads per lane, {lpb} lanes per block; {rounds} rounds "
             f"({KV.FP_MULS_PER_LANE[name]} Fp products) in {phases} phases per lane, {slots} slots per lane, "
             f"{smem} B dynamic shared memory per block; ptxas {entry}; card ms by lanes " + ", ".join(
                 f"{n}: {results[key][0]:.3f}" for n in sorted(set(WARP_LANES + JOBS))
                 for key in ((name, n, "lanes"), (name, n))
-                if key in results and (key[2:] or (name, n, "lanes") not in results)))
+                if key in results and (key[2:] or (name, n, "lanes") not in results)) + ingest_words)
 
     # the lane sum's tree at every lane count of SUM_LANES: the N = 512
     # batch's r_i sig_i repeated, with excluded lanes, lanes 0 and 1 equal
@@ -1150,6 +1210,26 @@ def main() -> int:
         if min(counts[k] for k in names) == 0:
             raise AssertionError(f"{label}: a kernel of the path was never launched: {counts}")
 
+    def job_launches(path, n):
+        """Every launch one job of a path makes, by wrapper: its kernels and
+        no conversion launch of their own (the heading kernel makes the
+        Montgomery ingest); the lane sum and the lane product relaunch on
+        their partials (SUM_LAUNCHES, PROD_LAUNCHES), the grouped entry's
+        product runs on the BT-lane tile and its scan once per round."""
+        per_set = {"g2_subgroup_check": 1, "miller_loop": 2, "each_final": 1}
+        batch = {"g1_rpk": 1, "g2_rsig_sub": 1, "sum_g2": SUM_LAUNCHES[n], "miller_loop": 2,
+                 "prod12": PROD_LAUNCHES[n], "affine_g2": 1, "final_one": 1}
+        return {"per_set": per_set, "batch": batch, "wire_per_set": dict(per_set, g2_decompress=1),
+                "wire_batch": dict(batch, g2_decompress=1, prod12=PROD_LAUNCHES[KV.BT],
+                                   seg_sum_g1=KV.seg_rounds(n))}[path]
+
+    def exact(label, counts, path, n):
+        """The job's launches are exactly `job_launches`; -> their total."""
+        got, want = {k: v for k, v in counts.items() if v}, job_launches(path, n)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, not {want}")
+        return sum(got.values())
+
     def bucket(size):
         return min(b for b in N_BUCKETS if b >= size)
 
@@ -1177,9 +1257,8 @@ def main() -> int:
             + f") + the rest {ms - prep - kern:.3f} ms")
 
     def in_path(fn, names):
-        """kernel ms in the path of fn() for the path's kernel rows `names`."""
-        return kernel_ms_in_path(fn, tuple(dict.fromkeys("mont_convert" if k == "mont_convert_4" else k
-                                                          for k in names)))[1]
+        """kernel ms in the path of fn() for the path's kernel wrappers `names`."""
+        return kernel_ms_in_path(fn, tuple(names))[1]
 
     def kernel_ms_in_path(fn, wrappers=GROUPED_WRAPPERS):
         """fn() once with each kernel wrapper of `wrappers` timed by CUDA
@@ -1252,13 +1331,15 @@ def main() -> int:
             bad = [(i, kinds[i], g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
             raise AssertionError(f"N={n}: {len(bad)} verdicts differ from the ground truth: {bad[:8]}")
         require(f"per-set N={n}", counts, PER_SET)
+        total = exact(f"per-set N={n}", counts, "per_set", n)
         if verifier.verify_signature_sets(job) != all(want):
             raise AssertionError(f"N={n}: verify_signature_sets gave the wrong verdict")
         if not verifier.verify_signature_sets([s for s, w in zip(job, want) if w]):
             raise AssertionError(f"N={n}: verify_signature_sets rejected the valid sets")
         ms = host_ms(lambda: verifier.verify_signature_sets_individually(job))
         log(f"main path per-set N={n}: {sum(got)} of {n} True, every verdict equals the ground truth; "
-            f"launches {json.dumps(counts)}; verify_signature_sets_individually {ms:.1f} ms = "
+            f"launches {json.dumps(counts)} ({total} in all, g2_subgroup_check making the Montgomery ingest); "
+            f"verify_signature_sets_individually {ms:.1f} ms = "
             f"{n / ms * 1e3:.1f} sets/s (host clock, median of 3 after a warm-up)")
         breakdown("per-set", n, lambda: verifier._prepare(job), ms,
                   in_path(lambda: verifier.verify_signature_sets_individually(job), PER_SET))
@@ -1274,9 +1355,11 @@ def main() -> int:
         if counts["miller_loop"] != 2 or counts["final_one"] != 1 or counts["each_final"] != 0:
             raise AssertionError(f"N={n}: the batch did not run as one multi-pairing: {counts}")
         require(f"batch N={n}", counts, BATCH)
+        total = exact(f"batch N={n}", counts, "batch", n)
         ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
         log(f"main path batch N={n}: accepted {n} of {n} valid sets as one RLC batch; launches "
-            f"{json.dumps(counts)}; verify_signature_sets(batchable=True) {ms:.1f} ms = {n / ms * 1e3:.1f} "
+            f"{json.dumps(counts)} ({total} in all, g2_rsig_sub making the Montgomery ingest); "
+            f"verify_signature_sets(batchable=True) {ms:.1f} ms = {n / ms * 1e3:.1f} "
             f"sets/s (host clock, median of 3 after a warm-up)")
         breakdown("batch", n, lambda: verifier._prepare(job), ms,
                   in_path(lambda: verifier.verify_signature_sets(job, batchable), BATCH))
@@ -1411,6 +1494,7 @@ def main() -> int:
         if entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(n):
             raise AssertionError(f"wire N={n}: entry {entry_of(counts)}, seg_sum_g1 launches {counts['seg_sum_g1']}")
         require(f"wire batch N={n}", counts, GROUPED_BATCH)
+        total = exact(f"wire batch N={n}", counts, "wire_batch", n)
         ms = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
         # the same job through the ungrouped entry, then grouped again: the
         # two entries compared on one card, in turns
@@ -1422,7 +1506,8 @@ def main() -> int:
         ms_again = host_ms(lambda: verifier.verify_signature_sets(job, batchable))
         log(f"main path wire-batch N={n}: accepted {n} of {n} wire sets as one RLC batch through the grouped "
             f"entry ({n // N_KEYS} roots: one {KV.BT}-lane Miller tile and the one-lane tail; one "
-            f"{entry_of(counts)}); launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host "
+            f"{entry_of(counts)}); launches {json.dumps(counts)} ({total} in all, g2_decompress making the "
+            f"Montgomery ingest of the messages); {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host "
             f"clock, median of 3 after a warm-up); the same job through the ungrouped entry {ms_ungrouped:.3f} ms, "
             f"then grouped again {ms_again:.3f} ms (medians of 3)")
         path_kms["wire_batch", n] = in_path(lambda: verifier.verify_signature_sets(job, batchable), GROUPED_BATCH)
@@ -1438,9 +1523,11 @@ def main() -> int:
             bad = [(i, d["wire_kinds"][i], g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
             raise AssertionError(f"wire N={n}: {len(bad)} verdicts differ from the ground truth: {bad[:8]}")
         require(f"wire per-set N={n}", counts, WIRE_PER_SET)
+        total = exact(f"wire per-set N={n}", counts, "wire_per_set", n)
         ms = host_ms(lambda: verifier.verify_signature_sets_individually(job))
         log(f"main path wire-per-set N={n}: {sum(got)} of {n} True, every verdict equals the ground truth; "
-            f"launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of 3 "
+            f"launches {json.dumps(counts)} ({total} in all); {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, "
+            f"median of 3 "
             f"after a warm-up)")
         breakdown("wire-per-set", n, lambda: verifier._prepare_wire(job), ms,
                   in_path(lambda: verifier.verify_signature_sets_individually(job), WIRE_PER_SET))
@@ -1577,6 +1664,7 @@ def main() -> int:
                 or entry_of(counts) != "verify_batch_device_wire_grouped" or counts["seg_sum_g1"] != KV.seg_rounds(n)):
             raise AssertionError(f"wire N={n}: verdict {ok}, entry {entry_of(counts)}, launches {counts}")
         require(f"wire batch N={n}", counts, GROUPED_BATCH)
+        exact(f"wire batch N={n}", counts, "wire_batch", n)
         ms = host_ms(lambda: wide.verify_signature_sets(job, batchable))
         ok, kms, calls = kernel_ms_in_path(lambda: wide.verify_signature_sets(job, batchable))
         if ok is not True:
@@ -1588,7 +1676,7 @@ def main() -> int:
         log(f"main path wire-batch N={n}: the 512 wire sets repeated, accepted as one RLC batch through the grouped "
             f"entry; launches {json.dumps(counts)}; {ms:.1f} ms = {n / ms * 1e3:.1f} sets/s (host clock, median of "
             f"3 after a warm-up); kernel ms in the path (one instrumented run, CUDA events, the card drained "
-            f"before each call; mont_convert on 4 planes; miller_loop the {KV.BT}-lane tile and the one-lane "
+            f"before each call; miller_loop the {KV.BT}-lane tile and the one-lane "
             f"tail): " + ", ".join(f"{k} {v:.3f}" for k, v in kms.items()) + f"; sum {sum(kms.values()):.3f}; "
             f"each of its {len(calls)} kernel calls equal to its plain version on the same inputs bit for bit "
             f"({', '.join(name for name, _, _ in calls)}; {held_s:.1f} s)")
@@ -1608,19 +1696,28 @@ def main() -> int:
             hold_calls("main path calls", [(name, args, outs) for args, outs in recs])
             warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes)}
             continue
-        args = [torch.cat([r[0][i] for r in recs], dim=-1) for i in range(len(recs[0][0]))]
-        k_outs = [torch.cat([r[1][i] for r in recs], dim=-1) for i in range(len(recs[0][1]))]
-        p_outs = getattr(KV, name + "_plain")(*args)
-        p_outs = p_outs if isinstance(p_outs, tuple) else (p_outs,)
-        bad = torch.zeros(sum(sizes), dtype=torch.bool, device=dev)
-        for k, p_out in zip(k_outs, p_outs):
-            bad |= (k != p_out).reshape(-1, k.shape[-1]).any(dim=0)
-        if bool(bad.any()):
-            lane = int(bad.nonzero()[0])
-            call = int(np.searchsorted(np.cumsum(sizes), lane, side="right"))
-            raise AssertionError(f"{name}: main-path call {call} of {len(recs)} (N = {sizes[call]}) differs from "
-                                 f"its plain version")
-        warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes)}
+        # the calls side by side, those with the ingest's operands (plain
+        # planes) apart from those on Montgomery points
+        for arity in sorted({len(r[0]) for r in recs}):
+            part = [r for r in recs if len(r[0]) == arity]
+            psizes = [r[0][0].shape[-1] for r in part]
+            args = [torch.cat([r[0][i] for r in part], dim=-1) for i in range(arity)]
+            k_outs = [torch.cat([r[1][i] for r in part], dim=-1) for i in range(len(part[0][1]))]
+            p_outs = getattr(KV, name + "_plain")(*args)
+            p_outs = p_outs if isinstance(p_outs, tuple) else (p_outs,)
+            if len(p_outs) != len(k_outs):
+                raise AssertionError(f"{name}: {len(k_outs)} outputs, its plain version {len(p_outs)}")
+            bad = torch.zeros(sum(psizes), dtype=torch.bool, device=dev)
+            for k, p_out in zip(k_outs, p_outs):
+                bad |= (k != p_out).reshape(-1, k.shape[-1]).any(dim=0)
+            if bool(bad.any()):
+                lane = int(bad.nonzero()[0])
+                call = int(np.searchsorted(np.cumsum(psizes), lane, side="right"))
+                raise AssertionError(f"{name}: main-path call {call} of {len(part)} with {arity} operands "
+                                     f"(N = {psizes[call]}) differs from its plain version")
+        warp_info[name]["main_path_calls_held"] = {"calls": len(recs), "lanes": sum(sizes),
+                                                   "calls_by_operands": {a: sum(len(r[0]) == a for r in recs)
+                                                                         for a in sorted({len(r[0]) for r in recs})}}
     log("main path calls of the redesigned warp kernels: " + ", ".join(
         f"{name} {len(recs)} calls ({sum(r[0][0].shape[-1] for r in recs)} lanes)" for name, recs in
         path_calls.items()) + f", every one made by a counted main-path run or a bisection, each equal to its "
@@ -1651,8 +1748,6 @@ def main() -> int:
             units = lanes = 1
         elif name in ("sum_g2", "prod12"):
             units = n - 1  # N - 1 combines
-        elif name in ("mont_convert", "mont_convert_4"):
-            units = (8 if name == "mont_convert" else 4) * n  # planes per lane
         elif name == "agg_pk":
             units = agg_live_rows - agg_live_lanes  # one addition per live row after a lane's first
         elif name in ("seg_sum_g1", "seg_sum_g2"):
@@ -1672,11 +1767,44 @@ def main() -> int:
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), units, lanes
 
+    def ingest_bound(row, n):
+        """The bound of the Montgomery ingest alone at n lanes: its products
+        (one per plane) over the IMAD rate, or its planes in and out over
+        the memory rate."""
+        planes = INGEST_PLANES[row] * n
+        return max(planes * KV.IMAD_PER_FP_MUL / imad_per_ms, planes * 2 * 48 / PEAK_BYTES_PER_S * 1e3)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path, n = MAIN_PATH[name]
-        k_ms, p_ms, err = results[name, n]
-        bound_ms, bound_by, units, _ = bound(name, n)
+        host = FUSED.get(name, name)  # an ingest row reads the launch that makes its work
+        k_ms, p_ms, err = results[host, n]
+        bound_ms, bound_by, units, _ = bound(host, n)
+        if name in FUSED:
+            entry = {
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": paths[path, n][host], "max_abs_err": ingest[name, n, path][0],
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "path": path, "n": n, "fused_into": host,
+                "fused_into_by_path": {"batch": "g2_rsig_sub", "per_set": "g2_subgroup_check"}
+                if name == "mont_convert" else {"wire_batch": "g2_decompress"},
+                "ingest_planes_per_lane": INGEST_PLANES[name],
+                "ms_without_ingest": results[host, n, "no_ingest"][0],
+                "ingest_marginal_ms": k_ms - results[host, n, "no_ingest"][0],
+                "ingest_plain_ms": ingest[name, n, path][1], "ingest_bound_ms": ingest_bound(name, n),
+                "ingest_held": {f"{p} N={m}": {"max_abs_err": e, "mont_convert_plain_ms": pm}
+                                for (r, m, p), (e, pm) in ingest.items() if r == name},
+                "fp_muls_needed": needed_muls(host, n, units), "fp_muls_done": KV.FP_MULS_PER_LANE[host] * units,
+                "launches_by_path": {f"{p} N={pn}": c[host] for (p, pn), c in paths.items()},
+            }
+            if (host, JOBS[0]) in results:
+                entry["ms_n128"], entry["plain_ms_n128"] = results[host, JOBS[0]][:2]
+                entry["bound_ms_n128"] = bound(host, JOBS[0])[0]
+            if host in GROUPED_WRAPPERS:
+                entry["ms_in_grouped_wire_batch_by_n"] = {m: kms.get(host) for (p, m), kms in path_kms.items()
+                                                          if p == "wire_batch"}
+            kernels.append(entry)
+            continue
         if name in ("seg_sum_g1", "seg_sum_g2"):
             done = seg_made[name, n]  # one addition per lane and round where neither operand is infinity
         elif name == "agg_pk":
@@ -1750,9 +1878,8 @@ def main() -> int:
                 entry["ms_per_round_1_lane"] = results[name, 1, "lanes"][0] / entry["rounds_per_lane"]
         elif name in warp_info:
             entry["ms_per_round"] = k_ms / entry["rounds_per_lane"]
-        wrapper = "mont_convert" if name == "mont_convert_4" else name
-        if name in GROUPED_BATCH and wrapper in GROUPED_WRAPPERS:
-            entry["ms_in_grouped_wire_batch_by_n"] = {m: kms.get(wrapper) for (p, m), kms in path_kms.items()
+        if name in GROUPED_BATCH and name in GROUPED_WRAPPERS:
+            entry["ms_in_grouped_wire_batch_by_n"] = {m: kms.get(name) for (p, m), kms in path_kms.items()
                                                       if p == "wire_batch"}
         kernels.append(entry)
     log("main path sets/s: " + ", ".join(

@@ -40,7 +40,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = (
-    "mont", "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum",
+    "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum",
 )
 
 NVCC_FLAGS = [
@@ -162,18 +162,17 @@ def ptxas_report() -> Dict[str, str]:
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "lt_mont_convert": [_VP, _VP, _INT, _INT, _VP],
-    "lt_g2_subgroup_check": [_VP, _VP, _VP, _INT, _VP],
+    "lt_g2_subgroup_check": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_miller_loop": [_VP, _VP, _VP, _INT, _VP],
     "lt_each_final": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_g1_rpk": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
-    "lt_g2_rsig_sub": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_g2_rsig_sub": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_tree_scratch_lanes": [_INT],
     "lt_prod12": [_VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_affine_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_final_one": [_VP, _VP, _VP, _VP, _INT, _VP],
-    "lt_g2_decompress": [_VP, _VP, _VP, _VP, _INT, _VP],
+    "lt_g2_decompress": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_hash_g2": [_VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_pk": [_VP, _VP, _INT, _VP, _VP, _INT, _VP, _VP, _INT, _VP],
     "lt_g1_keyvalidate": [_VP, _VP, _VP, _VP, _INT, _VP],

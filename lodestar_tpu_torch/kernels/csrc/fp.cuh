@@ -118,7 +118,8 @@ LT_DEV void fp_dbl(fp &r, const fp &a) { fp_add(r, a, a); }
 
 // Montgomery product a * b / R mod p (CIOS, one limb of b per row).
 // a must be canonical; b may be any integer below 2^384 (the row bound
-// t < 2p only needs a < p), which is what mont_convert relies on.
+// t < 2p only needs a < p), which the warp programs' Montgomery ingest
+// relies on (kernels/warp_schedule.py mont_ingest: R^2 first).
 // Inlined where it is called: the warp engine's one call site
 // (csrc/warp12.cuh); everything else calls fp_mul, a function of its own.
 LT_DEV void fp_mont_mul(fp &r, const fp &a, const fp &b) {
@@ -160,13 +161,6 @@ LT_DEV void fp_mont_mul(fp &r, const fp &a, const fp &b) {
 LT_NOINL void fp_mul(fp &r, const fp &a, const fp &b) { fp_mont_mul(r, a, b); }
 
 LT_DEV void fp_sqr(fp &r, const fp &a) { fp_mul(r, a, a); }
-
-// x -> x * R mod p for any plain integer x below 2^384 (REDC of x * R^2)
-LT_DEV void fp_mont_convert(fp &r, const fp &x) {
-  fp r2;
-  fp_const(r2, LT_R2);
-  fp_mul(r, r2, x);
-}
 
 // a^e for the static exponent e given as 12 little-endian words, top bit
 // at position `top` (square-and-multiply, MSB first)

@@ -3,7 +3,10 @@
 //   lt_g2_decompress  wire x as plain limbs and the (sign, infinity) bits ->
 //                     Montgomery (x, y), y a root of x^3 + 4(1 + i) with
 //                     fp2_sgn(y) == sign, and ok | inf (replaces
-//                     lodestar_tpu/kernels/ingest.py _k_g2_decompress)
+//                     lodestar_tpu/kernels/ingest.py _k_g2_decompress);
+//                     beside them the job's message planes, plain limbs of
+//                     any integers below 2^384, to Montgomery form (the
+//                     wire paths' _k_mont4, lodestar_tpu/kernels/verify.py)
 //   lt_hash_g2        (u0, u1) as plain limbs and their sgn0 bits -> SSWU
 //                     on the isogenous curve -> iso3 -> add -> cofactor
 //                     clearing -> Jacobian G2, and ok = both iso3
@@ -32,7 +35,11 @@
 // are the norm method's straight-line parts; between them the segment loop
 // below makes the method's per-lane selects (p_ok, sp_ok, a1 == 0, the
 // sign) on comparisons the warp votes on, moving slots with w_copy, so the
-// warp never diverges.
+// warp never diverges.  Segment A's first round converts the wire x and,
+// in four of the threads x's two products leave idle, the job's message
+// planes: the wire paths' Montgomery ingest costs no round and no launch
+// of its own.  Without messages (the pre-verify aggregation) the kernel
+// zeroes their slots and stores nothing.
 //
 // hash_g2: the program (hash_program: 1,361 rounds, 10,412 products per
 // lane) runs the two SSWU evaluations side by side: their two Fp
@@ -53,14 +60,22 @@
 // sqrt.py fp2_sqrt): segments A-D of warp_schedule.decompress_program
 // ---------------------------------------------------------------------------
 
-// x: plain planes [2, 12, n]; flags: [2, n] (sign, inf); xy: Montgomery
-// affine planes [2, 2, 12, n] (x, y); ok: [n].  One warp.
-LT_DEV void g2_decompress_warp(const wmem &m, const int32_t *x, const int32_t *flags, int32_t *xy, int32_t *ok,
-                               int n, int lane) {
+// x: plain planes [2, 12, n]; flags: [2, n] (sign, inf); msg: plain planes
+// [4, 12, n] or null; xy: Montgomery affine planes [2, 2, 12, n] (x, y);
+// msg_out: Montgomery planes [4, 12, n] (null where msg is); ok: [n].  One
+// warp.
+LT_DEV void g2_decompress_warp(const wmem &m, const int32_t *x, const int32_t *flags, const int32_t *msg,
+                               int32_t *xy, int32_t *msg_out, int32_t *ok, int n, int lane) {
   const wprog prog = {LT_DECOMP_SEG, LT_DECOMP_PHASE, LT_DECOMP_INS};
   w_load_planes(m, LT_DECOMP_XIN, x, 2, n, lane);
+  if (msg)
+    w_load_planes(m, LT_DECOMP_MSGIN, msg, 4, n, lane);
+  else
+    w_zero(m, LT_DECOMP_MSGIN, 4);
   LT_SYNCWARP();
-  w_segment<false>(m, prog, 0);  // A: x, rhs, d, sp, sm, xp, xm
+  w_segment<false>(m, prog, 0);  // A: x and the message, rhs, d, sp, sm, xp, xm
+  if (msg_out) w_store_planes(m, LT_DECOMP_MSG, msg_out, 4, n, lane);  // before B writes its slots
+  LT_SYNCWARP();
   const bool sp_ok = w_eq(m, LT_DECOMP_SP2, LT_DECOMP_RHS, 1);  // sp^2 == rhs0
   const bool a1z = w_eq(m, LT_DECOMP_RHS + 1, -1, 1);  // rhs1 == 0
   w_segment<false>(m, prog, 1);  // B: rp, rm, their inverses, rp^2
@@ -187,12 +202,13 @@ LT_DEV void hash_g2_warp(const wmem &m, const int32_t *u, const int32_t *sgn, in
 
 __global__ void __launch_bounds__(LT_WARP * LT_LPB)
     lt_g2_decompress_kernel(const int32_t *__restrict__ x, const int32_t *__restrict__ flags,
-                            int32_t *__restrict__ xy, int32_t *__restrict__ ok, int n) {
+                            const int32_t *__restrict__ msg, int32_t *__restrict__ xy,
+                            int32_t *__restrict__ msg_out, int32_t *__restrict__ ok, int n) {
   extern __shared__ uint32_t lt_sm[];
   const int warp = threadIdx.x / LT_WARP;
   const wmem m = w_block(lt_sm, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_CONST, warp);
   const int lane = blockIdx.x * LT_LPB + warp;
-  if (lane < n) g2_decompress_warp(m, x, flags, xy, ok, n, lane);
+  if (lane < n) g2_decompress_warp(m, x, flags, msg, xy, msg_out, ok, n, lane);
 }
 
 __global__ void __launch_bounds__(LT_WARP * LT_LPB)
@@ -205,14 +221,16 @@ __global__ void __launch_bounds__(LT_WARP * LT_LPB)
   if (lane < n) hash_g2_warp(m, u, sgn, out, ok, n, lane);
 }
 
-extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void *ok, int n,
-                                void *stream) {
+// msg and msg_out: both given (the wire paths' messages) or both null
+extern "C" int lt_g2_decompress(const void *x, const void *flags, const void *msg, void *xy, void *msg_out,
+                                void *ok, int n, void *stream) {
   if (n > 0) {
     const wlaunch l = w_launch("g2_decompress", n, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_PHASES,
                                LT_DECOMP_ROUNDS);
     cudaFuncSetAttribute(lt_g2_decompress_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     lt_g2_decompress_kernel<<<l.blocks, l.threads, l.smem, (cudaStream_t)stream>>>(
-        (const int32_t *)x, (const int32_t *)flags, (int32_t *)xy, (int32_t *)ok, n);
+        (const int32_t *)x, (const int32_t *)flags, (const int32_t *)msg, (int32_t *)xy, (int32_t *)msg_out,
+        (int32_t *)ok, n);
   }
   return (int)cudaGetLastError();
 }
@@ -231,15 +249,16 @@ extern "C" int lt_hash_g2(const void *u, const void *sgn, void *out, void *ok, i
 
 #include <stdlib.h>
 
-extern "C" int lt_g2_decompress(const void *x, const void *flags, void *xy, void *ok, int n,
-                                void *stream) {
+extern "C" int lt_g2_decompress(const void *x, const void *flags, const void *msg, void *xy, void *msg_out,
+                                void *ok, int n, void *stream) {
   (void)stream;
   const wlaunch l = w_launch("g2_decompress", n, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_PHASES,
                              LT_DECOMP_ROUNDS);
   uint32_t *sm = (uint32_t *)malloc(l.smem);
   for (int lane = 0; lane < n; lane++) {  // warp lane % LT_LPB of block lane / LT_LPB
     const wmem m = w_block(sm, LT_DECOMP_SLOTS, LT_DECOMP_CONSTS, LT_DECOMP_CONST, lane % LT_LPB);
-    g2_decompress_warp(m, (const int32_t *)x, (const int32_t *)flags, (int32_t *)xy, (int32_t *)ok, n, lane);
+    g2_decompress_warp(m, (const int32_t *)x, (const int32_t *)flags, (const int32_t *)msg, (int32_t *)xy,
+                       (int32_t *)msg_out, (int32_t *)ok, n, lane);
   }
   free(sm);
   return 0;

@@ -7,9 +7,11 @@ stored as int32 bit patterns in planes ``[..., NL, N]``: the limb axis
 second to last and the batch (one lane per set) last, the shape
 convention of the JAX package.  Montgomery radix R = 2^384 (NL * 32).
 Every value the kernels produce is CANONICAL: its limbs spell the unique
-integer in [0, p) of the Montgomery residue x*R mod p.  The only input a
-kernel takes that may be non-canonical is the plain-limb value of
-`mont_convert` (any integer below 2^384).
+integer in [0, p) of the Montgomery residue x*R mod p.  The only inputs a
+kernel takes that may be non-canonical are the plain-limb planes of the
+Montgomery ingest (any integers below 2^384: the decoded paths' signature
+and message, which `verify.g2_subgroup_check` or `g2_rsig_sub` converts,
+and the wire paths' message, which `verify.g2_decompress` converts).
 
 The plain torch engine (`kernels/core.py` and up) computes the same
 canonical integers in a second form, "digits": ``[..., ND, N]`` int64
@@ -74,8 +76,8 @@ def from_limbs(arr) -> int:
 def encode_plain_batch(vals) -> np.ndarray:
     """Ints < 2^384 -> PLAIN (non-Montgomery) planes int32[NL, n].
 
-    The ingest form: the device converts to Montgomery form
-    (`verify.mont_convert`)."""
+    The ingest form: the device converts to Montgomery form (the paths'
+    heading kernels; `verify.mont_convert_plain` is the plain version)."""
     buf = b"".join(int(v).to_bytes(4 * NL, "little") for v in vals)
     words = np.frombuffer(buf, "<u4").reshape(len(vals), NL)
     return words.T.copy().view(np.int32)

@@ -3,13 +3,14 @@ them.
 
 Counterpart of `lodestar_tpu/kernels/verify.py` and of the kernels of
 `lodestar_tpu/kernels/ingest.py`.  The per-set path, `verify_each_device`
-(`:922`, `_each_core` `:1092`): one job of N padded sets runs
+(`:922`, `_each_core` `:1092`): one job of N padded sets, H(m) and sig
+as plain limbs, runs
 
-    mont_convert       8 planes of plain limbs -> Montgomery   (_k_mont8)
     [gather]           K = 1: pubkey rows, torch.index_select  (_gather_pk)
     agg_pk             K > 1: masked sum of each set's K keys  (_k_agg_pk)
     [substitute]       dead lanes -> generators, torch.where   (_j_substitute)
-    g2_subgroup_check  psi(sig) == -[|x|] sig per lane         (_k_sub_only)
+    g2_subgroup_check  H(m), sig -> Montgomery                 (_k_mont8)
+                       and psi(sig) == -[|x|] sig per lane     (_k_sub_only)
     miller_loop x 2    (pk, H(m)) and (-G1, sig) per lane      (_k_miller)
     each_final         f1 f2 -> final exp -> is-one per lane   (_k_each_final)
 
@@ -18,9 +19,10 @@ one multi-pairing check prod_i e(r_i pk_i, H_i) e(-G1, sum_i r_i sig_i)
 == 1 with random odd 128-bit r_i, N + 1 Miller lanes and one final
 exponentiation:
 
-    mont_convert, [gather] or agg_pk, [substitute]   as above
+    [gather] or agg_pk, [substitute]   as above
     g1_rpk             r_i pk_i per lane                      (_k_g1_rpk)
-    g2_rsig_sub        r_i sig_i and the subgroup check       (_k_g2_rsig_sub)
+    g2_rsig_sub        H(m), sig -> Montgomery                (_k_mont8)
+                       r_i sig_i and the subgroup check       (_k_g2_rsig_sub)
     sum_g2             sum of the live r_i sig_i -> A         (_k_sum_g2 + _j_sum_lanes)
     miller_loop        (r_i pk_i, H_i), N lanes               (_k_miller)
     prod12             product of the live lanes              (_k_prod + _j_product12)
@@ -34,10 +36,11 @@ The wire paths, `verify_batch_device_wire` (`:417`) and
 (the compressed x and the sign and infinity bits) and run before the
 paths above
 
-    mont_convert       4 planes of H(m) -> Montgomery          (_k_mont4)
-    g2_decompress      wire x -> (x, y) by an Fp2 square root  (_k_g2_decompress)
+    g2_decompress      4 planes of H(m) -> Montgomery          (_k_mont4)
+                       wire x -> (x, y) by an Fp2 square root  (_k_g2_decompress)
 
-and `hash_g2` (`_k_hash_g2`) hashes signing roots to G2 for
+the paths above then taking Montgomery points (g2_subgroup_check and
+g2_rsig_sub skip their ingest), and `hash_g2` (`_k_hash_g2`) hashes signing roots to G2 for
 `bls/ingest.py MessageCache`.
 
 The message-grouped wire batch, `verify_batch_device_wire_grouped`
@@ -50,7 +53,7 @@ root and replaces the N-lane Miller loop by one per distinct root:
 
 Pre-verify signature aggregation, `aggregate_g2_sum_device` (`:883`):
 
-    g2_decompress      wire x -> (x, y)                          (_k_g2_decompress)
+    g2_decompress      wire x -> (x, y), no messages            (_k_g2_decompress)
     seg_sum_g2         signatures summed per group               (_j_seg_sum_g2)
     [agg heads]        group totals onto one BT-lane tile        (_j_agg_heads)
     affine_g2          totals -> affine                          (_k_affine_g2)
@@ -61,8 +64,7 @@ pubkeys for `bls/pubkey_table.py PubkeyTable.register_compressed`.
 Each kernel wrapper checks its operands, then runs the hand-written CUDA
 kernel (`csrc/*.cu`) for CUDA tensors or the kernel's plain torch version
 for CPU tensors; any other device raises.  There is no fallback from one
-to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches
-(`mont_convert` on 4 planes under its own name, `mont_convert_4`; the
+to the other.  `LAUNCHES[name]` counts the wrapper's kernel launches (the
 segmented sums once per round of their scan, `seg_rounds(N)`, and
 `sum_g2` and `prod12` once per reduction of their elements by 32, as
 their entry points report).
@@ -107,8 +109,6 @@ AGG_BATCH = 16  # chunks whose trees one agg_pk block runs at once
 AGG_THREADS = 256  # most threads of an agg_pk block
 
 LAUNCHES: Dict[str, int] = {
-    "mont_convert": 0,
-    "mont_convert_4": 0,
     "g2_subgroup_check": 0,
     "miller_loop": 0,
     "each_final": 0,
@@ -126,8 +126,8 @@ LAUNCHES: Dict[str, int] = {
     "seg_sum_g2": 0,
 }
 
-# Fp multiplications per lane of each kernel (per element for
-# mont_convert; per combine for the reductions sum_g2 and prod12, which
+# Fp multiplications per lane of each kernel (per combine for the
+# reductions sum_g2 and prod12, which
 # make N - 1 of them; per addition for agg_pk, which needs
 # one per live row after a lane's first, and for the segmented sums,
 # which make one per lane and round where neither operand is infinity
@@ -138,18 +138,16 @@ LAUNCHES: Dict[str, int] = {
 # work its function needs).  A 12-limb CIOS Montgomery product takes 12
 # rows x (4 x 12 multiply-adds + 1 multiply).
 FP_MULS_PER_LANE = {
-    "mont_convert": 1,
-    "mont_convert_4": 1,
-    "g2_subgroup_check": 1181,
+    "g2_subgroup_check": 1189,
     "miller_loop": 7834,
     "each_final": 7730,
     "g1_rpk": 1563,
-    "g2_rsig_sub": 5045,
+    "g2_rsig_sub": 5053,
     "sum_g2": 60,
     "prod12": 54,
     "affine_g2": 16,
     "final_one": 7730,
-    "g2_decompress": 1864,
+    "g2_decompress": 1868,
     "hash_g2": 10412,
     "agg_pk": 23,
     "g1_keyvalidate": 1488,
@@ -163,9 +161,19 @@ IMAD_PER_FP_MUL = 12 * (4 * 12 + 1)
 # phase); sum_g2's and the segmented sums' per addition, prod12's per
 # product (kernels/warp_schedule.py; the host build counts them,
 # tests/test_torch_warp_{pairing,rsig,rpk,decompress,sum,hash,sub,segsum}.py)
-ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 533, "g1_rpk": 533,
+ROUNDS_PER_LANE = {"miller_loop": 275, "each_final": 396, "final_one": 396, "g2_rsig_sub": 534, "g1_rpk": 533,
                    "g2_decompress": 899, "sum_g2": 5, "affine_g2": 7, "hash_g2": 1361, "prod12": 2,
-                   "g2_subgroup_check": 206, "seg_sum_g1": 5, "seg_sum_g2": 5}
+                   "g2_subgroup_check": 207, "seg_sum_g1": 5, "seg_sum_g2": 5}
+# The Montgomery ingest of the job's planes rides in the kernel that heads
+# each path (_k_mont8 / _k_mont4, once launches of their own).
+# g2_subgroup_check and g2_rsig_sub, given a decoded job's plain signature
+# and message, convert both in their programs' first segment: the counts
+# above hold these INGEST_ROUNDS and INGEST_MULS per lane, which a launch
+# on Montgomery points (the wire paths) skips.  g2_decompress converts the
+# wire paths' 4 message planes in its first round beside the wire x: its
+# counts hold those 4 products, which it makes (on zeros) without messages
+# too.
+INGEST_ROUNDS, INGEST_MULS = 1, 8
 
 # Fp products of the curve operations of csrc/curve.cuh (an Fp2 product
 # is 3 Fp products, an Fp2 square 2): jac_dbl (2M + 5S), jac_add_core
@@ -382,56 +390,61 @@ def _launch(name: str, source: str, symbol: str, *args, launches=1) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1: Montgomery ingest (_k_mont8 / _k_mont4)
+# Montgomery ingest (_k_mont8 / _k_mont4): no kernel of its own; the kernel
+# that heads each path converts the job's plain planes (g2_subgroup_check
+# and g2_rsig_sub on the decoded paths, g2_decompress on the wire paths)
 # ---------------------------------------------------------------------------
 
 
 def mont_convert_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain limb planes [..., 12, N] (any integers below 2^384) ->
+    canonical Montgomery planes x * R mod p: the conversion the heading
+    kernels make, and their plain versions' first step."""
     return LY.digits_to_planes(C.mont_convert(LY.planes_to_digits(x)))
 
 
-def mont_convert(x: torch.Tensor) -> torch.Tensor:
-    """Plain limb planes [..., 12, N] (any integers below 2^384) ->
-    canonical Montgomery planes x * R mod p."""
-    if x.dim() < 2 or x.shape[-2] != NL:
-        raise ValueError(f"mont_convert: expected [..., {NL}, N], got {tuple(x.shape)}")
-    if _on_cpu(x):
-        return mont_convert_plain(x)
-    out = torch.empty_like(x)
-    n = x.shape[-1]
-    planes = x.numel() // (NL * n) if n else 0
-    # counted apart: 4 planes are the wire paths' messages (_k_mont4),
-    # any other count (8 on the decoded paths) is _k_mont8's work
-    name = "mont_convert_4" if planes == 4 else "mont_convert"
-    _launch(name, "mont", "lt_mont_convert", x.data_ptr(), out.data_ptr(), planes, n)
-    return out
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
-# K2: G2 subgroup check (_k_sub_only)
+# K2: G2 subgroup check (_k_sub_only), with the decoded per-set path's
+# Montgomery ingest (_k_mont8)
 # ---------------------------------------------------------------------------
 
 
-def g2_subgroup_check_plain(q: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
+def g2_subgroup_check_plain(q: torch.Tensor, q_inf: torch.Tensor, msg: torch.Tensor | None = None):
+    if msg is not None:
+        qm, mm = mont_convert_plain(q), mont_convert_plain(msg)
+        return g2_subgroup_check_plain(qm, q_inf), qm, mm
     d = LY.planes_to_digits(q)
     ok = CV.g2_subgroup_check((d[0], d[1]), q_inf[0] != 0)
     return ok.to(torch.int32)[None, :]
 
 
-def g2_subgroup_check(q: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
+def g2_subgroup_check(q: torch.Tensor, q_inf: torch.Tensor, msg: torch.Tensor | None = None):
     """Affine G2 points [2, 2, 12, N] and infinity flags [1, N] -> int32
-    [1, N], 1 where psi(Q) == -[|x|]Q or Q is infinity."""
+    [1, N], 1 where psi(Q) == -[|x|]Q or Q is infinity.
+
+    With msg (the decoded per-set path): q and msg [2, 2, 12, N] are plain
+    limbs of any integers below 2^384, which the kernel converts to
+    Montgomery form first; -> (the flags, q and msg in Montgomery form).
+    Without: q is in Montgomery form."""
     n = q.shape[-1]
     _shape(q, (2, 2, NL, n), "g2_subgroup_check q")
     _shape(q_inf, (1, n), "g2_subgroup_check q_inf")
-    if _on_cpu(q, q_inf):
-        return g2_subgroup_check_plain(q, q_inf)
+    ops = (q, q_inf) if msg is None else (q, q_inf, msg)
+    if msg is not None:
+        _shape(msg, (2, 2, NL, n), "g2_subgroup_check msg")
+    if _on_cpu(*ops):
+        return g2_subgroup_check_plain(*ops)
     out = torch.empty((1, n), dtype=torch.int32, device=q.device)
+    conv = None if msg is None else torch.empty((2, 2, 2, NL, n), dtype=torch.int32, device=q.device)
     _launch(
         "g2_subgroup_check", "subgroup", "lt_g2_subgroup_check",
-        q.data_ptr(), q_inf.data_ptr(), out.data_ptr(), n,
+        q.data_ptr(), q_inf.data_ptr(), _ptr(msg), out.data_ptr(), _ptr(conv), n,
     )
-    return out
+    return out if msg is None else (out, conv[0], conv[1])
 
 
 # ---------------------------------------------------------------------------
@@ -534,7 +547,9 @@ def g1_rpk(p: torch.Tensor, p_inf: torch.Tensor, rwords: torch.Tensor):
     return out, out_inf
 
 
-def g2_rsig_sub_plain(q, q_inf, rwords):
+def g2_rsig_sub_plain(q, q_inf, rwords, msg=None):
+    if msg is not None:
+        return (*g2_rsig_sub_plain(mont_convert_plain(q), q_inf, rwords), mont_convert_plain(msg))
     d = LY.planes_to_digits(q)
     n = q.shape[-1]
     q_jac = (d[0], d[1], CV.FP2_OPS.one(n, q.device))
@@ -547,25 +562,34 @@ def g2_rsig_sub_plain(q, q_inf, rwords):
     )
 
 
-def g2_rsig_sub(q: torch.Tensor, q_inf: torch.Tensor, rwords: torch.Tensor):
+def g2_rsig_sub(q: torch.Tensor, q_inf: torch.Tensor, rwords: torch.Tensor, msg: torch.Tensor | None = None):
     """Affine G2 [2, 2, 12, N], infinity flags [1, N], randomizer words
     [4, N] -> (r_i Q_i as Jacobian [3, 2, 12, N], its infinity flags
-    [1, N], subgroup flags [1, N]: 1 where Q_i is in G2 or infinity)."""
+    [1, N], subgroup flags [1, N]: 1 where Q_i is in G2 or infinity).
+
+    With msg (the decoded batch path): q and msg [2, 2, 12, N] are plain
+    limbs of any integers below 2^384, which the kernel converts to
+    Montgomery form first; the Montgomery msg is a fourth output.
+    Without: q is in Montgomery form."""
     n = q.shape[-1]
     _shape(q, (2, 2, NL, n), "g2_rsig_sub q")
     _shape(q_inf, (1, n), "g2_rsig_sub q_inf")
     _shape(rwords, (RAND_WORDS, n), "g2_rsig_sub rwords")
-    if _on_cpu(q, q_inf, rwords):
-        return g2_rsig_sub_plain(q, q_inf, rwords)
+    ops = (q, q_inf, rwords) if msg is None else (q, q_inf, rwords, msg)
+    if msg is not None:
+        _shape(msg, (2, 2, NL, n), "g2_rsig_sub msg")
+    if _on_cpu(*ops):
+        return g2_rsig_sub_plain(*ops)
     out = torch.empty((3, 2, NL, n), dtype=torch.int32, device=q.device)
     out_inf = torch.empty_like(q_inf)
     sub = torch.empty_like(q_inf)
+    msg_out = None if msg is None else torch.empty_like(msg)
     _launch(
         "g2_rsig_sub", "randmul", "lt_g2_rsig_sub",
-        q.data_ptr(), q_inf.data_ptr(), rwords.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
-        sub.data_ptr(), n,
+        q.data_ptr(), q_inf.data_ptr(), _ptr(msg), rwords.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+        sub.data_ptr(), _ptr(msg_out), n,
     )
-    return out, out_inf, sub
+    return (out, out_inf, sub) if msg is None else (out, out_inf, sub, msg_out)
 
 
 # ---------------------------------------------------------------------------
@@ -692,32 +716,42 @@ def final_one(a_inf: torch.Tensor, prod: torch.Tensor, fa: torch.Tensor) -> torc
 
 
 # ---------------------------------------------------------------------------
-# K11, K12: wire ingest (_k_g2_decompress, _k_hash_g2)
+# K11, K12: wire ingest (_k_g2_decompress with the wire paths' _k_mont4,
+# _k_hash_g2)
 # ---------------------------------------------------------------------------
 
 
-def g2_decompress_plain(x, flags):
+def g2_decompress_plain(x, flags, msg=None):
     xm = C.mont_convert(LY.planes_to_digits(x))
     y, ok = IG.g2_decompress_y(xm, flags[0] != 0)
     ok = ok | (flags[1] != 0)
-    return LY.digits_to_planes(torch.stack([xm, y])), ok.to(torch.int32)[None, :]
+    out = LY.digits_to_planes(torch.stack([xm, y])), ok.to(torch.int32)[None, :]
+    return out if msg is None else (*out, mont_convert_plain(msg))
 
 
-def g2_decompress(x: torch.Tensor, flags: torch.Tensor):
+def g2_decompress(x: torch.Tensor, flags: torch.Tensor, msg: torch.Tensor | None = None):
     """Wire x as plain limb planes [2, 12, N] (x0, x1) and the (sign,
     infinity) bits [2, N] -> (Montgomery affine (x, y) [2, 2, 12, N],
     ok [1, N]: 1 where x is on the curve or the lane is flagged infinity).
-    y is the root of x^3 + 4(1 + i) whose fp2_sgn is the sign bit."""
+    y is the root of x^3 + 4(1 + i) whose fp2_sgn is the sign bit.
+
+    With msg (the wire paths): the job's H(m) as plain limb planes
+    [2, 2, 12, N] of any integers below 2^384, converted to Montgomery
+    form in the kernel's first round; a third output."""
     n = x.shape[-1]
     _shape(x, (2, NL, n), "g2_decompress x")
     _shape(flags, (2, n), "g2_decompress flags")
-    if _on_cpu(x, flags):
-        return g2_decompress_plain(x, flags)
+    ops = (x, flags) if msg is None else (x, flags, msg)
+    if msg is not None:
+        _shape(msg, (2, 2, NL, n), "g2_decompress msg")
+    if _on_cpu(*ops):
+        return g2_decompress_plain(*ops)
     xy = torch.empty((2, 2, NL, n), dtype=torch.int32, device=x.device)
     ok = torch.empty((1, n), dtype=torch.int32, device=x.device)
-    _launch("g2_decompress", "ingest", "lt_g2_decompress", x.data_ptr(), flags.data_ptr(),
-            xy.data_ptr(), ok.data_ptr(), n)
-    return xy, ok
+    msg_out = None if msg is None else torch.empty_like(msg)
+    _launch("g2_decompress", "ingest", "lt_g2_decompress", x.data_ptr(), flags.data_ptr(), _ptr(msg),
+            xy.data_ptr(), _ptr(msg_out), ok.data_ptr(), n)
+    return (xy, ok) if msg is None else (xy, ok, msg_out)
 
 
 def hash_g2_plain(u, sgn):
@@ -954,7 +988,9 @@ _CONSTS: dict = {}
 
 
 def _const_planes(device) -> dict:
-    """Generator planes [12, 1] (Montgomery) for substitution and -G1."""
+    """Generator planes [12, 1] (Montgomery) for substitution and -G1, and
+    G2's generator as plain limbs ("g2_plain", the decoded paths' dead
+    signature lanes, which their heading kernel converts to exactly "g2")."""
     key = str(device)
     c = _CONSTS.get(key)
     if c is None:
@@ -970,6 +1006,8 @@ def _const_planes(device) -> dict:
             "g2": torch.stack(
                 [torch.stack([col(g2x[0]), col(g2x[1])]), torch.stack([col(g2y[0]), col(g2y[1])])]
             ),
+            "g2_plain": torch.from_numpy(LY.encode_plain_batch([g2x[0], g2x[1], g2y[0], g2y[1]])).to(device)
+            .reshape(NL, 2, 2).permute(1, 2, 0)[..., None].contiguous(),
         }
         _CONSTS[key] = c
     return c
@@ -991,20 +1029,22 @@ def _gather_pk(table_x, table_y, idx, kmask):
     return torch.stack([px, py, pz]), torch.zeros(n, dtype=torch.bool, device=table_x.device)
 
 
-def _substitute(live, pk, sig):
-    """Dead lanes -> generator points (keeps every lane on the curve)."""
+def _substitute(live, pk, sig, plain):
+    """Dead lanes -> generator points (keeps every lane on the curve); sig
+    as plain limbs where `plain` (the decoded paths, before their heading
+    kernel's ingest), else in Montgomery form."""
     c = _const_planes(pk.device)
     g1 = torch.stack([c["g1x"], c["g1y"], c["one"]])
-    return torch.where(live, pk, g1), torch.where(live, sig, c["g2"])
+    return torch.where(live, pk, g1), torch.where(live, sig, c["g2_plain" if plain else "g2"])
 
 
-def _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid):
+def _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid, plain):
     """Gather (and aggregate) the pubkeys, mark the live lanes (valid,
     pubkey and signature not infinity) and substitute generators into the
     dead ones -> (live, pk_inf, pk [3, 12, N], sig [2, 2, 12, N])."""
     pk, pk_inf = _gather_pk(table_x, table_y, idx, kmask)
     live = (valid != 0) & ~pk_inf & ~sig_bad
-    pk, sig = _substitute(live, pk, sig)
+    pk, sig = _substitute(live, pk, sig, plain)
     return live, pk_inf, pk.contiguous(), sig.contiguous()
 
 
@@ -1013,49 +1053,65 @@ def _neg_g1(device, n: int) -> torch.Tensor:
     return torch.stack([c["g1x"], c["neg_g1y"], c["one"]]).expand(3, NL, n).contiguous()
 
 
-def each_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid) -> dict:
-    """The kernel operands of one per-set job, from Montgomery message and
-    signature points [2, 2, 12, N]: gather the pubkeys, substitute
-    generators into dead lanes, and lay out the four kernel launches."""
+def each_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, plain=False) -> dict:
+    """The kernel operands of one per-set job, from message and signature
+    points [2, 2, 12, N] (plain limbs where `plain`, the decoded path;
+    else Montgomery): gather the pubkeys, substitute generators into dead
+    lanes, and lay out the launches.  "sub" is g2_subgroup_check's
+    operands: with the message where `plain`, so it returns the
+    Montgomery (sig, msg) of the Miller loops (`each_miller_operands`)."""
     n = valid.shape[0]
-    live, _, pk, sig = _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid)
+    live, _, pk, sig = _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid, plain)
+    zero = torch.zeros((1, n), dtype=torch.int32, device=pk.device)
     return {
         "live": live,
-        "sub": (sig, torch.zeros((1, n), dtype=torch.int32, device=pk.device)),
-        "miller_pk": (pk, msg.contiguous()),
-        "miller_sig": (_neg_g1(pk.device, n), sig),
+        "sub": (sig, zero, msg.contiguous()) if plain else (sig, zero),
+        "pk": pk,
+        "sig": sig,
+        "msg": msg.contiguous(),
+        "neg_g1": _neg_g1(pk.device, n),
         "live_row": live[None, :].to(torch.int32),
     }
 
 
-def _each_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid):
-    ops = each_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid)
-    sub = g2_subgroup_check(*ops["sub"])
-    f1 = miller_loop(*ops["miller_pk"])
-    f2 = miller_loop(*ops["miller_sig"])
+def each_miller_operands(ops: dict, sub):
+    """The subgroup flags and the two Miller loops' operands, (pk, H(m))
+    and (-G1, sig), from g2_subgroup_check's result on ops["sub"]."""
+    if isinstance(sub, tuple):  # the decoded path: the kernel's ingest made the Montgomery points
+        sub, sig, msg = sub
+    else:
+        sig, msg = ops["sig"], ops["msg"]
+    return sub, (ops["pk"], msg), (ops["neg_g1"], sig)
+
+
+def _each_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, plain):
+    ops = each_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, plain)
+    sub, miller_pk, miller_sig = each_miller_operands(ops, g2_subgroup_check(*ops["sub"]))
+    f1 = miller_loop(*miller_pk)
+    f2 = miller_loop(*miller_sig)
     ok = each_final(ops["live_row"], f1, f2)
     return ((ok[0] != 0) & (sub[0] != 0) & ops["live"]) | ~(valid != 0)
 
 
 def _decoded_inputs(idx, kmask, planes, n):
-    """Plain limb planes [8, 12, N] of H(m) and sig -> Montgomery points."""
+    """Plain limb planes [8, 12, N] of H(m) and sig -> the two points, still
+    plain limbs: the path's heading kernel (g2_subgroup_check or
+    g2_rsig_sub) converts them."""
     _shape(idx, (n, idx.shape[-1]), "idx")
     _shape(kmask, idx.shape, "kmask")
     _shape(planes, (8, NL, n), "planes")
-    m = mont_convert(planes)
-    return m[:4].reshape(2, 2, NL, n), m[4:].reshape(2, 2, NL, n)
+    return planes[:4].reshape(2, 2, NL, n), planes[4:].reshape(2, 2, NL, n)
 
 
 def _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n):
     """Plain limb planes [4, 12, N] of H(m), wire x [2, 12, N] and flags
-    [2, N] -> (Montgomery message and signature points, sig_bad: the
-    signature is flagged infinity (or malformed on the host) or x is not
-    on the curve)."""
+    [2, N] -> (Montgomery message and signature points, both from
+    g2_decompress, sig_bad: the signature is flagged infinity (or
+    malformed on the host) or x is not on the curve)."""
     _shape(idx, (n, idx.shape[-1]), "idx")
     _shape(kmask, idx.shape, "kmask")
     _shape(msg_planes, (4, NL, n), "msg planes")
-    msg = mont_convert(msg_planes).reshape(2, 2, NL, n)
-    sig, dec_ok = g2_decompress(sig_x, sig_flags)
+    sig, dec_ok, msg = g2_decompress(sig_x, sig_flags, msg_planes.reshape(2, 2, NL, n))
     return msg, sig, (sig_flags[1] != 0) | (dec_ok[0] == 0)
 
 
@@ -1072,7 +1128,7 @@ def verify_each_device(table_x, table_y, idx, kmask, planes, sig_inf, valid):
     """
     n = valid.shape[0]
     msg, sig = _decoded_inputs(idx, kmask, planes, n)
-    return _each_core(table_x, table_y, idx, kmask, msg, sig, sig_inf != 0, valid)
+    return _each_core(table_x, table_y, idx, kmask, msg, sig, sig_inf != 0, valid, True)
 
 
 def verify_each_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, sig_flags, valid):
@@ -1082,7 +1138,7 @@ def verify_each_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, sig
     operands as `verify_each_device`, with H(m) as [4, 12, N] plain limbs."""
     n = valid.shape[0]
     msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
-    return _each_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid)
+    return _each_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, False)
 
 
 # ---------------------------------------------------------------------------
@@ -1090,22 +1146,31 @@ def verify_each_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, sig
 # ---------------------------------------------------------------------------
 
 
-def batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords) -> dict:
+def batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords, plain=False) -> dict:
     """The kernel operands of one RLC batch job (`_batch_local` `:510`):
     the per-set path's gather and substitution, then the two randomized
     scalar multiplications' inputs (no lane flagged infinity: dead lanes
-    hold generators)."""
+    hold generators).  Where `plain` (the decoded path) g2_rsig_sub takes
+    the plain message too and returns it in Montgomery form
+    (`batch_msg`)."""
     n = valid.shape[0]
-    live, pk_inf, pk, sig = _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid)
+    live, pk_inf, pk, sig = _live_lanes(table_x, table_y, idx, kmask, sig, sig_bad, valid, plain)
     zero = torch.zeros((1, n), dtype=torch.int32, device=pk.device)
+    msg = msg.contiguous()
     return {
         "live": live,
         "pk_inf": pk_inf,
         "live_row": live[None, :].to(torch.int32),
         "g1_rpk": (pk, zero, rwords),
-        "g2_rsig_sub": (sig, zero, rwords),
-        "msg": msg.contiguous(),
+        "g2_rsig_sub": (sig, zero, rwords, msg) if plain else (sig, zero, rwords),
+        "msg": msg,
     }
+
+
+def batch_msg(ops: dict, rsig_out) -> torch.Tensor:
+    """The Montgomery message of the Miller side: g2_rsig_sub's fourth
+    output where it made the ingest, else the operands' own."""
+    return rsig_out[3] if len(rsig_out) == 4 else ops["msg"]
 
 
 def _batch_tail(fprod, jsum, jsum_inf):
@@ -1139,30 +1204,32 @@ def _group_heads(pts, seg_inf, msg, head_lanes, glive):
     return g.contiguous(), q.contiguous(), live[None, :].to(torch.int32)
 
 
-def grouped_operands(ops, rpk, rpk_inf, group, head_lanes, glive) -> dict:
-    """The grouped G1 side's operands (`_batch_local_grouped` `:739`): the
-    randomized pubkeys of dead lanes count as infinity in their group's
-    segmented sum."""
+def grouped_operands(ops, msg, rpk, rpk_inf, group, head_lanes, glive) -> dict:
+    """The grouped G1 side's operands (`_batch_local_grouped` `:739`), msg
+    the Montgomery message planes: the randomized pubkeys of dead lanes
+    count as infinity in their group's segmented sum."""
     return {"seg_sum_g1": (rpk, (~ops["live"])[None, :].to(torch.int32) | rpk_inf, group),
-            "heads": (ops["msg"], head_lanes, glive)}
+            "heads": (msg, head_lanes, glive)}
 
 
-def _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid, grouping=None):
-    """The batch pipeline from Montgomery points on.  With `grouping`
+def _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid, plain, grouping=None):
+    """The batch pipeline from the points on (plain limbs where `plain`,
+    the decoded path, else Montgomery).  With `grouping`
     (group [N], head_lanes [BT], glive [BT]; `_batch_local_grouped`
     `:739`) the Miller side runs once per distinct message: a segmented
     sum of the r_i pk_i by group, then ONE BT-lane Miller tile of the group
     totals against their messages."""
-    ops = batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords)
+    ops = batch_operands(table_x, table_y, idx, kmask, msg, sig, sig_bad, valid, rwords, plain)
     rpk, rpk_inf = g1_rpk(*ops["g1_rpk"])
-    rsig, rsig_inf, sub = g2_rsig_sub(*ops["g2_rsig_sub"])
+    rs = g2_rsig_sub(*ops["g2_rsig_sub"])
+    (rsig, rsig_inf, sub), msg = rs[:3], batch_msg(ops, rs)
     # the aggregate signature point: dead lanes excluded from the sum
     excl = (~ops["live"])[None, :].to(torch.int32) | rsig_inf
     jsum, jsum_inf = sum_g2(rsig, excl)
     if grouping is None:
-        fprod = prod12(ops["live_row"], miller_loop(rpk, ops["msg"]))
+        fprod = prod12(ops["live_row"], miller_loop(rpk, msg))
     else:
-        gops = grouped_operands(ops, rpk, rpk_inf, *grouping)
+        gops = grouped_operands(ops, msg, rpk, rpk_inf, *grouping)
         pts, seg_inf = seg_sum_g1(*gops["seg_sum_g1"])
         msg_h, head_lanes, glive = gops["heads"]
         g, q, live_row = _group_heads(pts, seg_inf, msg_h, head_lanes, glive)
@@ -1183,7 +1250,7 @@ def verify_batch_device(table_x, table_y, idx, kmask, planes, sig_inf, rwords, v
     n = valid.shape[0]
     _shape(rwords, (RAND_WORDS, n), "verify_batch_device rwords")
     msg, sig = _decoded_inputs(idx, kmask, planes, n)
-    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_inf != 0, rwords, valid)
+    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_inf != 0, rwords, valid, True)
 
 
 def verify_batch_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, sig_flags, rwords, valid):
@@ -1194,7 +1261,7 @@ def verify_batch_device_wire(table_x, table_y, idx, kmask, msg_planes, sig_x, si
     n = valid.shape[0]
     _shape(rwords, (RAND_WORDS, n), "verify_batch_device_wire rwords")
     msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
-    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid)
+    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid, False)
 
 
 def _grouping_shapes(group, head_lanes, glive, n):
@@ -1216,7 +1283,7 @@ def verify_batch_device_wire_grouped(table_x, table_y, idx, kmask, msg_planes, s
     _shape(rwords, (RAND_WORDS, n), "verify_batch_device_wire_grouped rwords")
     _grouping_shapes(group, head_lanes, glive, n)
     msg, sig, sig_bad = _wire_inputs(idx, kmask, msg_planes, sig_x, sig_flags, n)
-    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid,
+    return _batch_core(table_x, table_y, idx, kmask, msg, sig, sig_bad, rwords, valid, False,
                        (group, head_lanes, glive))
 
 

@@ -976,9 +976,25 @@ WINDOWS = RAND_BITS // WINDOW
 # the r sig program's registers: the affine signature Q, the table
 # {Q .. 15 Q}, the accumulator T (two sets, alternating), the window's
 # addend, T after the window's doublings, the subgroup check's chain S
-# (alternating) and jac_eq's cross products
+# (alternating) and jac_eq's cross products.  The ingest segment's plain
+# signature QIN and message MSGIN and the Montgomery message MSG lie in
+# TBL's slots, which the table segment writes after the kernel has stored
+# MSG.
 RSIG_LAYOUT = {"Q": (0, 4), "TBL": (4, 90), "T0": (94, 6), "T1": (100, 6), "ADD": (106, 6), "DBL": (112, 6),
-               "S0": (118, 6), "S1": (124, 6), "EQ": (130, 8)}
+               "S0": (118, 6), "S1": (124, 6), "EQ": (130, 8), "QIN": (4, 4), "MSGIN": (8, 4), "MSG": (12, 4)}
+
+
+def _add_ingest(sg: _Segments) -> Dict[str, int]:
+    """The Montgomery ingest of a decoded job's planes, a program's first
+    segment: the plain signature QIN and message MSGIN -> Q and MSG in
+    Montgomery form (`mont_ingest`), 8 independent products in one round.
+    A kernel given Montgomery points (the wire paths, whose g2_decompress
+    made them) skips it.  -> the io entries that give the kernel its
+    phases and rounds."""
+    sg.add("ingest", lambda tw, r: {"Q": mont_ingest(tw.t, r["QIN"]), "MSG": mont_ingest(tw.t, r["MSGIN"])},
+           ("QIN", "MSGIN"), ("Q", "MSG"))
+    seg = sg.segs[sg.index["ingest"]]
+    return {"INGEST_PHASES": len(seg.phases), "INGEST_ROUNDS": seg.rounds}
 
 
 def _psi_consts() -> Dict[str, int]:
@@ -1018,7 +1034,9 @@ def rsig_program() -> Program:
     """r Q for a lane's 128-bit scalar r (lodestar_tpu/kernels/curve.py
     scalar_mul_window_jac over Fp2, 4-bit windows) and the G2 subgroup
     check of Q (g2_subgroup_check), as segments that the kernel's
-    window loop (csrc/randmul.cu) runs one at a time: the table {Q .. 15 Q}, then for
+    window loop (csrc/randmul.cu) runs one at a time: the Montgomery ingest
+    of a decoded job's signature and message (`_add_ingest`, skipped on
+    Montgomery points), the table {Q .. 15 Q}, then for
     each of the 32 windows one segment of four doublings of T and the
     addition of the window's entry (which the loop copies into ADD
     beforehand, by the lane's digit), writing T doubled to DBL and the sum
@@ -1028,7 +1046,9 @@ def rsig_program() -> Program:
     idle threads, two steps per window (`subgroup_bits`); the last window
     adds psi(Q) and jac_eq's cross products against -[|x|] Q, which the
     kernel compares."""
-    sg = _Segments(dict(_consts(False), **_psi_consts()), RSIG_LAYOUT)
+    sg = _Segments(dict(_consts(False), r2=R * R % P, **_psi_consts()), RSIG_LAYOUT)
+    io = {r: r for r in RSIG_LAYOUT}
+    io.update(_add_ingest(sg))
 
     def q_jac(tw, r):
         x, y = _pairs(r["Q"])
@@ -1057,7 +1077,7 @@ def rsig_program() -> Program:
         return body
 
     sg.add("table", table, ("Q",), ("TBL", "T0", "S0"))
-    order = ["table"]
+    order = ["ingest", "table"]
     for t in range(WINDOWS):
         src, dst = str(t % 2), str(1 - t % 2)
         bits, last = subgroup_bits(t), t == WINDOWS - 1
@@ -1067,17 +1087,21 @@ def rsig_program() -> Program:
             sg.add(name, window(src, dst, bits, last), ("T" + src, "ADD", "S" + src, "Q"), outs)
         order.append(name)
     assert X_ABS >> 63 == 1 and sum(len(subgroup_bits(t)) for t in range(WINDOWS)) == 63
-    return sg.program("RSIG", order, {r: r for r in RSIG_LAYOUT})
+    return sg.program("RSIG", order, io)
 
 
 # the subgroup check's registers: the affine signature Q and jac_eq's cross
-# products
-SUB_LAYOUT = {"Q": (0, 4), "EQ": (4, 8)}
+# products; the ingest segment's plain signature QIN and message MSGIN (in
+# EQ's slots, written at the check's end) and the Montgomery message MSG
+SUB_LAYOUT = {"Q": (0, 4), "EQ": (4, 8), "QIN": (4, 4), "MSGIN": (8, 4), "MSG": (12, 4)}
 
 
 def sub_program() -> Program:
     """The G2 subgroup check of an affine Q alone (lodestar_tpu/kernels/
-    verify.py _k_sub_only, curve.py g2_subgroup_check): one segment of
+    verify.py _k_sub_only, curve.py g2_subgroup_check), after the
+    Montgomery ingest of a decoded job's signature and message
+    (`_add_ingest`: one round, which every step of the check waits on;
+    skipped on Montgomery points): one segment of
     the static chain [|x|] Q (63 doublings, 5 mixed additions of Q, the
     formulas of curve.py scalar_mul_static, as rsig_program's windows run
     them), psi(Q), and jac_eq's cross products of psi(Q) against
@@ -1085,7 +1109,9 @@ def sub_program() -> Program:
     the comparison's operand, as rsig_program's last window does).  The
     Jacobian triples are the plain version's, so the flag is too, on
     every input."""
-    sg = _Segments(dict(_consts(False), **_psi_consts()), SUB_LAYOUT)
+    sg = _Segments(dict(_consts(False), r2=R * R % P, **_psi_consts()), SUB_LAYOUT)
+    io = {r: r for r in SUB_LAYOUT}
+    io.update(_add_ingest(sg))
 
     def body(tw, r):
         f = tw.fp2
@@ -1099,7 +1125,7 @@ def sub_program() -> Program:
         return {"EQ": _flat(jac_eq_terms(f, tw.psi(q), _neg_pt(f, S)))}
 
     sg.add("sub", body, ("Q",), ("EQ",))
-    return sg.program("SUB", ["sub"], {r: r for r in SUB_LAYOUT})
+    return sg.program("SUB", ["ingest", "sub"], io)
 
 
 # the r pk program's registers: the Jacobian pubkey P, the table
@@ -1173,11 +1199,25 @@ def pow_window(t: Trace, a: int, e: int, width: int = POW_WIDTH) -> int:
 # the kernel's output, consecutive; Y1 is y's second half), rhs = x^3 + 4(1 + i), the norm
 # method's values (sp and its square, sm, xp, xm, rhs1 / 2), the root
 # candidates rp, rm with their squared rp and inverses ip, im, the chosen
-# inverse 1 / x0, and the last segment's r^2, -r and r out of Montgomery form
+# inverse 1 / x0, and the last segment's r^2, -r and r out of Montgomery form.
+# The job's message planes ride in segment A: MSGIN (plain) on the slots of
+# RP .. IP and MSG (Montgomery) on those of IM .. S, which segment A neither
+# reads nor writes otherwise; the kernel stores MSG right after segment A,
+# before segment B writes them.
 DECOMP_LAYOUT = {"XIN": (0, 2), "X": (2, 2), "Y": (4, 2), "Y1": (5, 1), "RHS": (6, 2), "SP": (8, 1), "SP2": (9, 1),
                  "SM": (10, 1), "XP": (11, 1), "XM": (12, 1), "H1": (13, 1), "RP": (14, 1), "RM": (15, 1),
                  "RP2": (16, 1), "IP": (17, 1), "IM": (18, 1), "IX0": (19, 1), "S": (20, 2), "NY": (22, 2),
-                 "RAW": (24, 2)}
+                 "RAW": (24, 2), "MSGIN": (14, 4), "MSG": (18, 4)}
+
+
+def mont_ingest(t: Trace, vals) -> List[int]:
+    """Plain limbs of any integers below 2^384 -> Montgomery form, one
+    product by R^2 each (REDC of v R^2, as csrc/fp.cuh fp_mont_convert
+    makes it).  R^2 is the product's first operand: the warp engine's
+    fp_mont_mul needs its first operand below p and admits any 384-bit
+    second one (the trace keeps the operand order through `rebalance` and
+    the schedule)."""
+    return [t.mul(t.const("r2"), v) for v in vals]
 
 
 def decompress_program() -> Program:
@@ -1186,7 +1226,8 @@ def decompress_program() -> Program:
     segments; csrc/ingest.cu's segment loop makes the per-lane selects between
     them (the warp never diverges: a lane is one warp).
 
-      A  x to Montgomery form, rhs, the norm n = rhs0^2 + rhs1^2, then
+      A  x and the four message planes to Montgomery form (six products
+         in the first round, where x's two were alone), rhs, the norm n = rhs0^2 + rhs1^2, then
          d = n^SQRT_EXP and sp = rhs0^SQRT_EXP in the same rounds, sm =
          -sp (SQRT_EXP is odd, so (-a)^SQRT_EXP = -(a^SQRT_EXP)), sp^2,
          xp = (rhs0 + d) / 2, xm = (rhs0 - d) / 2 and rhs1 / 2;
@@ -1212,14 +1253,14 @@ def decompress_program() -> Program:
 
     def seg_a(tw, r):
         t = tw.t
-        x = tuple(t.mul(v, t.const("r2")) for v in r["XIN"])
+        x = tuple(mont_ingest(t, r["XIN"]))
         rhs = tw.add2(tw.mul2(tw.sqr2(x), x), tw.const2("b"))
         d = pow_window(t, t.add(t.mul(rhs[0], rhs[0]), t.mul(rhs[1], rhs[1])), SQRT_EXP)
         sp = pow_window(t, rhs[0], SQRT_EXP)
         half = t.const("half")
         return {"X": list(x), "RHS": list(rhs), "SP": [sp], "SP2": [t.mul(sp, sp)], "SM": [t.sub(tw.zero, sp)],
                 "XP": [t.mul(t.add(rhs[0], d), half)], "XM": [t.mul(t.sub(rhs[0], d), half)],
-                "H1": [t.mul(rhs[1], half)]}
+                "H1": [t.mul(rhs[1], half)], "MSG": mont_ingest(t, r["MSGIN"])}
 
     def seg_b(tw, r):
         t, out = tw.t, {}
@@ -1238,7 +1279,7 @@ def decompress_program() -> Program:
         y = tuple(r["Y"])
         return {"S": list(tw.sqr2(y)), "NY": list(tw.neg2(y)), "RAW": [tw.t.mul(v, tw.t.const("raw1")) for v in y]}
 
-    sg.add("a", seg_a, ("XIN",), ("X", "RHS", "SP", "SP2", "SM", "XP", "XM", "H1"))
+    sg.add("a", seg_a, ("XIN", "MSGIN"), ("X", "RHS", "SP", "SP2", "SM", "XP", "XM", "H1", "MSG"))
     sg.add("b", seg_b, ("XP", "XM"), ("RP", "RM", "RP2", "IP", "IM"))
     sg.add("c", seg_c, ("H1", "IX0"), ("Y1",))
     sg.add("d", seg_d, ("Y",), ("S", "NY", "RAW"))

@@ -66,18 +66,61 @@ def scalar():
     return int.from_bytes(RNG.bytes(32), "little") % (GT.R - 2) + 2
 
 
-def test_mont_convert_host_build_equals_plain(libs):
-    vals = [0, 1, P - 1, P, P + 1, 2 * P, 9 * P, (1 << 384) - 1] + [
-        int.from_bytes(RNG.bytes(48), "little") for _ in range(16)
-    ]
-    x = torch.from_numpy(LY.encode_plain_batch(vals)).reshape(3, LY.NL, 8).contiguous()
-    out = i32(3, LY.NL, 8)
-    assert libs["mont"].lt_mont_convert(x.data_ptr(), out.data_ptr(), 3, 8, None) == 0
-    assert torch.equal(out, KV.mont_convert_plain(x))
-    assert libs["mont"].lt_host_fp_muls() == 24 * KV.FP_MULS_PER_LANE["mont_convert"]
+EDGE_384 = [0, 1, P - 1, P, P + 1, 2 * P, 9 * P, (1 << 384) - 1]  # plain values the ingest admits
 
 
-def test_subgroup_host_build_equals_plain(libs):
+def plain_g2_planes(vals, n):
+    """Plain limb planes [2, 2, 12, n] of 4 n integers below 2^384, value
+    4 j + c at lane j, coordinate c."""
+    return torch.from_numpy(LY.encode_plain_batch(vals)).reshape(LY.NL, n, 2, 2).permute(2, 3, 0, 1).contiguous()
+
+
+@pytest.mark.parametrize("source", ["subgroup", "randmul", "ingest"])
+def test_mont_ingest_host_build_equals_plain(libs, source):
+    """The Montgomery ingest that each path's heading kernel makes in its
+    first phase (g2_subgroup_check and g2_rsig_sub: the decoded paths'
+    signature and message; g2_decompress: the wire paths' message), on
+    plain values in [p, 2^384) and below p: the Montgomery planes each
+    writes equal mont_convert_plain's bit for bit, and the Fp products per
+    lane are the pinned counts (the ingest's among them)."""
+    n = 6
+    vals = EDGE_384 + [int.from_bytes(RNG.bytes(48), "little") for _ in range(4 * n - len(EDGE_384))]
+    msg = plain_g2_planes(vals, n)
+    sig = plain_g2_planes(vals[::-1], n)
+    inf, lib = torch.zeros((1, n), dtype=torch.int32), libs[source]
+    lib.lt_host_fp_muls()
+    if source == "subgroup":
+        out, conv = i32(1, n), i32(2, 2, 2, LY.NL, n)
+        assert lib.lt_g2_subgroup_check(sig.data_ptr(), inf.data_ptr(), msg.data_ptr(), out.data_ptr(),
+                                        conv.data_ptr(), n, None) == 0
+        got, name = (conv[0], conv[1]), "g2_subgroup_check"
+    elif source == "randmul":
+        rw = _words([0, 1, 5, (1 << 128) - 1, 3 << 64, 7])
+        out, out_inf, sub, msg_out = i32(3, 2, LY.NL, n), i32(1, n), i32(1, n), i32(2, 2, LY.NL, n)
+        assert lib.lt_g2_rsig_sub(sig.data_ptr(), inf.data_ptr(), msg.data_ptr(), rw.data_ptr(), out.data_ptr(),
+                                  out_inf.data_ptr(), sub.data_ptr(), msg_out.data_ptr(), n, None) == 0
+        got, name = (msg_out,), "g2_rsig_sub"
+        assert torch.equal(out, KV.g2_rsig_sub_plain(sig, inf, rw, msg)[0])
+    else:
+        x, flags = i32(2, LY.NL, n).zero_(), torch.tensor([[0] * n, [1] * n], dtype=torch.int32)
+        xy, ok, msg_out = i32(2, 2, LY.NL, n), i32(1, n), i32(2, 2, LY.NL, n)
+        assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), msg.data_ptr(), xy.data_ptr(), msg_out.data_ptr(),
+                                    ok.data_ptr(), n, None) == 0
+        got, name = (msg_out,), "g2_decompress"
+    want = (KV.mont_convert_plain(sig), KV.mont_convert_plain(msg))[-len(got):]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [LY.decode_batch(got[-1][c, k].numpy()) for c in range(2) for k in range(2)] == [
+        [vals[4 * j + 2 * c + k] % P for j in range(n)] for c in range(2) for k in range(2)]
+    assert lib.lt_host_fp_muls() == n * KV.FP_MULS_PER_LANE[name]
+
+
+@pytest.mark.parametrize("ingest", [False, True])
+def test_subgroup_host_build_equals_plain(libs, ingest):
+    """Points of G2, outside points and one flagged infinity, in Montgomery
+    form (the wire per-set path's) or as plain limbs beside the message
+    (the decoded path's, converted in the kernel): the flags are the plain
+    version's, and the products per lane the pinned count, less the
+    ingest's where there is none."""
     outside = []
     for j in range(2):
         u = GH.hash_to_field_fp2(b"host-%d" % j, 1, b"csrc-host")[0]
@@ -85,11 +128,24 @@ def test_subgroup_host_build_equals_plain(libs):
     pts = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(2)] + outside
     q = g2_planes(pts)
     q_inf = torch.tensor([[0, 0, 0, 1]], dtype=torch.int32)  # an outside point flagged infinity
-    out = i32(1, 4)
-    assert libs["subgroup"].lt_g2_subgroup_check(q.data_ptr(), q_inf.data_ptr(), out.data_ptr(), 4, None) == 0
+    out, conv = i32(1, 4), i32(2, 2, 2, LY.NL, 4)
+    libs["subgroup"].lt_host_fp_muls()
+    if ingest:
+        plain = plain_g2_planes([v for p in pts for c in p for v in c], 4)
+        msg = plain_g2_planes([int.from_bytes(RNG.bytes(48), "little") for _ in range(16)], 4)
+        assert libs["subgroup"].lt_g2_subgroup_check(plain.data_ptr(), q_inf.data_ptr(), msg.data_ptr(),
+                                                     out.data_ptr(), conv.data_ptr(), 4, None) == 0
+        want = KV.g2_subgroup_check_plain(plain, q_inf, msg)
+        assert torch.equal(conv[0], q) and torch.equal(conv[0], want[1]) and torch.equal(conv[1], want[2])
+        want = want[0]
+    else:
+        assert libs["subgroup"].lt_g2_subgroup_check(q.data_ptr(), q_inf.data_ptr(), None, out.data_ptr(), None, 4,
+                                                     None) == 0
+        want = KV.g2_subgroup_check_plain(q, q_inf)
     assert out.tolist() == [[1, 1, 0, 1]]
-    assert torch.equal(out, KV.g2_subgroup_check_plain(q, q_inf))
-    assert libs["subgroup"].lt_host_fp_muls() == 4 * KV.FP_MULS_PER_LANE["g2_subgroup_check"]
+    assert torch.equal(out, want)
+    skipped = 0 if ingest else KV.INGEST_MULS
+    assert libs["subgroup"].lt_host_fp_muls() == 4 * (KV.FP_MULS_PER_LANE["g2_subgroup_check"] - skipped)
 
 
 def test_miller_and_each_final_host_build_equal_plain(libs):
@@ -160,9 +216,9 @@ def test_randmul_host_build_equals_plain(libs):
     q = g2_planes([GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(3)]
                   + [GH.map_to_curve_svdw(GC.FP2_OPS, u)])
     out, out_inf, sub = i32(3, 2, LY.NL, 4), i32(1, 4), i32(1, 4)
-    assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
-                              sub.data_ptr(), 4, None) == 0
-    assert lib.lt_host_fp_muls() == 4 * KV.FP_MULS_PER_LANE["g2_rsig_sub"]
+    assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), None, rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+                              sub.data_ptr(), None, 4, None) == 0
+    assert lib.lt_host_fp_muls() == 4 * (KV.FP_MULS_PER_LANE["g2_rsig_sub"] - KV.INGEST_MULS)  # Montgomery q
     want = KV.g2_rsig_sub_plain(q, inf, rw)
     assert all(torch.equal(a, b) for a, b in zip((out, out_inf, sub), want))
     assert sub.tolist() == [[1, 1, 1, 0]]
@@ -252,8 +308,9 @@ def test_ingest_host_build_counts_and_equals_plain(libs):
     x = torch.from_numpy(np.stack([LY.encode_plain_batch([v[k] for v in xs]) for k in range(2)])).contiguous()
     flags = torch.tensor([[GT.fp2_sgn(pt[1]), 0, 1], [0, 1, 0]], dtype=torch.int32)
     xy, ok = i32(2, 2, LY.NL, 3), i32(1, 3)
-    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), xy.data_ptr(), ok.data_ptr(), 3, None) == 0
-    assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["g2_decompress"]
+    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), None, xy.data_ptr(), None, ok.data_ptr(), 3,
+                                None) == 0
+    assert lib.lt_host_fp_muls() == 3 * KV.FP_MULS_PER_LANE["g2_decompress"]  # the message's 4 on zeros
     want = KV.g2_decompress_plain(x, flags)
     assert torch.equal(xy, want[0]) and torch.equal(ok, want[1])
     assert ok.tolist() == [[1, 1, 0]] and torch.equal(xy[..., :1], g2_planes([pt]))

@@ -59,13 +59,48 @@ def points(dev):
     return p, q
 
 
-def test_mont_convert_on_card(dev):
-    vals = [int.from_bytes(RNG.bytes(48), "little") for _ in range(2 * N)]
-    x = planes(LY.encode_plain_batch(vals).reshape(LY.NL, 2, N).transpose(1, 0, 2), dev)
-    before = KV.LAUNCHES["mont_convert"]
-    out = KV.mont_convert(x)
-    assert KV.LAUNCHES["mont_convert"] == before + 1
-    assert torch.equal(out, KV.mont_convert_plain(x))
+def _plain_g2(vals, dev):
+    """Plain limb planes [2, 2, 12, n] of 4 n integers below 2^384."""
+    n = len(vals) // 4
+    return planes(LY.encode_plain_batch(vals).reshape(LY.NL, n, 2, 2).transpose(2, 3, 0, 1), dev)
+
+
+def _to_plain(m):
+    """Montgomery planes [..., 12, n] on the card -> plain limb planes of
+    the same values."""
+    flat = m.reshape(-1, LY.NL, m.shape[-1]).cpu().numpy()
+    return planes(np.stack([LY.encode_plain_batch(LY.decode_batch(f)) for f in flat]).reshape(m.shape), m.device)
+
+
+def _edge_vals(k):
+    vals = [GT.P, GT.P + 1, 9 * GT.P, (1 << 384) - 1, GT.P - 1, 0, 1, 2 * GT.P]
+    return (vals + [int.from_bytes(RNG.bytes(48), "little") for _ in range(k)])[:k]
+
+
+@pytest.mark.parametrize("name", ["g2_subgroup_check", "g2_rsig_sub", "g2_decompress"])
+def test_mont_ingest_on_card(dev, name):
+    """The Montgomery ingest in the kernel that heads each path (once
+    _k_mont8 / _k_mont4's launch of its own): one launch of the heading
+    kernel, whose Montgomery planes equal mont_convert_plain's on values in
+    [p, 2^384) and below p, and every output its plain version's."""
+    pts = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(N)]
+    q = planes(np.stack([np.stack([LY.encode_batch([p[c][k] for p in pts]) for k in range(2)]) for c in range(2)]), dev)
+    sig = _plain_g2([v + GT.P * (j % 3) for j, p in enumerate(pts) for c in p for v in c], dev)  # + 0, p, 2p
+    msg = _plain_g2(_edge_vals(4 * N), dev)
+    inf = torch.zeros((1, N), dtype=torch.int32, device=dev)
+    if name == "g2_subgroup_check":
+        out = _equal(KV.g2_subgroup_check, KV.g2_subgroup_check_plain, sig, inf, msg)
+        assert torch.equal(out[1], q) and out[0].all()
+    elif name == "g2_rsig_sub":
+        rw = planes(make_rand_words(N, RNG), dev)
+        out = _equal(KV.g2_rsig_sub, KV.g2_rsig_sub_plain, sig, inf, rw, msg)
+        assert out[2].all()
+    else:
+        x = torch.zeros((2, LY.NL, N), dtype=torch.int32, device=dev)
+        flags = torch.zeros((2, N), dtype=torch.int32, device=dev)
+        flags[1] = 1
+        out = _equal(KV.g2_decompress, KV.g2_decompress_plain, x, flags, msg)
+    assert torch.equal(out[-1], KV.mont_convert_plain(msg))
 
 
 def test_subgroup_miller_final_on_card(dev, points):
@@ -206,7 +241,7 @@ def test_verifier_on_card(dev):
     assert v.device.type == "cuda"
     KV.reset_launches()
     assert v.verify_signature_sets_individually(sets) == [True, False, False, True]
-    assert min(KV.LAUNCHES[k] for k in ("mont_convert", "g2_subgroup_check", "miller_loop", "each_final")) > 0
+    assert {k: v for k, v in KV.LAUNCHES.items() if v} == {"g2_subgroup_check": 1, "miller_loop": 2, "each_final": 1}
     assert v._device_canary()
     # the RLC batch: valid sets in one multi-pairing; a bad set fails the
     # batch and the per-set retry names it
@@ -219,11 +254,21 @@ def test_verifier_on_card(dev):
     assert job.verdicts.tolist() == [True, False, True] and job.batch_retries == 1
 
 
-def test_mont_convert_four_planes_on_card(dev):
-    """The wire path's message planes: 4 planes of plain limbs (_k_mont4)."""
-    vals = [int.from_bytes(RNG.bytes(48), "little") for _ in range(4 * N)]
-    x = planes(LY.encode_plain_batch(vals).reshape(LY.NL, 4, N).transpose(1, 0, 2), dev)
-    _equal(KV.mont_convert, KV.mont_convert_plain, x, counter="mont_convert_4")
+def test_mont_ingest_four_planes_on_card(dev):
+    """The wire path's message planes, 4 planes of plain limbs (_k_mont4),
+    converted by g2_decompress beside the wire x: its other outputs equal
+    those of a launch without messages."""
+    from lodestar_tpu_torch.bls.ingest import parse_signature_bytes
+
+    pts = [GC.scalar_mul(GC.FP2_OPS, GC.G2_GEN, scalar()) for _ in range(N)]
+    parsed = [parse_signature_bytes(GC.g2_compress(p)) for p in pts]
+    x = planes(np.stack([LY.encode_plain_batch([p[i] for p in parsed]) for i in range(2)]), dev)
+    flags = planes(np.array([[p[2] for p in parsed], [p[3] for p in parsed]], np.int32), dev)
+    msg = _plain_g2(_edge_vals(4 * N), dev)
+    xy, ok, msg_m = _equal(KV.g2_decompress, KV.g2_decompress_plain, x, flags, msg)
+    xy0, ok0 = KV.g2_decompress(x, flags)
+    assert torch.equal(xy, xy0) and torch.equal(ok, ok0) and ok.all()
+    assert torch.equal(msg_m, KV.mont_convert_plain(msg))
 
 
 def test_g2_decompress_on_card(dev):
@@ -432,12 +477,20 @@ def test_g2_subgroup_check_on_card(dev, points, n):
         elif j % 5 == 2:
             qn[..., j] = gen[..., 0]
     inf = (torch.arange(n, device=dev) % 5 == 3).to(torch.int32)[None].contiguous()
+    prog = W.sub_program()
+    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    # on Montgomery points (the wire per-set path: no ingest), then on the
+    # decoded path's plain limbs beside a message (the ingest converts both)
     (sub,) = _equal(KV.g2_subgroup_check, KV.g2_subgroup_check_plain, qn, inf)
     assert sub[0].tolist() == [int(j % 5 != 4) for j in range(n)]
-    prog = W.sub_program()
     shape = (ctypes.c_int * 8)()
     assert B.load("subgroup").lt_warp_last_launch(b"g2_subgroup_check", shape) == 0
-    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    skip = (prog.io["INGEST_PHASES"], prog.io["INGEST_ROUNDS"])
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases - skip[0], prog.rounds - skip[1]]
+    msg = _plain_g2(_edge_vals(4 * n), dev)
+    sub2, q_m, _ = _equal(KV.g2_subgroup_check, KV.g2_subgroup_check_plain, _to_plain(qn), inf, msg)
+    assert torch.equal(sub2, sub) and torch.equal(q_m, qn)
+    assert B.load("subgroup").lt_warp_last_launch(b"g2_subgroup_check", shape) == 0
     assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
     assert prog.rounds == KV.ROUNDS_PER_LANE["g2_subgroup_check"]
 
@@ -544,13 +597,21 @@ def test_g2_rsig_sub_lane_counts_on_card(dev, points, n):
     w = np.array([[(k >> (32 * (3 - i))) & 0xFFFFFFFF for k in ks] for i in range(4)], np.uint32)
     rw = planes(w.view(np.int32), dev)
     inf = (torch.arange(n, device=dev) % 5 == 3).to(torch.int32)[None].contiguous()
-    _, rinf, sub = _equal(KV.g2_rsig_sub, KV.g2_rsig_sub_plain, qn, inf, rw)
+    prog = W.rsig_program()
+    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    # on a Montgomery signature (the wire paths: no ingest), then on the
+    # decoded path's plain limbs beside a message (the ingest converts both)
+    rsig, rinf, sub = _equal(KV.g2_rsig_sub, KV.g2_rsig_sub_plain, qn, inf, rw)
     assert sub[0].tolist() == [int(j % 5 != 4) for j in range(n)]
     assert rinf[0].tolist() == [int(j % 5 in (1, 3)) for j in range(n)]
-    prog = W.rsig_program()
     shape = (ctypes.c_int * 8)()
     assert B.load("randmul").lt_warp_last_launch(b"g2_rsig_sub", shape) == 0
-    smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
+    skip = (prog.io["INGEST_PHASES"], prog.io["INGEST_ROUNDS"])
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases - skip[0], prog.rounds - skip[1]]
+    msg = _plain_g2(_edge_vals(4 * n), dev)
+    out2 = _equal(KV.g2_rsig_sub, KV.g2_rsig_sub_plain, _to_plain(qn), inf, rw, msg)
+    assert all(torch.equal(a, b) for a, b in zip(out2, (rsig, rinf, sub, KV.mont_convert_plain(msg))))
+    assert B.load("randmul").lt_warp_last_launch(b"g2_rsig_sub", shape) == 0
     assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
     assert prog.rounds == KV.ROUNDS_PER_LANE["g2_rsig_sub"]
 
@@ -625,6 +686,9 @@ def test_g2_decompress_lane_counts_on_card(dev, n):
     flags = planes(np.array([[c[1] for c in pick], [c[2] for c in pick]], np.int32), dev)
     xy, ok = _equal(KV.g2_decompress, KV.g2_decompress_plain, x, flags)
     assert ok[0].tolist() == [int(j % 7 != 3) for j in range(n)]
+    msg = _plain_g2(_edge_vals(4 * n), dev)  # with the wire paths' messages: the same rounds
+    out2 = _equal(KV.g2_decompress, KV.g2_decompress_plain, x, flags, msg)
+    assert torch.equal(out2[0], xy) and torch.equal(out2[1], ok)
     prog = W.decompress_program()
     shape = (ctypes.c_int * 8)()
     assert B.load("ingest").lt_warp_last_launch(b"g2_decompress", shape) == 0

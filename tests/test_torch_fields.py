@@ -217,15 +217,22 @@ def test_fp_op_matches_jax_and_oracle(op):
 
 def test_mont_convert_admits_any_384_bit_value():
     """The one non-canonical input the port takes: plain limbs of any
-    integer below 2^384 (kernel K1 and its plain version)."""
+    integer below 2^384, the Montgomery ingest that the paths' heading
+    kernels make (their message operand; on CPU tensors their plain
+    versions, through `mont_convert_plain`), equal to JAX's conversion."""
     vals = [0, 1, P - 1, P, P + 1, 2 * P, 9 * P, (1 << 384) - 1] + [
         int.from_bytes(RNG.bytes(48), "little") for _ in range(8)
     ]
     planes = torch.from_numpy(LY.encode_plain_batch(vals))
-    out = KV.mont_convert(planes)
-    assert KV.LAUNCHES["mont_convert"] == 0  # CPU tensors take the plain version
+    out = KV.mont_convert_plain(planes)
     assert LY.decode_batch(out.numpy()) == [v % P for v in vals]
     assert is_canonical(LY.planes_to_digits(out))
+    msg = planes.reshape(LY.NL, 2, 2, 4).permute(1, 2, 0, 3).contiguous()  # [2, 2, 12, 4]
+    x, flags = torch.zeros((2, LY.NL, 4), dtype=torch.int32), torch.tensor([[0] * 4, [1] * 4], dtype=torch.int32)
+    KV.reset_launches()
+    _, _, msg_out = KV.g2_decompress(x, flags, msg)
+    assert KV.LAUNCHES["g2_decompress"] == 0  # CPU tensors take the plain version
+    assert torch.equal(msg_out.permute(2, 0, 1, 3).reshape(LY.NL, 16), out)
     jax_plain = jnp.asarray(JL.encode_plain_batch(vals))
     r2_limbs = [int(v) for v in JL.MONT_R2]
     assert jd1(JC.redc(JC.mul_cols_shared(jax_plain, r2_limbs, JL.NC))) == [v % P for v in vals]

@@ -186,8 +186,8 @@ def test_g2_decompress_plain_and_host_equal_oracle(libs):
         elif w != "inf":
             assert g == w == GC.g2_decompress(s)
     hxy, hok = i32(2, 2, LY.NL, n), i32(1, n)
-    assert libs["ingest"].lt_g2_decompress(x.data_ptr(), flags.data_ptr(), hxy.data_ptr(), hok.data_ptr(), n,
-                                           None) == 0
+    assert libs["ingest"].lt_g2_decompress(x.data_ptr(), flags.data_ptr(), None, hxy.data_ptr(), None,
+                                           hok.data_ptr(), n, None) == 0
     assert torch.equal(hxy, xy) and torch.equal(hok, ok)
 
 
@@ -451,7 +451,7 @@ def test_fp2_sqrt_and_decompress_equal_jax_values():
     assert ok.tolist() == np.asarray(jok).tolist()
     assert fp2_ints(LY.digits_to_planes(root)) == _jints(jroot)
     x, flags, want, _ = _wire_x_cases()
-    xs = fp2_ints(KV.mont_convert(x))
+    xs = fp2_ints(KV.mont_convert_plain(x))
     y, ok = IG.g2_decompress_y(digits(fp2_planes(xs)), flags[0] != 0)
     jy, jok = jax.jit(JIG.g2_decompress_y)(_jfp2(xs), jnp.asarray(flags[0].numpy()))
     assert ok.tolist() == np.asarray(jok).tolist()
@@ -478,7 +478,7 @@ def test_hash_to_g2_map_equals_jax_values(hashed):
         return [to_affine(*v) for v in zip(*(fp2_ints(LY.digits_to_planes(c)) for c in p))]
 
     u, sgn, _, _ = hashed["call"]
-    us = [fp2_ints(KV.mont_convert(u[i])) for i in range(2)]
+    us = [fp2_ints(KV.mont_convert_plain(u[i])) for i in range(2)]
     sswu, iso = jax.jit(JIG.sswu_map_g2), jax.jit(JIG.iso3_map)
     pts, jpts = [], []
     for i in range(2):

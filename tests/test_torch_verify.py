@@ -119,16 +119,28 @@ def test_register_validates_and_bulk_load_tiles(world):
 
 
 def test_wrappers_check_operands_and_take_plain_version_on_cpu():
-    x = torch.from_numpy(LY.encode_plain_batch([1, 2, LY.P + 5]))
+    """The heading kernels' message operand (the Montgomery ingest that had
+    a wrapper of its own): plain limbs of any integer below 2^384 come back
+    canonical Montgomery through the plain version on CPU tensors, with no
+    launch counted; its dtype, layout and device are checked."""
+    msg = torch.from_numpy(LY.encode_plain_batch([1, 2, LY.P + 5, (1 << 384) - 1])).reshape(LY.NL, 2, 2, 1)
+    msg = msg.permute(1, 2, 0, 3).contiguous()
+    q = torch.zeros((2, 2, LY.NL, 1), dtype=torch.int32)
+    inf = torch.zeros((1, 1), dtype=torch.int32)
     KV.reset_launches()
-    assert LY.decode_batch(KV.mont_convert(x).numpy()) == [1, 2, 5]
+    _, q_m, msg_m = KV.g2_subgroup_check(q, inf, msg)
+    assert LY.decode_batch(msg_m.reshape(4, LY.NL).t().contiguous().numpy()) == [1, 2, 5, ((1 << 384) - 1) % LY.P]
+    assert not q_m.any()
     assert KV.LAUNCHES == {k: 0 for k in KV.LAUNCHES}
     with pytest.raises(TypeError):
-        KV.mont_convert(x.to(torch.int64))
+        KV.g2_subgroup_check(q, inf, msg.to(torch.int64))
     with pytest.raises(ValueError, match="contiguous"):
-        KV.mont_convert(torch.zeros((LY.NL, 6), dtype=torch.int32)[:, ::2])
+        KV.g2_subgroup_check(q, inf, torch.zeros((2, 2, LY.NL, 2), dtype=torch.int32)[..., ::2])
     with pytest.raises(ValueError, match="device"):
-        KV.mont_convert(torch.zeros((LY.NL, 2), dtype=torch.int32, device="meta"))
+        KV.g2_subgroup_check(q, inf, torch.zeros((2, 2, LY.NL, 1), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="msg"):
+        KV.g2_decompress(torch.zeros((2, LY.NL, 1), dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32),
+                         torch.zeros((4, LY.NL, 1), dtype=torch.int32))
     q = torch.zeros((2, 2, LY.NL, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="shape"):
         KV.g2_subgroup_check(q, torch.zeros((1, 3), dtype=torch.int32))

@@ -14,7 +14,11 @@ eagerly.  The square-root segments are also fed field values directly
 (0, squares, non-squares, a1 = 0), the chains and the inverse they give
 are held against `pow`, and the round and product counts are pinned to
 `verify.ROUNDS_PER_LANE` and `FP_MULS_PER_LANE`, the launch's shape to
-the program's.
+the program's.  Segment A also converts the wire paths' message planes
+(plain limbs of any integers below 2^384, the work of a launch of its own
+before): with and without messages, the kernel's other outputs are the
+same, its Montgomery message planes `mont_convert_plain`'s, and its rounds
+the same 899.
 """
 
 import ctypes
@@ -161,12 +165,16 @@ def sqrt_segments(prog, st, reverse=False):
     return st, [st[io["Y"] + k] for k in range(2)], on_curve
 
 
-def drive(prog, x_plain, sign, inf, reverse=False):
+def drive(prog, x_plain, sign, inf, reverse=False, msg_plain=(0, 0, 0, 0), msg_out=None):
     """The whole program through the segment loop's steps: -> (x and y as four
-    Montgomery integers, ok)."""
+    Montgomery integers, ok); the message's four Montgomery integers, read
+    after segment A as the kernel stores them, appended to msg_out."""
     io = prog.io
     st = W.simulate(prog.segs, [prog.order[0]], prog.nslots, prog.consts,
-                    {io["XIN"] + k: v for k, v in enumerate(x_plain)}, reverse)
+                    {**{io["XIN"] + k: v for k, v in enumerate(x_plain)},
+                     **{io["MSGIN"] + k: v for k, v in enumerate(msg_plain)}}, reverse)
+    if msg_out is not None:
+        msg_out.append([st[io["MSG"] + k] for k in range(4)])
     st, _, on_curve = sqrt_segments(prog, st, reverse)
     raw = [st[io["RAW"] + k] for k in range(2)]
     if GT.fp2_sgn((raw[0], raw[1])) != sign:
@@ -174,18 +182,30 @@ def drive(prog, x_plain, sign, inf, reverse=False):
     return [st[io["X"] + k] for k in range(4)], on_curve or bool(inf)
 
 
+def messages(n):
+    """Plain message planes [2, 2, 12, n] of values in [p, 2^384) and below
+    p, lane 1 all zero (padding)."""
+    vals = [P, 2 * P + 3, (1 << 384) - 1, P - 1] + [int.from_bytes(RNG.bytes(48), "little") for _ in range(4 * n - 4)]
+    vals[4:8] = [0] * 4
+    return torch.from_numpy(LY.encode_plain_batch(vals[:4 * n])).reshape(LY.NL, n, 2, 2).permute(2, 3, 0, 1).contiguous()
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_program_simulation_equals_plain(prog, plain, reverse):
     """The program on Python integers, thread by thread in either order,
     through the segment loop's selects, equals the plain version lane by lane;
-    the cases take every branch they name."""
+    the cases take every branch they name; the message planes segment A
+    converts are mont_convert_plain's."""
     pick, _, _ = cases(N_MAX)
     xy, ok = plain
     want = mont_ints(xy)
+    msg = messages(N_MAX)
+    got_msg = []
     for j, (x, sign, inf, kind) in enumerate(pick):
-        got, good = drive(prog, x, sign, inf, reverse)
+        got, good = drive(prog, x, sign, inf, reverse, mont_ints(msg)[j], got_msg)
         assert got == want[j], (j, kind)
         assert int(good) == ok[0, j].item(), (j, kind)
+    assert got_msg == mont_ints(KV.mont_convert_plain(msg))
     assert [int(v) for v in ok[0, :7]] == [1, 1, 0, 1, 1, 1, 1]
     ys = [tuple(LY.decode_batch(xy[1, k, :7].numpy())) for k in range(2)]
     assert ys[1][4] == 0 and ys[0][5] == 0  # the real and the imaginary root
@@ -201,18 +221,29 @@ def assert_last_launch(lib, prog, n):
     assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
 
 
+@pytest.mark.parametrize("with_msg", [False, True])
 @pytest.mark.parametrize("order", ORDERS)
 @pytest.mark.parametrize("n", [1, 4, N_MAX])
-def test_host_build_equals_plain(lib, prog, plain, n, order):
+def test_host_build_equals_plain(lib, prog, plain, n, order, with_msg):
     """The host build, its warps' threads forwards or reversed, at 1, 4 and
     9 lanes (9: the third block's lanes 1..3 idle) equals the plain version
-    bit for bit; its points are crypto/curves.py's decompression."""
+    bit for bit, with the wire paths' messages or without (the pre-verify
+    aggregation's); its points are crypto/curves.py's decompression, its
+    Montgomery message planes mont_convert_plain's, and its rounds and
+    products the same either way."""
     pick, x, flags = cases(n)
     xy, ok = torch.empty((2, 2, LY.NL, n), dtype=torch.int32), torch.empty((1, n), dtype=torch.int32)
+    msg = messages(n) if with_msg else None
+    msg_out = torch.full((2, 2, LY.NL, n), -1, dtype=torch.int32) if with_msg else None
     lib.lt_host_rounds(), lib.lt_host_fp_muls()  # the counters are the library's: drain another test's
     lib.lt_host_warp_order(order)
-    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), xy.data_ptr(), ok.data_ptr(), n, None) == 0
+    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), None if msg is None else msg.data_ptr(),
+                                xy.data_ptr(), None if msg_out is None else msg_out.data_ptr(), ok.data_ptr(), n,
+                                None) == 0
     lib.lt_host_warp_order(0)
+    if with_msg:
+        assert torch.equal(msg_out, KV.g2_decompress_plain(x, flags, msg)[2])
+        assert torch.equal(msg_out, KV.mont_convert_plain(msg))
     assert lib.lt_host_rounds() == n * KV.ROUNDS_PER_LANE["g2_decompress"]
     assert lib.lt_host_fp_muls() == n * KV.FP_MULS_PER_LANE["g2_decompress"]
     assert_last_launch(lib, prog, n)
@@ -250,7 +281,8 @@ def test_host_build_equals_jax_value_function(lib, jax_eager_pow):
     x = torch.from_numpy(np.stack([LY.encode_plain_batch([c[0][k] for c in lanes]) for k in range(2)])).contiguous()
     flags = torch.tensor([[c[1] for c in lanes], [0] * 3], dtype=torch.int32)
     xy, ok = torch.empty((2, 2, LY.NL, 3), dtype=torch.int32), torch.empty((1, 3), dtype=torch.int32)
-    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), xy.data_ptr(), ok.data_ptr(), 3, None) == 0
+    assert lib.lt_g2_decompress(x.data_ptr(), flags.data_ptr(), None, xy.data_ptr(), None, ok.data_ptr(), 3,
+                                None) == 0
     lib.lt_host_rounds(), lib.lt_host_fp_muls()
     jx = tuple(jnp.asarray(JL.encode_batch([c[0][k] for c in lanes])) for k in range(2))
     jy, jok = JIG.g2_decompress_y(jx, jnp.asarray([bool(c[1]) for c in lanes]))
@@ -353,7 +385,11 @@ def test_decompress_counts_are_the_program(prog):
     """ROUNDS_PER_LANE and FP_MULS_PER_LANE of g2_decompress are the
     generated program's (four segments, in order), the bound counts the
     same products, every segment passes check_hazards, and the generated
-    header gives the segment loop each segment's first phase."""
+    header gives the segment loop each segment's first phase.  Segment A's
+    first round holds the wire x's two products by R^2 and the message's
+    four, R^2 the first operand of each; the message's registers lie on
+    slots that segment A does not otherwise touch, so the program keeps the
+    slot count of the decompression alone."""
     assert (prog.rounds, prog.fp_muls) == (KV.ROUNDS_PER_LANE["g2_decompress"],
                                            KV.FP_MULS_PER_LANE["g2_decompress"])
     assert KV.FP_MULS_NEEDED["g2_decompress"] == prog.fp_muls
@@ -367,3 +403,12 @@ def test_decompress_counts_are_the_program(prog):
     assert prog.nslots + len(prog.consts) < W.MAX_SLOTS
     io = prog.io
     assert (io["Y"], io["Y1"]) == (io["X"] + 2, io["X"] + 3)  # x and y stored as one run of four slots
+    seg_a = prog.segs[prog.order[0]]
+    r2 = W.CONST + prog.consts.index(W.R * W.R % P)
+    first = [op for q in seg_a.phases[0] for op in q]
+    assert sorted(op[2] for op in first) == [r2] * (2 + 4) and all(op[0] == W.MUL for op in first)  # x's, msg's
+    assert not any(op[2] == r2 or op[3] == r2 for ph in seg_a.phases[1:] for q in ph for op in q)
+    msg_slots = set(range(io["MSGIN"], io["MSGIN"] + 4)) | set(range(io["MSG"], io["MSG"] + 4))
+    written = {op[1] for ph in seg_a.phases for q in ph for op in q}
+    assert written & msg_slots == set(range(io["MSG"], io["MSG"] + 4))
+    assert prog.nslots == 61

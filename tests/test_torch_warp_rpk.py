@@ -214,12 +214,14 @@ def test_launch_records_name_their_kernel(lib):
     out, out_inf = torch.empty((3, LY.NL, 3), dtype=torch.int32), torch.empty_like(inf)
     assert lib.lt_g1_rpk(p.data_ptr(), inf.data_ptr(), rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(), 3, None) == 0
     g = GC.G2_GEN
-    q = torch.from_numpy(np.stack([np.stack([LY.encode_batch([g[c][k]] * 2) for k in range(2)]) for c in range(2)]))
-    q = q.contiguous()
+    q = torch.from_numpy(np.stack([np.stack([LY.encode_plain_batch([g[c][k]] * 2) for k in range(2)])
+                                   for c in range(2)]))
+    q, msg = q.contiguous(), torch.zeros_like(q)  # the decoded path's plain operands: the full program
     q_inf, qrw = torch.zeros((1, 2), dtype=torch.int32), rw[:, :2].contiguous()
     qout, qout_inf, sub = torch.empty((3, 2, LY.NL, 2), dtype=torch.int32), torch.empty_like(q_inf), torch.empty_like(q_inf)
-    assert lib.lt_g2_rsig_sub(q.data_ptr(), q_inf.data_ptr(), qrw.data_ptr(), qout.data_ptr(), qout_inf.data_ptr(),
-                              sub.data_ptr(), 2, None) == 0
+    msg_out = torch.empty_like(msg)
+    assert lib.lt_g2_rsig_sub(q.data_ptr(), q_inf.data_ptr(), msg.data_ptr(), qrw.data_ptr(), qout.data_ptr(),
+                              qout_inf.data_ptr(), sub.data_ptr(), msg_out.data_ptr(), 2, None) == 0
     lib.lt_host_rounds(), lib.lt_host_fp_muls()
     assert_last_launch(lib, b"g1_rpk", W.rpk_program(), 3)
     assert_last_launch(lib, b"g2_rsig_sub", W.rsig_program(), 2)

@@ -13,7 +13,11 @@ the plain version `kernels/verify.py g2_rsig_sub_plain` and, at two lanes,
 against the JAX package's value functions themselves.  The round and
 product counts are pinned to `verify.ROUNDS_PER_LANE` and
 `FP_MULS_PER_LANE`, and each launch's shape, as the library reports it
-(`lt_warp_last_launch`), to the program's.
+(`lt_warp_last_launch`), to the program's.  The program's first segment
+is the decoded batch path's Montgomery ingest (the plain signature and
+message converted in one round, the Montgomery message stored); a launch
+on a Montgomery signature (the wire paths') skips it.  Both kinds of
+launch are held here.
 """
 
 import ctypes
@@ -107,6 +111,19 @@ def cases(n):
     return pick, q, inf, rw
 
 
+def plain_operands(pick):
+    """The decoded path's plain operands of `cases`' points: coordinates
+    plus (j % 6) p at lane j (below 2^384: the same field elements) and a
+    message of random 384-bit values -> (q [2, 2, 12, n], msg)."""
+    n = len(pick)
+
+    def planes(vals):
+        return torch.from_numpy(LY.encode_plain_batch(vals)).reshape(LY.NL, n, 2, 2).permute(2, 3, 0, 1).contiguous()
+
+    q = planes([v + (j % 6) * P for j, c in enumerate(pick) for pt in c[0] for v in pt])
+    return q, planes([int.from_bytes(RNG.bytes(48), "little") for _ in range(4 * n)])
+
+
 @pytest.fixture(scope="module")
 def plain():
     """The plain version's outputs of `cases(n)` (seconds per call)."""
@@ -117,12 +134,13 @@ def plain():
     return out
 
 
-def drive(prog, q_ints, q_inf, k, reverse=False):
+def drive(prog, q_ints, q_inf, k, reverse=False, msg_ints=None, msg_out=None):
     """The program run on Python integers through csrc/randmul.cu
-    g2_rsig_sub_warp's steps: the table segment, then per window the
-    digit's entry copied to ADD, the window's segment, and DBL (digit 0)
-    or ADD (accumulator still infinity) kept in place of the sum.
-    -> (T's six Fp values, t_inf, sub)."""
+    g2_rsig_sub_warp's steps: with msg_ints (q_ints plain) the ingest
+    segment, its Montgomery message appended to msg_out; the table
+    segment, then per window the digit's entry copied to ADD, the window's
+    segment, and DBL (digit 0) or ADD (accumulator still infinity) kept in
+    place of the sum.  -> (T's six Fp values, t_inf, sub)."""
     io = prog.io
     state = {io["Q"] + i: v for i, v in enumerate(q_ints)}
 
@@ -134,12 +152,17 @@ def drive(prog, q_ints, q_inf, k, reverse=False):
         for i in range(6):
             state[dst + i] = state[src + i]
 
-    segment(0)
+    if msg_ints is not None:
+        state = {**{io["QIN"] + i: v for i, v in enumerate(q_ints)},
+                 **{io["MSGIN"] + i: v for i, v in enumerate(msg_ints)}}
+        segment(0)
+        msg_out.append([state[io["MSG"] + i] for i in range(4)])
+    segment(1)
     t_inf = True
     for t in range(W.WINDOWS):
         d = (k >> (W.RAND_BITS - W.WINDOW * (t + 1))) & 15
         copy(io["ADD"], io["TBL"] + 6 * max(d - 1, 0))
-        segment(1 + t)
+        segment(2 + t)
         nxt = io["T0"] if t % 2 else io["T1"]
         if d == 0:
             copy(nxt, io["DBL"])
@@ -158,45 +181,67 @@ def mont_ints(planes):
     return [[c[j] for c in cols] for j in range(planes.shape[-1])]
 
 
+@pytest.mark.parametrize("ingest", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_program_simulation_equals_plain(prog, plain, reverse):
+def test_program_simulation_equals_plain(prog, plain, reverse, ingest):
     """The program on Python integers, thread by thread in either order,
-    through the window loop's steps, equals the plain version lane by lane."""
+    through the window loop's steps, equals the plain version lane by
+    lane, from Montgomery points or through the ingest from plain limbs
+    (its message then mont_convert_plain's)."""
     pick, q, inf, rw = cases(5)
     out, out_inf, sub = plain[5]
     want = mont_ints(out)
-    for j, (q_ints, c) in enumerate(zip(mont_ints(q), pick)):
-        got, t_inf, ok = drive(prog, q_ints, bool(c[2]), c[1], reverse)
+    qp, msg = plain_operands(pick)
+    msgs = mont_ints(msg)
+    got_msg = []
+    for j, (q_ints, c) in enumerate(zip(mont_ints(qp if ingest else q), pick)):
+        got, t_inf, ok = drive(prog, q_ints, bool(c[2]), c[1], reverse, msgs[j] if ingest else None, got_msg)
         assert got == want[j], j
         assert (int(t_inf), int(ok)) == (out_inf[0, j].item(), sub[0, j].item()), j
     assert sub.tolist() == [[1, 1, 1, 1, 0]] and out_inf.tolist() == [[0, 1, 0, 1, 0]]
+    assert got_msg == (mont_ints(KV.mont_convert_plain(msg)) if ingest else [])
 
 
-def assert_last_launch(lib, prog, n):
+def assert_last_launch(lib, prog, n, ingest=True):
     """The last launch of the library's g2_rsig_sub: n lanes, 4 per block
-    of 128 threads, the program's slots, constants, phases and rounds."""
+    of 128 threads, the program's slots, constants, phases and rounds
+    (less the ingest's on a Montgomery signature)."""
     shape = (ctypes.c_int * 8)()
     assert lib.lt_warp_last_launch(b"g2_rsig_sub", shape) == 0
     smem = LY.NL * 4 * (4 * prog.nslots + len(prog.consts))
-    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases, prog.rounds]
+    skip = (0, 0) if ingest else (prog.io["INGEST_PHASES"], prog.io["INGEST_ROUNDS"])
+    assert list(shape) == [n, (n + 3) // 4, 128, 4, smem, prog.nslots, prog.phases - skip[0], prog.rounds - skip[1]]
 
 
+@pytest.mark.parametrize("ingest", [False, True])
 @pytest.mark.parametrize("order", ORDERS)
 @pytest.mark.parametrize("n", [1, 4, 5])
-def test_host_build_equals_plain(lib, prog, plain, n, order):
+def test_host_build_equals_plain(lib, prog, plain, n, order, ingest):
     """The host build, its warps' threads forwards or reversed, at 1, 4
     and 5 lanes (5: the second block's lanes 1..3 idle) equals the plain
-    version bit for bit; its finite outputs are the oracle's r Q."""
+    version bit for bit, on Montgomery signatures or on plain limbs beside
+    a message (its Montgomery message then mont_convert_plain's); its
+    finite outputs are the oracle's r Q; it runs the program's rounds and
+    products, less the ingest's on Montgomery signatures."""
     pick, q, inf, rw = cases(n)
     out, out_inf, sub = torch.empty((3, 2, LY.NL, n), dtype=torch.int32), torch.empty_like(inf), torch.empty_like(inf)
+    qp, msg = plain_operands(pick)
+    msg_out = torch.full_like(msg, -1)
     lib.lt_host_rounds(), lib.lt_host_fp_muls()  # the counters are the library's: drain another test's
     lib.lt_host_warp_order(order)
-    assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
-                              sub.data_ptr(), n, None) == 0
+    if ingest:
+        assert lib.lt_g2_rsig_sub(qp.data_ptr(), inf.data_ptr(), msg.data_ptr(), rw.data_ptr(), out.data_ptr(),
+                                  out_inf.data_ptr(), sub.data_ptr(), msg_out.data_ptr(), n, None) == 0
+        assert torch.equal(msg_out, KV.mont_convert_plain(msg))
+        assert torch.equal(msg_out, KV.g2_rsig_sub_plain(qp, inf, rw, msg)[3])
+    else:
+        assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), None, rw.data_ptr(), out.data_ptr(),
+                                  out_inf.data_ptr(), sub.data_ptr(), None, n, None) == 0
     lib.lt_host_warp_order(0)
-    assert lib.lt_host_rounds() == n * KV.ROUNDS_PER_LANE["g2_rsig_sub"]
-    assert lib.lt_host_fp_muls() == n * KV.FP_MULS_PER_LANE["g2_rsig_sub"]
-    assert_last_launch(lib, prog, n)
+    skip = (0, 0) if ingest else (KV.INGEST_ROUNDS, KV.INGEST_MULS)
+    assert lib.lt_host_rounds() == n * (KV.ROUNDS_PER_LANE["g2_rsig_sub"] - skip[0])
+    assert lib.lt_host_fp_muls() == n * (KV.FP_MULS_PER_LANE["g2_rsig_sub"] - skip[1])
+    assert_last_launch(lib, prog, n, ingest)
     assert all(torch.equal(a, b) for a, b in zip((out, out_inf, sub), plain[n]))
     coords = [[LY.decode_batch(out[c, k].numpy()) for k in range(2)] for c in range(3)]
     for j, (pt, k, _) in enumerate(pick):
@@ -240,8 +285,8 @@ def test_host_build_equals_jax_value_functions(lib, jax_eager_loops):
     q, rw = g2_planes(pts), words(ks)
     inf = torch.zeros((1, 2), dtype=torch.int32)
     out, out_inf, sub = torch.empty((3, 2, LY.NL, 2), dtype=torch.int32), torch.empty_like(inf), torch.empty_like(inf)
-    assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
-                              sub.data_ptr(), 2, None) == 0
+    assert lib.lt_g2_rsig_sub(q.data_ptr(), inf.data_ptr(), None, rw.data_ptr(), out.data_ptr(), out_inf.data_ptr(),
+                              sub.data_ptr(), None, 2, None) == 0
     lib.lt_host_rounds(), lib.lt_host_fp_muls()
     fo = jax_eager_loops
     qa = tuple(tuple(jnp.asarray(JL.encode_batch([p[c][k] for p in pts])) for k in range(2)) for c in range(2))
@@ -259,15 +304,26 @@ def test_host_build_equals_jax_value_functions(lib, jax_eager_loops):
 
 def test_rsig_counts_are_the_program():
     """ROUNDS_PER_LANE and FP_MULS_PER_LANE of g2_rsig_sub are the
-    generated program's, the program is the table then the 32 windows,
-    the subgroup chain's 63 steps two to a window, and the generated
-    header gives the window loop each segment's first phase."""
+    generated program's, the program is the ingest (one round of 8
+    products by R^2, R^2 the first operand of each), the table then the 32
+    windows, the subgroup chain's 63 steps two to a window, and the
+    generated header gives the window loop each segment's first phase and
+    the kernel the ingest's phases and rounds.  The ingest's registers lie
+    in the table's slots: the program keeps its 238 slots."""
     prog = W.rsig_program()
     assert (prog.rounds, prog.fp_muls) == (KV.ROUNDS_PER_LANE["g2_rsig_sub"], KV.FP_MULS_PER_LANE["g2_rsig_sub"])
     starts = [0]
     for i in prog.order:
         starts.append(starts[-1] + len(prog.segs[i].phases))
-    assert len(prog.order) == 1 + W.WINDOWS and starts[-1] == prog.phases
-    assert f"LT_RSIG_SEG[{2 + W.WINDOWS}] = {W._words(starts)};" in W.cuda_programs()
+    assert len(prog.order) == 2 + W.WINDOWS and starts[-1] == prog.phases
+    assert f"LT_RSIG_SEG[{3 + W.WINDOWS}] = {W._words(starts)};" in W.cuda_programs()
+    ingest = prog.segs[prog.order[0]]
+    r2 = W.CONST + prog.consts.index(W.R * W.R % P)
+    assert (ingest.rounds, ingest.fp_muls) == (KV.INGEST_ROUNDS, KV.INGEST_MULS)
+    assert sorted(op[2] for ph in ingest.phases for q in ph for op in q) == [r2] * KV.INGEST_MULS
+    assert (prog.io["INGEST_PHASES"], prog.io["INGEST_ROUNDS"]) == (len(ingest.phases), ingest.rounds)
+    tbl = range(prog.io["TBL"], prog.io["TBL"] + 90)
+    assert all(prog.io[r] in tbl and prog.io[r] + 3 in tbl for r in ("QIN", "MSGIN", "MSG"))
+    assert prog.nslots == 238
     assert [b for t in range(W.WINDOWS) for b in W.subgroup_bits(t)] == list(range(62, -1, -1))
     assert prog.nslots + len(prog.consts) < W.MAX_SLOTS

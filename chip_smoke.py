@@ -120,7 +120,24 @@ Needs one CUDA device; exits non-zero without one.  In order:
      verifier whose wire batch entries fail once with a CUDA launch failure
      trips to host verdicts (equal to the truth), the canary closes it on
      the card, a 128-set job runs on the device, and its `breaker` line;
-  5. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  5. the hash forest: the port's StateRootEngine on a 1,048,576-validator
+     registry state (HtrState: mainnet-like columns, balances, inactivity
+     scores, both participation lists, slashings) with the card's
+     DeviceMerkleBackend, and in step a second engine on the host path
+     (hashlib): the cold root, one slot (256 validator records, 256
+     balances, 32,768 participation flags) and an epoch boundary (every
+     balance and inactivity score, the participation rotation); each root
+     equal to the host's, each of hash_pairs, forest_sweep and
+     validator_roots launched exactly as the dirty sets and the level gate
+     give (`htr_expected`), no host level, the breaker closed; every
+     kernel call of the path, and each kernel alone (hash_pairs at 1 to
+     1,048,576 pairs, forest_sweep on the slot's (40, 512) plan and on it
+     with dead lanes, validator_roots at 512 and 1,048,576 rows), held
+     against its plain version on the card; the bounds from each kernel's
+     SASS (cuobjdump), its instructions counted pipe by pipe; its `htr` line.
+     `python3 chip_smoke.py --htr-only` runs this phase alone (its lines,
+     no result line);
+  6. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
 """
@@ -809,6 +826,397 @@ def breaker_phase(table, d, card: str, device=None) -> dict:
     return line
 
 
+# -- the hash forest: the state-root engine on the card -----------------------
+
+HTR_VALIDATORS = 1 << 20  # a mainnet-scale registry
+HTR_SLOT_RECORDS = 256  # validator records a slot changes (sweep)
+HTR_SLOT_BALANCES = 256  # balances a slot changes (sweep)
+HTR_SLOT_FLAGS = 32768  # participation flags a slot sets: one slot's committees at 1M validators
+HTR_PAIR_SIZES = (1, 1024, 262144, HTR_VALIDATORS)  # hash_pairs alone: a lane, the level gate, the balances' level 0, the pubkey roots
+HTR_ROOT_SIZES = (512, HTR_VALIDATORS)  # validator_roots alone
+FAR_FUTURE_EPOCH = 2**64 - 1
+SLASHINGS_VECTOR = 8192  # EPOCHS_PER_SLASHINGS_VECTOR, mainnet
+HTR_SOURCE = "lodestar_tpu_torch/kernels/csrc/sha256.cu"
+HTR_KERNELS = {  # wrapper -> (its CUDA kernel, the JAX function it replaces)
+    "hash_pairs": ("lt_sha256_pairs_kernel", "lodestar_tpu/kernels/sha256.py:166"),
+    "forest_sweep": ("lt_sha256_sweep_kernel", "lodestar_tpu/kernels/sha256.py:184"),
+    "validator_roots": ("lt_sha256_validators_kernel", "lodestar_tpu/kernels/sha256.py:293"),
+}
+# the columnar fields of the stand-in state, in BeaconState's order
+HTR_FIELDS = ("validators", "balances", "slashings", "previous_epoch_participation", "current_epoch_participation",
+              "inactivity_scores")
+# Hopper's integer pipes, lanes per SM and clock (CUDA programming guide,
+# compute capability 9.0 throughput table; the pipes as Nsight Compute's
+# metrics reference splits them): the ALU pipe runs shifts, logic, adds,
+# compares and byte permutes; the FMA pipe runs IMAD and IMUL beside it;
+# the four schedulers issue one warp instruction each a clock.  VIADD is
+# taken on the FMA pipe: were it on the ALU pipe the bound would only rise,
+# so the bound stays a floor either way.
+PIPE_LANES_PER_CLK_PER_SM = {"alu": 64, "fma": 64, "issue": 128}
+_FMA_PIPE = ("IMAD", "IMUL", "VIADD")
+# SASS mnemonics that are no integer or logic operation of the hash
+_NON_ALU = ("LDG", "STG", "LDS", "STS", "LDC", "BRA", "EXIT", "BAR", "NOP", "BSSY", "BSYNC", "S2R", "S2UR",
+            "RET", "CALL", "WARPSYNC")
+
+
+class HtrState:
+    """The state the engine is handed: the six columnar fields of a
+    BeaconState's registry, made from a seed with numpy.  Its container
+    names only those fields; the engine never calls a columnar field's type."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        raw = rng.integers(0, 256, (n, 48), dtype=np.uint8).tobytes()
+        self.pubkeys = [raw[i * 48:(i + 1) * 48] for i in range(n)]
+        creds = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        creds[:, 0] = rng.integers(0, 2, n)  # BLS (0x00) and execution (0x01) credentials
+        creds[creds[:, 0] == 1, 1:12] = 0
+        raw = creds.tobytes()
+        self.withdrawal_credentials = [raw[i * 32:(i + 1) * 32] for i in range(n)]
+        gwei = 10**9
+        self.effective_balance = np.full(n, 32 * gwei, np.uint64)
+        low = rng.random(n) < 0.02
+        self.effective_balance[low] = (rng.integers(16, 32, int(low.sum())) * gwei).astype(np.uint64)
+        self.slashed = rng.random(n) < 0.001
+        self.activation_eligibility_epoch = rng.integers(0, 250_000, n).astype(np.uint64)
+        self.activation_epoch = self.activation_eligibility_epoch + rng.integers(1, 5_000, n).astype(np.uint64)
+        self.exit_epoch = np.full(n, FAR_FUTURE_EPOCH, np.uint64)
+        self.withdrawable_epoch = np.full(n, FAR_FUTURE_EPOCH, np.uint64)
+        exited = np.nonzero((rng.random(n) < 0.01) | self.slashed)[0]
+        self.exit_epoch[exited] = self.activation_epoch[exited] + rng.integers(256, 50_000, exited.size).astype(np.uint64)
+        self.withdrawable_epoch[exited] = self.exit_epoch[exited] + np.uint64(256)
+        self.balances = (self.effective_balance + rng.integers(0, gwei, n).astype(np.uint64)).astype(np.uint64)
+        self.inactivity_scores = np.where(rng.random(n) < 0.05, rng.integers(1, 200, n), 0).astype(np.uint64)
+        self.previous_epoch_participation = rng.integers(0, 8, n).astype(np.uint8)
+        self.current_epoch_participation = rng.integers(0, 8, n).astype(np.uint8)
+        self.slashings = np.zeros(SLASHINGS_VECTOR, np.uint64)
+        self.slashings[rng.integers(0, SLASHINGS_VECTOR, 16)] = np.uint64(32 * gwei)
+
+    def _container(self):
+        class _Container:
+            fields = [(name, None) for name in HTR_FIELDS]
+
+        return _Container
+
+
+def htr_tree_launches(dirty: np.ndarray, depth: int, min_rows: int, lanes: int):
+    """(hash_pairs, forest_sweep) launches of one ChunkTree update with
+    these dirty leaves: one sweep for a batch of at most `lanes`, else one
+    hash_pairs launch for each level whose dirty parents reach `min_rows`."""
+    idx = np.unique(dirty)
+    if idx.size == 0:
+        return 0, 0
+    if idx.size <= lanes and depth > 0:
+        return 0, 1
+    launches = 0
+    for _ in range(depth):
+        idx = np.unique(idx >> 1)
+        launches += idx.size >= min_rows
+    return launches, 0
+
+
+def htr_expected(before, after, cold: bool, min_rows: int, lanes: int, rotated: bool = False) -> dict:
+    """The launches of one state root, from the dirty sets of the columns
+    (`before` and `after`: dicts of numpy columns; `rotated`: the engine
+    took the participation-rotation hint) and the level gate."""
+    reg = 2**40
+    depth = {"validators": 40, "balances": (reg * 8 // 32 - 1).bit_length(),
+             "inactivity_scores": (reg * 8 // 32 - 1).bit_length(),
+             "previous_epoch_participation": (reg // 32 - 1).bit_length(),
+             "current_epoch_participation": (reg // 32 - 1).bit_length(),
+             "slashings": (SLASHINGS_VECTOR * 8 // 32 - 1).bit_length()}
+    per_chunk = {"balances": 4, "inactivity_scores": 4, "slashings": 4, "previous_epoch_participation": 32,
+                 "current_epoch_participation": 32}
+    out = {"hash_pairs": 0, "forest_sweep": 0, "validator_roots": 0}
+    changed = 0
+    n = after["balances"].shape[0]
+    for name in HTR_FIELDS:
+        if name == "validators":
+            rows = np.arange(n) if cold else np.nonzero(np.any(
+                [before[c] != after[c] for c in ("effective_balance", "slashed", "activation_eligibility_epoch",
+                                                 "activation_epoch", "exit_epoch", "withdrawable_epoch")], axis=0))[0]
+            if cold:
+                out["hash_pairs"] += n >= min_rows  # the pubkey roots
+            if rows.size:
+                out["validator_roots"] += 1
+        elif cold:
+            rows = np.arange(-(-after[name].shape[0] // per_chunk[name]))
+        else:
+            old = before[name]
+            if rotated and name in ("previous_epoch_participation", "current_epoch_participation"):
+                # the engine swapped the two trees: each is diffed against the other list
+                old = before["current_epoch_participation" if name.startswith("previous")
+                             else "previous_epoch_participation"]
+            rows = np.unique(np.nonzero(old != after[name])[0] // per_chunk[name])
+        hp, sw = htr_tree_launches(rows, depth[name], min_rows, lanes)
+        out["hash_pairs"] += hp
+        out["forest_sweep"] += sw
+        changed += bool(rows.size)
+    if cold or changed:
+        out["forest_sweep"] += 1  # the top tree over the fields' roots: at most 6 dirty chunks
+    return out
+
+
+def sass_pipe_counts(sass: str) -> dict:
+    """Instructions of each kernel in a SASS listing (cuobjdump -sass), by
+    pipe: "alu" and "fma" the integer and logic instructions on each
+    (_FMA_PIPE on the FMA pipe, the rest but loads, stores, constant loads,
+    control flow, special-register reads and uniform-datapath instructions
+    on the ALU pipe), "issue" all of them; "mix" the integer ones by
+    mnemonic."""
+    import collections
+
+    out, mix, cur = {}, {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            mix[cur] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and cur:
+            mix[cur][m.group(1).split(".")[0]] += 1
+    for fn, c in mix.items():
+        name = next((k for k, (kernel, _) in HTR_KERNELS.items() if kernel in fn), fn)
+        ints = {op: n for op, n in c.items() if op not in _NON_ALU and not op.startswith("U")}
+        fma = sum(n for op, n in ints.items() if op in _FMA_PIPE)
+        out[name] = {"alu": sum(ints.values()) - fma, "fma": fma, "issue": sum(c.values()),
+                     "mix": dict(sorted(ints.items(), key=lambda kv: -kv[1]))}
+    return out
+
+
+def sass_clocks(counts: dict) -> float:
+    """SM clocks that one SM needs to issue these instructions (one entry
+    of sass_pipe_counts): the busiest pipe at its rate."""
+    return max(counts[pipe] / lanes for pipe, lanes in PIPE_LANES_PER_CLK_PER_SM.items())
+
+
+def sass_counts(so_path: str) -> dict:
+    """sass_pipe_counts of a built library's kernels."""
+    from lodestar_tpu_torch.kernels import build as B
+
+    return sass_pipe_counts(subprocess.run([os.path.join(os.path.dirname(B.nvcc()), "cuobjdump"), "-sass", so_path],
+                                           check=True, capture_output=True, text=True).stdout)
+
+
+def htr_phase(card: str, sm_mhz: float) -> tuple:
+    """The hash-forest phase: the port's StateRootEngine on the card and,
+    in step, a second engine on the host path (hashlib) over one
+    HTR_VALIDATORS-validator registry state: a cold root, one slot and one
+    epoch boundary; each root equal to the host's, each kernel's launches
+    exactly the ones the dirty sets and the level gate give, no host level,
+    the breaker closed; every kernel call of the path and each kernel alone
+    at HTR_PAIR_SIZES / the slot's sweep plan / HTR_ROOT_SIZES held against
+    its plain version on the card.  Returns (htr line, kernel rows)."""
+    from lodestar_tpu_torch.kernels import build as B
+    from lodestar_tpu_torch.kernels import sha256 as SK
+    from lodestar_tpu_torch.ssz import device_backend as DB
+    from lodestar_tpu_torch.state_transition import StateRootEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    backend = DB.DeviceMerkleBackend()  # the card (the kernels are built here unless built before)
+    t = time.perf_counter()
+    state = HtrState(HTR_VALIDATORS, SEED)
+    card_engine, host_engine = StateRootEngine(), StateRootEngine()
+    min_rows, lanes = backend.min_level_rows, SK.HTR_SWEEP_LANES
+    log(f"htr: backend on the card in {t - t_phase:.1f} s, {HTR_VALIDATORS} validators made in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # every wrapper call of the card path: its CUDA-event time (the output's
+    # allocation, the launch and the kernel) and copies of its operands and
+    # result, held against the plain version afterwards
+    calls = {name: [] for name in HTR_KERNELS}
+    real = {name: getattr(SK, name) for name in HTR_KERNELS}
+
+    def recorder(name):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real[name](*args)
+            b.record()
+            calls[name].append((a, b, tuple(x.clone() for x in args), out.clone()))
+            return out
+        return run
+
+    columns = ("effective_balance", "slashed", "activation_eligibility_epoch", "activation_epoch", "exit_epoch",
+               "withdrawable_epoch", "balances", "inactivity_scores", "slashings", "previous_epoch_participation",
+               "current_epoch_participation")
+
+    def snapshot():
+        return {c: getattr(state, c).copy() for c in columns}
+
+    steps = {}
+
+    def step(label, cold=False, rotated=False, before=None):
+        expected = htr_expected(before, snapshot(), cold, min_rows, lanes, rotated)
+        for name in HTR_KERNELS:
+            setattr(SK, name, recorder(name))
+        first = {name: len(c) for name, c in calls.items()}
+        try:
+            DB.set_backend(backend)
+            torch.cuda.synchronize()
+            SK.reset_launches()
+            dispatch_s = backend.m_seconds.value
+            t = time.perf_counter()
+            root = card_engine.hash_tree_root(state)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t) * 1e3
+            dispatch_ms = (backend.m_seconds.value - dispatch_s) * 1e3
+            launches = dict(SK.LAUNCHES)
+        finally:
+            for name, f in real.items():
+                setattr(SK, name, f)
+            DB.set_backend(None)
+        t = time.perf_counter()
+        host_root = host_engine.hash_tree_root(state)
+        host_ms = (time.perf_counter() - t) * 1e3
+        DB.reset_backend()
+        if root != host_root:
+            raise AssertionError(f"htr {label}: the card's root {root.hex()} differs from the host's {host_root.hex()}")
+        if launches != expected:
+            raise AssertionError(f"htr {label}: launches {launches}, the dirty sets give {expected}")
+        sup = backend.supervisor.status()
+        if backend.m_host_levels.value or sup["state"] != "closed" or sup["last_failure"] is not None:
+            raise AssertionError(f"htr {label}: {backend.m_host_levels.value} host levels, breaker {sup}")
+        kernel_ms = {name: sum(a.elapsed_time(b) for a, b, _, _ in calls[name][first[name]:]) for name in HTR_KERNELS}
+        steps[label] = {"card_ms": card_ms, "dispatch_ms": dispatch_ms, "host_ms": host_ms, "launches": launches,
+                        "kernel_ms_in_path": kernel_ms, "root": root.hex()}
+        log(f"htr {label}: card {card_ms:.1f} ms (in dispatches {dispatch_ms:.1f} ms, in the wrappers "
+            f"{sum(kernel_ms.values()):.3f} ms, launches {launches}), host {host_ms:.1f} ms, roots equal")
+
+    # 1. cold root
+    step("cold", cold=True)
+    rng = np.random.default_rng(SEED + 14)
+    # 2. one slot: validator records (one slashed), balances, participation flags
+    before = snapshot()
+    rows = rng.choice(HTR_VALIDATORS, HTR_SLOT_RECORDS, replace=False)
+    state.effective_balance[rows[: HTR_SLOT_RECORDS // 2]] -= np.uint64(10**9)
+    state.exit_epoch[rows[HTR_SLOT_RECORDS // 2:]] = np.uint64(262_000)
+    state.withdrawable_epoch[rows[HTR_SLOT_RECORDS // 2:]] = np.uint64(262_256)
+    state.slashed[rows[0]] = True
+    state.balances[rng.choice(HTR_VALIDATORS, HTR_SLOT_BALANCES, replace=False)] += np.uint64(12_345)
+    flags = rng.choice(HTR_VALIDATORS, HTR_SLOT_FLAGS, replace=False)
+    state.current_epoch_participation[flags] |= np.uint8(7)
+    step("slot", before=before)
+    # 3. an epoch boundary: rewards and penalties on every balance, every
+    # inactivity score moves, the participation lists rotate
+    before = snapshot()
+    state.balances = (state.balances + rng.integers(1, 20_000, HTR_VALIDATORS).astype(np.uint64)).astype(np.uint64)
+    state.inactivity_scores = (state.inactivity_scores + np.uint64(1)).astype(np.uint64)
+    state.previous_epoch_participation = state.current_epoch_participation
+    state.current_epoch_participation = np.zeros(HTR_VALIDATORS, np.uint8)
+    card_engine.note_participation_rotation()
+    host_engine.note_participation_rotation()
+    step("epoch", rotated=True, before=before)
+    path_s = time.perf_counter() - t_phase
+
+    # every kernel call of the card path against its plain version
+    t = time.perf_counter()
+    held = {}
+    for name, recs in calls.items():
+        if not recs:
+            raise AssertionError(f"htr: the path launched no {name}")
+        plain = getattr(SK, name + "_plain")
+        for _, _, args, out in recs:
+            if not torch.equal(plain(*args), out):
+                raise AssertionError(f"htr: a {name} call of the path ({tuple(args[0].shape)}) differs from its plain "
+                                     f"version")
+        held[name] = {"calls": len(recs), "rows": sum(int(r[2][0].shape[0]) for r in recs)}
+    # the slot's validators sweep: the path's first sweep over the registry's 40 levels
+    sweep_plan = next(r[2] for r in calls["forest_sweep"] if r[2][0].shape[0] == 40)
+    log(f"htr: every call of the path equal to its plain version ({held}; {time.perf_counter() - t:.1f} s)")
+
+    # each kernel alone at the path's shapes, against its plain version
+    t = time.perf_counter()
+    words = lambda shape: SK.to_tensor(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32), dev)  # noqa: E731
+    alone = {}
+
+    def hold(name, args, plain_runs=PLAIN_RUNS):
+        k_ms, k_out = cuda_ms(lambda: getattr(SK, name)(*args))
+        p_ms, p_out = cuda_ms(lambda: getattr(SK, name + "_plain")(*args), runs=plain_runs, warm=False)
+        err = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max()) if k_out.numel() else 0
+        if err or not torch.equal(k_out, p_out):
+            raise AssertionError(f"htr: {name} at {tuple(args[0].shape)} differs from its plain version")
+        return k_ms, p_ms, err
+
+    for n in HTR_PAIR_SIZES:
+        alone["hash_pairs", n] = hold("hash_pairs", (words((n, 16)),))
+    dead = [x.clone() for x in sweep_plan]
+    dead[1][:, 1::2] = dead[1].shape[1] + 3  # every odd lane's digest dropped (a dead lane)
+    def live_lanes(plan):
+        """Lanes whose digest the plan uses: those scattered into the next
+        level, and the root."""
+        lane = plan[1]
+        return int((lane[:-1] < lane.shape[1]).sum()) + 1
+
+    live = {"slot_plan": live_lanes(sweep_plan), "dead_lanes": live_lanes(dead)}
+    alone["forest_sweep", "slot_plan"] = hold("forest_sweep", sweep_plan)
+    alone["forest_sweep", "dead_lanes"] = hold("forest_sweep", tuple(dead))
+    for n in HTR_ROOT_SIZES:
+        cols = [words((n, 8)), words((n, 8))] + [words((n, 2)) for _ in range(5)]
+        cols.append(SK.to_tensor(rng.integers(0, 2, n).astype(np.uint32), dev))
+        alone["validator_roots", n] = hold("validator_roots", cols)
+    log(f"htr: each kernel alone equal to its plain version ({time.perf_counter() - t:.1f} s)")
+
+    # bounds: each kernel's SASS instructions, pipe by pipe, over the card's
+    # rate for that pipe (the busiest pipe), or its bytes over the memory rate
+    sass = sass_counts(str(B.build_all()["sha256"]))
+    ptxas = ptxas_entries(B.ptxas_report()["sha256"])
+    clk_per_ms = sm_mhz * 1e3
+    per_hash = sass_clocks(sass["hash_pairs"])  # one hash, straight-line code
+    per_validator = sass_clocks(sass["validator_roots"])  # seven hashes and the packing, straight-line
+
+    def bound(name, n):
+        if name == "hash_pairs":
+            clocks, nbytes = n * per_hash, n * (64 + 32)
+        elif name == "forest_sweep":  # the live lanes' hashes, their pairs, maps and digests
+            clocks, nbytes = n * per_hash, n * (64 + 8 + 32)
+        else:
+            clocks, nbytes = n * per_validator, n * (2 * 32 + 5 * 8 + 4 + 32)
+        ops_ms, bytes_ms = clocks / N_SM / clk_per_ms, nbytes / PEAK_BYTES_PER_S * 1e3
+        return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+    rows_out = []
+    path_shape = {"hash_pairs": HTR_VALIDATORS, "forest_sweep": "slot_plan", "validator_roots": HTR_VALIDATORS}
+    for name, (kernel, replaces) in HTR_KERNELS.items():
+        shape = path_shape[name]
+        k_ms, p_ms, err = alone[name, shape]
+        b_ms, b_by = bound(name, live["slot_plan"] if name == "forest_sweep" else shape)
+        entry = {
+            "name": name, "route": "cuda", "source": HTR_SOURCE, "replaces": replaces,
+            "launches": sum(s["launches"][name] for s in steps.values()), "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": "state_root", "n": shape,
+            "launches_by_step": {label: s["launches"][name] for label, s in steps.items()},
+            "ms_in_path_by_step": {label: s["kernel_ms_in_path"][name] for label, s in steps.items()},
+            "path_calls_held": held[name],
+            "ms_by_size": {str(key[1]): v[0] for key, v in alone.items() if key[0] == name},
+            "plain_ms_by_size": {str(key[1]): v[1] for key, v in alone.items() if key[0] == name},
+            "bound_ms_by_size": {str(key[1]): bound(name, live.get(key[1], key[1]))[0]
+                                 for key in alone if key[0] == name},
+            "sass_instructions": {pipe: sass[name][pipe] for pipe in PIPE_LANES_PER_CLK_PER_SM},
+            "sass_int_mix": sass[name]["mix"], "pipe_lanes_per_clk_per_sm": PIPE_LANES_PER_CLK_PER_SM,
+            "ptxas": next((v for k, v in ptxas.items() if kernel in k), None), "card": card,
+        }
+        if name == "forest_sweep":
+            entry["live_lanes_slot_plan"] = live["slot_plan"]
+            entry["plan_shape"] = list(sweep_plan[0].shape[:2])
+            # the design's floor: one block hashes all K x B lanes, dead ones
+            # too (the output equals JAX's on every lane), on one SM
+            entry["one_sm_issue_ms"] = sweep_plan[0].shape[0] * sweep_plan[0].shape[1] * sass_clocks(
+                sass[name]) / clk_per_ms
+        if name == "validator_roots":
+            entry["note"] = "its first phase is pack_validator_blocks_device (lodestar_tpu/kernels/sha256.py:250)"
+        rows_out.append(entry)
+    line = {"validators": HTR_VALIDATORS, "min_level_rows": min_rows, "sweep_lanes": lanes, "steps": steps,
+            "breaker": backend.supervisor.status()["state"], "host_fallback_levels": backend.m_host_levels.value,
+            "dispatches": backend.dispatches, "peak_dispatch_bytes": backend.peak_dispatch_bytes,
+            "path_s": path_s, "phase_s": time.perf_counter() - t_phase, "card": card}
+    log("htr " + json.dumps(line))
+    return line, rows_out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -834,6 +1242,10 @@ def main() -> int:
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"setup: python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"max SM clock {sm_mhz:.0f} MHz")
+    if "--htr-only" in sys.argv[1:]:  # the hash-forest phase alone: its lines, no result line
+        _, rows = htr_phase(card, sm_mhz)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
 
     # -- 1. setup --------------------------------------------------------------
     t = time.perf_counter()
@@ -1994,7 +2406,11 @@ def main() -> int:
     breaker_phase(table, d, card)
     log(f"service phases: {time.perf_counter() - t:.1f} s")
 
-    # -- 5. result lines -----------------------------------------------------------
+    # -- 5. the hash forest ------------------------------------------------------
+    htr_line, htr_rows = htr_phase(card, sm_mhz)
+    log(f"hash forest phase: {htr_line['phase_s']:.1f} s")
+
+    # -- 6. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
 
     def needed_muls(name, n, units):
@@ -2156,6 +2572,7 @@ def main() -> int:
         f"({results['pubkeys_per_s', 'agg_batch', AGG_SETS]:.1f} pubkeys/s); registration {TABLE_ROWS / reg_s:.1f} "
         f"keys/s ({card}); "
         f"total {time.perf_counter() - t_start:.1f} s")
+    kernels.extend(htr_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

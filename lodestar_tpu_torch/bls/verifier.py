@@ -248,7 +248,7 @@ def resolve_device(device=None) -> torch.device:
     """None means the CUDA device; a CUDA device without CUDA raises."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("TorchBlsVerifier: CUDA requested but no CUDA device is available")
+        raise RuntimeError("CUDA requested but no CUDA device is available")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -40,7 +40,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = (
-    "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum",
+    "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum", "sha256",
 )
 
 NVCC_FLAGS = [
@@ -93,12 +93,12 @@ def nvcc() -> str:
     return path
 
 
-def _compile_all(cmd_for, out_for) -> None:
-    """Start one compiler process per source, all together; wait for all;
-    raise with the compiler's output if any failed."""
+def _compile_all(cmd_for, out_for, names=SOURCES) -> None:
+    """Start one compiler process per source of `names`, all together; wait
+    for all; raise with the compiler's output if any failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         if out_for(name).exists():
             continue
         tmp = out_for(name).with_suffix(f".{os.getpid()}.tmp")
@@ -136,8 +136,9 @@ def build_all() -> Dict[str, Path]:
     return {name: out_for(name) for name in SOURCES}
 
 
-def build_host() -> Dict[str, Path]:
-    """Compile every kernel source with the host C++ compiler (tests)."""
+def build_host(names=SOURCES) -> Dict[str, Path]:
+    """Compile the kernel sources `names` (default: all) with the host C++
+    compiler (tests)."""
     digest = source_hash(HOST_FLAGS)
     out_for = lambda name: BUILD_DIR / f"host-{name}-{digest}.so"  # noqa: E731
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -146,8 +147,9 @@ def build_host() -> Dict[str, Path]:
     _compile_all(
         lambda name, tmp: [cxx, *HOST_FLAGS, "-I", str(include_dir()), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         out_for,
+        names,
     )
-    return {name: out_for(name) for name in SOURCES}
+    return {name: out_for(name) for name in names}
 
 
 def ptxas_report() -> Dict[str, str]:
@@ -180,6 +182,9 @@ _ARGTYPES = {
     "lt_seg_sum_g1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_warp_last_launch": [ctypes.c_char_p, _VP],
+    "lt_sha256_pairs": [_VP, _VP, _INT, _VP],
+    "lt_sha256_sweep": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "lt_sha256_validators": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_last_launch": [_VP],
     # host build only: the ingest building blocks and the pairing's
     # inversions and final exponentiation for the tests
@@ -217,9 +222,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_host(name: str) -> ctypes.CDLL:
-    lib = _bind(ctypes.CDLL(str(build_host()[name])))
-    lib.lt_host_fp_muls.argtypes = []
-    lib.lt_host_fp_muls.restype = ctypes.c_uint64
+    """The host build of `csrc/<name>.cu` (that source alone compiled)."""
+    lib = _bind(ctypes.CDLL(str(build_host((name,))[name])))
+    if hasattr(lib, "lt_host_fp_muls"):  # the field-arithmetic kernels
+        lib.lt_host_fp_muls.argtypes = []
+        lib.lt_host_fp_muls.restype = ctypes.c_uint64
     lib.lt_host_warp_order.argtypes = [_INT]  # virtual threads forwards (0) or reversed (1)
     lib.lt_host_warp_order.restype = None
     if hasattr(lib, "lt_host_rounds"):  # the warp-per-lane kernels

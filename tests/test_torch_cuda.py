@@ -845,3 +845,81 @@ def test_watchdog_polls_the_card_on_the_callers_thread(dev):
     assert threading.active_count() == threads
     torch.cuda.synchronize()
     assert y.cpu().tolist() == [2.0] * 4
+
+
+# -- the hash forest (csrc/sha256.cu) --------------------------------------------
+
+
+def _sha_words(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1025])
+def test_sha256_hash_pairs_on_card(dev, n):
+    from lodestar_tpu_torch.kernels import sha256 as SK
+
+    x = _sha_words(np.random.default_rng(n), (n, 16), dev)
+    before = SK.LAUNCHES["hash_pairs"]
+    out = SK.hash_pairs(x)
+    assert SK.LAUNCHES["hash_pairs"] == before + 1
+    assert torch.equal(out, SK.hash_pairs_plain(x))
+
+
+@pytest.mark.parametrize("k,b", [(3, 1), (40, 512), (2, 1024)])
+def test_sha256_forest_sweep_on_card(dev, k, b):
+    from lodestar_tpu_torch.kernels import sha256 as SK
+
+    rng = np.random.default_rng(k * b)
+    pairs = _sha_words(rng, (k, b, 16), dev)
+    # each level's lanes scattered to a permutation of [0, b + 4): some dropped
+    lane = torch.from_numpy(np.stack([rng.permutation(b + 4)[:b] for _ in range(k)]).astype(np.int32)).to(dev)
+    half = torch.from_numpy(rng.integers(0, 2, (k, b)).astype(np.int32)).to(dev)
+    assert torch.equal(SK.forest_sweep(pairs, lane, half), SK.forest_sweep_plain(pairs, lane, half))
+
+
+@pytest.mark.parametrize("d", [1, 513])
+def test_sha256_validator_roots_on_card(dev, d):
+    from lodestar_tpu_torch.kernels import sha256 as SK
+
+    rng = np.random.default_rng(d)
+    cols = [_sha_words(rng, (d, 8), dev), _sha_words(rng, (d, 8), dev)] + [_sha_words(rng, (d, 2), dev)
+                                                                           for _ in range(5)]
+    cols.append(torch.from_numpy(rng.integers(0, 2, d).astype(np.int32)).to(dev))
+    assert torch.equal(SK.validator_roots(*cols), SK.validator_roots_plain(*cols))
+
+
+def test_sha256_wrappers_refuse_bad_operands_on_card(dev):
+    from lodestar_tpu_torch.kernels import sha256 as SK
+
+    x = torch.zeros((8, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        SK.hash_pairs(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        SK.hash_pairs(torch.zeros((16, 8), dtype=torch.int32, device=dev).t())  # not contiguous
+    with pytest.raises(ValueError):
+        SK.hash_pairs(x.view(-1)[1:113].view(7, 16))  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        SK.forest_sweep(torch.zeros((1, 8, 16), dtype=torch.int32, device=dev),
+                        torch.zeros((1, 8), dtype=torch.int32), torch.zeros((1, 8), dtype=torch.int32, device=dev))
+
+
+def test_merkle_backend_on_card(dev):
+    from lodestar_tpu_torch.ssz import ChunkTree, merkleize_chunks
+    from lodestar_tpu_torch.ssz import device_backend as DB
+
+    b = DB.DeviceMerkleBackend()
+    assert b.device.type == "cuda" and b.supervisor.job_deadline_s
+    assert b._canary()
+    DB.set_backend(b)
+    try:
+        rng = np.random.default_rng(3)
+        leaves = rng.integers(0, 256, (3000, 32), dtype=np.uint8)
+        tree = ChunkTree(1 << 40)
+        tree.update(leaves)  # the level loop: 1,500 pairs on the card
+        leaves[rng.integers(0, 3000, 100)] = rng.integers(0, 256, (100, 32), dtype=np.uint8)
+        tree.update(leaves)  # one sweep
+        assert tree.root == merkleize_chunks([bytes(r) for r in leaves], 1 << 40)
+        assert b.m_dispatches.get("htr_hash_pairs") == 1 and b.m_dispatches.get("htr_forest_sweep") == 1
+        assert b.supervisor.status()["state"] == "closed" and b.m_host_levels.value == 0
+    finally:
+        DB.reset_backend()

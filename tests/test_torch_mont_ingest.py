@@ -230,7 +230,8 @@ def host_kernels(libs, monkeypatch):
     for lib in libs.values():
         if hasattr(lib, "lt_host_rounds"):
             lib.lt_host_rounds(), lib.lt_host_gcd_steps()
-        lib.lt_host_fp_muls()
+        if hasattr(lib, "lt_host_fp_muls"):  # the field-arithmetic libraries
+            lib.lt_host_fp_muls()
 
 
 @functools.lru_cache(maxsize=None)

@@ -71,9 +71,10 @@ Needs one CUDA device; exits non-zero without one.  In order:
      (one block per set) also on the K = 512 job, with its launch as its
      library reports it (blocks, threads, shared memory, tree levels).
      CUDA-event times of
-     kernel (median of 5 after a warm-up) and plain version (median of 3;
-     once, without a warm-up, for agg_pk, hash_g2, g1_keyvalidate and the
-     warp kernels' extra lane counts, whose plain versions take seconds);
+     kernel (median of 5 after a warm-up) and plain version (once, without
+     a warm-up: the BLS kernels' plain versions take seconds a call, and
+     the script's time limit is shared with every later phase; the
+     conversions' plain versions, milliseconds, median of 3);
   3. main paths, each driven with the launch counts set to 0 just before
      and read just after (the per-set, batch, wire batch and wire per-set
      jobs' counts held exactly: no launch of a conversion of its own),
@@ -137,7 +138,24 @@ Needs one CUDA device; exits non-zero without one.  In order:
      SASS (cuobjdump), its instructions counted pipe by pipe; its `htr` line.
      `python3 chip_smoke.py --htr-only` runs this phase alone (its lines,
      no result line);
-  6. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  6. the slasher: the port's SlasherService (no chain, no db, history
+     4,096 epochs, chunk 16) with its span planes on the card, sized once
+     to 1,048,576 validators (two int32 planes of 16 GiB); 4 epochs in
+     which every validator attests once (2,048 committees of 512, 64 a
+     slot, one aggregate IndexedAttestation each, through
+     ingest_attestation: 4 flushes an epoch), on_finalized(2) (both planes
+     shifted on the card), then planted offences: a double vote, a surround
+     and a surrounded vote, the old-source attack (a source below the
+     window base, then an inner vote) and a double proposal; the
+     detections by kind and offender equal to the planted ones and to the
+     port's NaiveAttesterSlasher's over the same stream; 4,096 sampled
+     rows and every offender's row of the card's planes equal to a numpy
+     SpanState fed the same applies; span_update's launches equal to the
+     applies that can change a cell; the kernel alone against its plain
+     version on 65,536 x 4,096 planes (512 rows, every row with t = H - 1,
+     a source below the window, source = target, no row); its `slasher`
+     line.  `python3 chip_smoke.py --slasher-only` runs this phase alone;
+  7. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
 """
@@ -145,6 +163,7 @@ Any mismatch or error raises, and the script exits non-zero.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import multiprocessing as mp
@@ -1217,6 +1236,357 @@ def htr_phase(card: str, sm_mhz: float) -> tuple:
     return line, rows_out
 
 
+# -- the slasher: SlasherService with its span planes on the card ----------------
+
+SLASHER_VALIDATORS = 1 << 20  # every validator of a mainnet-scale registry
+SLASHER_HISTORY = 4096  # slasher_history_length (node.py:79, the Lighthouse default)
+SLASHER_CHUNK = 16
+SLASHER_EPOCHS = 4
+SLASHER_COMMITTEE = 512  # 1,048,576 / 32 slots / 64 committees (MAX_COMMITTEES_PER_SLOT)
+SLASHER_COMMITTEES_PER_SLOT = 64
+SLASHER_FINALIZED = 2
+SLASHER_SAMPLE_ROWS = 4096  # rows of the card's planes held against the numpy SpanState
+SLASHER_ALONE_ROWS = 65536  # planes of the kernel-alone check: 65,536 x 4,096
+SLASHER_ALONE_SELECTED = 512
+SPANS_SOURCE = "lodestar_tpu_torch/kernels/csrc/spans.cu"
+SPANS_REPLACES = "lodestar_tpu/slasher/device.py:39"
+
+
+def _slasher_att(validators, slot: int, index: int, head: bytes, source: int, target: int) -> dict:
+    return {
+        "attesting_indices": validators,
+        "data": {
+            "slot": slot, "index": index, "beacon_block_root": head,
+            "source": {"epoch": source, "root": source.to_bytes(32, "little")},
+            "target": {"epoch": target, "root": (target + 1000).to_bytes(32, "little")},
+        },
+        "signature": b"\x00" * 96,
+    }
+
+
+def _slasher_block(slot: int, proposer: int, graffiti: bytes) -> dict:
+    from lodestar_tpu_torch import params as TP
+
+    body = {
+        "randao_reveal": b"\x00" * 96,
+        "eth1_data": {"deposit_root": b"\x00" * 32, "deposit_count": 0, "block_hash": b"\x00" * 32},
+        "graffiti": graffiti, "proposer_slashings": [], "attester_slashings": [], "attestations": [],
+        "deposits": [], "voluntary_exits": [],
+        "sync_aggregate": {"sync_committee_bits": [False] * TP.SYNC_COMMITTEE_SIZE,
+                           "sync_committee_signature": bytes([0xC0]) + b"\x00" * 95},
+    }
+    return {"message": {"slot": slot, "proposer_index": proposer, "parent_root": b"\x01" * 32,
+                        "state_root": b"\x02" * 32, "body": body}, "signature": b"\x00" * 96}
+
+
+def spans_bound_ms(rows: int, h: int, s_col: int, t_col: int) -> float:
+    """The span update's least time: the cells it must read and may
+    write, (min columns + max columns) x rows x 4 B, each read once and
+    written once, over the memory rate."""
+    from lodestar_tpu_torch.kernels import spans as SP
+
+    n_min, n_max = SP.cells_updated(h, s_col, t_col)
+    return (n_min + n_max) * rows * 4 * 2 / PEAK_BYTES_PER_S * 1e3
+
+
+def slasher_phase(card: str, dev=None) -> tuple:
+    """The slasher phase: the port's SlasherService (no chain, no db,
+    history SLASHER_HISTORY, chunk SLASHER_CHUNK) with its span planes on
+    the card, sized once to SLASHER_VALIDATORS rows; SLASHER_EPOCHS epochs
+    in which every validator attests once (committees of 512, 64 a slot,
+    one aggregate IndexedAttestation each, through ingest_attestation),
+    then on_finalized(SLASHER_FINALIZED), which shifts both planes on the
+    card; then planted offences (a double vote, a surround, a surrounded
+    vote, the old-source attack, a double proposal).  Checks: the
+    detections by kind and offender equal the planted ones and the port's
+    NaiveAttesterSlasher's over the same stream; SLASHER_SAMPLE_ROWS
+    sampled rows and every offender's row of the card's planes equal a
+    numpy SpanState fed the same applies; the kernel's launches equal the
+    applies that can change a cell; the kernel alone equals its plain
+    version on SLASHER_ALONE_ROWS x SLASHER_HISTORY planes.  Returns
+    (slasher line, kernel rows)."""
+    from lodestar_tpu_torch.chain.op_pools import attester_slashing_intersection
+    from lodestar_tpu_torch.kernels import build as B
+    from lodestar_tpu_torch.kernels import spans as SP
+    from lodestar_tpu_torch.slasher import NaiveAttesterSlasher, SlasherService, SpanState, TorchSpanState
+    from lodestar_tpu_torch.slasher.batch import MAX_SPAN_SENTINEL, MIN_SPAN_SENTINEL
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    v_all, h = SLASHER_VALIDATORS, SLASHER_HISTORY
+    rng = np.random.default_rng(SEED + 15)
+    svc = SlasherService(chain=None, db=None, history_length=h, chunk_size=SLASHER_CHUNK,
+                         device=None if dev.type == "cuda" else dev)
+    spans = svc.attester.spans
+    if not isinstance(spans, TorchSpanState) or spans.device.type != dev.type:
+        raise AssertionError(f"slasher: span planes on {getattr(spans, 'device', None)}, not {dev.type}")
+    svc.start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    spans.ensure_validators(v_all)
+    torch.cuda.synchronize()
+    growth_ms = (time.perf_counter() - t) * 1e3
+    if spans.num_validators != v_all:
+        raise AssertionError(f"slasher: planes of {spans.num_validators} rows, not {v_all}")
+    plane_gib = 2 * spans.min_spans.numel() * 4 / 2**30
+
+    # offenders: a (double vote), b (surround), c (surrounded), d (the
+    # old-source attack; offline in epochs 2.., so its one regular vote is
+    # pruned at finalization), and a double-proposing proposer
+    a, b, c, d, proposer = (int(x) for x in rng.choice(v_all, 5, replace=False))
+    sample = np.unique(np.concatenate([rng.choice(v_all, SLASHER_SAMPLE_ROWS, replace=False), [a, b, c, d]]))
+    local = np.full(v_all, -1, np.int64)
+    local[sample] = np.arange(sample.size)
+    mirror = SpanState(num_validators=sample.size, history_length=h, chunk_size=SLASHER_CHUNK)
+
+    # the path's hooks: the applies fed to the numpy mirror, their host
+    # time, the launches they should make, the lookups, the flushes
+    acc = {"applies": 0, "expected_launches": 0, "apply_s": 0.0, "lookups": 0, "lookup_s": 0.0,
+           "advance_s": 0.0}
+    flush_s, batches, found = [], [], []
+    real_apply, real_lookup, real_advance = spans.apply, spans.lookup, spans.advance_base
+    real_batch, real_emit_a, real_emit_p = svc.attester.process_batch, svc._emit_attester, svc._emit_proposer
+
+    def apply(rows, s, t):
+        sc, tc = s - spans.base_epoch, t - spans.base_epoch
+        acc["applies"] += 1
+        acc["expected_launches"] += int(len(rows) > 0 and SP.touched_columns(h, sc, tc) > 0)
+        t0 = time.perf_counter()
+        real_apply(rows, s, t)
+        acc["apply_s"] += time.perf_counter() - t0
+        lr = local[np.asarray(rows, np.int64)]
+        mirror.apply(lr[lr >= 0], s, t)
+
+    def lookup(rows, s):
+        t0 = time.perf_counter()
+        out = real_lookup(rows, s)
+        acc["lookup_s"] += time.perf_counter() - t0
+        acc["lookups"] += 1
+        return out
+
+    def advance_base(new_base):
+        t0 = time.perf_counter()
+        real_advance(new_base)
+        torch.cuda.synchronize()
+        acc["advance_s"] += time.perf_counter() - t0
+        mirror.advance_base(new_base)
+
+    def process_batch(batch):
+        batches.append(batch)
+        t0 = time.perf_counter()
+        out = real_batch(batch)
+        flush_s.append(time.perf_counter() - t0)
+        return out
+
+    def emit_attester(kind, slashing):
+        found.append((kind, tuple(attester_slashing_intersection(slashing))))
+        return real_emit_a(kind, slashing)
+
+    def emit_proposer(slashing):
+        m = slashing["signed_header_1"]["message"]
+        found.append(("double_propose", (int(m["slot"]), int(m["proposer_index"]))))
+        return real_emit_p(slashing)
+
+    spans.apply, spans.lookup, spans.advance_base = apply, lookup, advance_base
+    svc.attester.process_batch, svc._emit_attester, svc._emit_proposer = process_batch, emit_attester, emit_proposer
+
+    # the traffic: every validator once an epoch, 2,048 committees of 512
+    t = time.perf_counter()
+    epochs = []
+    n_slots = SLASHER_VALIDATORS // (SLASHER_COMMITTEE * SLASHER_COMMITTEES_PER_SLOT)
+    for e in range(1, SLASHER_EPOCHS + 1):
+        committees = np.sort(rng.permutation(v_all).reshape(-1, SLASHER_COMMITTEE), axis=1)
+        heads = [rng.bytes(32) for _ in range(n_slots)]
+        atts = []
+        for ci, members in enumerate(committees.tolist()):
+            if e >= 2 and d in members:
+                members.remove(d)
+            slot, index = e * n_slots + ci // SLASHER_COMMITTEES_PER_SLOT, ci % SLASHER_COMMITTEES_PER_SLOT
+            atts.append(_slasher_att(members, slot, index, heads[ci // SLASHER_COMMITTEES_PER_SLOT], e - 1, e))
+        epochs.append(atts)
+    make_s = time.perf_counter() - t
+
+    # the path, counted: every count set to 0 just before, read just after
+    torch.cuda.synchronize()
+    SP.reset_launches()
+    t_path = time.perf_counter()
+    n_ingested = 0
+    for atts in epochs:
+        for att in atts:
+            svc.ingest_attestation(att)
+            n_ingested += 1
+        svc.flush()
+    torch.cuda.synchronize()
+    traffic_s = time.perf_counter() - t_path
+    n_before_final = len(batches)
+    t = time.perf_counter()
+    svc.on_finalized(SLASHER_FINALIZED)
+    torch.cuda.synchronize()
+    finalize_ms = (time.perf_counter() - t) * 1e3
+    if spans.base_epoch != SLASHER_FINALIZED:
+        raise AssertionError(f"slasher: window base {spans.base_epoch} after on_finalized({SLASHER_FINALIZED})")
+    # the planted offences: first halves, a flush, second halves, a flush
+    e5 = (SLASHER_EPOCHS + 1) * n_slots
+    a_committee = next(x for x in epochs[-1] if a in x["attesting_indices"])
+    double = _slasher_att([a], a_committee["data"]["slot"], a_committee["data"]["index"], b"\xdd" * 32,
+                          SLASHER_EPOCHS - 1, SLASHER_EPOCHS)
+    firsts = [double, _slasher_att([b], e5, 0, b"\xb1" * 32, 5, 10), _slasher_att([c], e5, 1, b"\xc1" * 32, 4, 12),
+              _slasher_att([d], e5, 2, b"\xd1" * 32, 1, 14)]  # d's source 1 is below the window base 2
+    seconds = [_slasher_att([b], e5 + 1, 0, b"\xb2" * 32, 4, 12), _slasher_att([c], e5 + 1, 1, b"\xc2" * 32, 6, 8),
+               _slasher_att([d], e5 + 1, 2, b"\xd2" * 32, 7, 9)]
+    for half in (firsts, seconds):
+        for att in half:
+            svc.ingest_attestation(att)
+            n_ingested += 1
+        svc.flush()
+    svc.ingest_block(_slasher_block(e5 + 3, proposer, b"\x00" * 32))
+    svc.ingest_block(_slasher_block(e5 + 3, proposer, b"\x42" * 32))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = SP.LAUNCHES["span_update"]
+    svc.stop()  # memory-only store: no snapshot, no plane leaves the card
+
+    planted = sorted([("double_vote", (a,)), ("surround", (b,)), ("surrounded", (c,)), ("surrounded", (d,)),
+                      ("double_propose", (e5 + 3, proposer))])
+    if sorted(found) != planted:
+        raise AssertionError(f"slasher: detections {sorted(found)}, planted {planted}")
+    want_counts = {"double_vote": 1, "surround": 1, "surrounded": 2, "double_propose": 1}
+    if svc.detections != want_counts:
+        raise AssertionError(f"slasher: detections by kind {svc.detections}, planted {want_counts}")
+    if launches != acc["expected_launches"] or not launches:
+        raise AssertionError(f"slasher: {launches} span_update launches, the applies that can change a cell "
+                             f"{acc['expected_launches']}")
+
+    # the port's naive detector over the same stream
+    t = time.perf_counter()
+    naive, naive_found = NaiveAttesterSlasher(), []
+    for i, batch in enumerate(batches):
+        if i == n_before_final:
+            naive.prune(SLASHER_FINALIZED)
+        naive_found += [(k, tuple(attester_slashing_intersection(sl))) for k, sl in naive.process_batch(batch)]
+    naive_s = time.perf_counter() - t
+    if sorted(naive_found) != [p for p in planted if p[0] != "double_propose"]:
+        raise AssertionError(f"slasher: the naive detector found {sorted(naive_found)}")
+
+    # the card's planes against the numpy mirror on the sampled rows
+    t = time.perf_counter()
+    idx = torch.from_numpy(sample).to(dev)
+    card_min, card_max = spans.min_spans[idx].cpu().numpy(), spans.max_spans[idx].cpu().numpy()
+    if not (np.array_equal(card_min, mirror.min_spans) and np.array_equal(card_max, mirror.max_spans)):
+        bad = np.nonzero((card_min != mirror.min_spans).any(1) | (card_max != mirror.max_spans).any(1))[0]
+        raise AssertionError(f"slasher: {bad.size} sampled rows differ from numpy's (first {int(sample[bad[0]])})")
+    moved = int((mirror.max_spans != int(MAX_SPAN_SENTINEL)).sum() + (mirror.min_spans != int(MIN_SPAN_SENTINEL)).sum())
+    rows_check_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    status = svc.status()
+    del svc, spans, idx
+    real_apply = real_lookup = real_advance = real_batch = real_emit_a = real_emit_p = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernel alone on SLASHER_ALONE_ROWS x h planes against its plain version
+    t = time.perf_counter()
+    n_alone = SLASHER_ALONE_ROWS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)  # made on the card: 2 GiB of planes
+    mn0 = torch.randint(-4, 4000, (n_alone, h), generator=gen, device=dev, dtype=torch.int32)
+    mx0 = torch.randint(-4, 4000, (n_alone, h), generator=gen, device=dev, dtype=torch.int32)
+    mn0[mn0 > 3900] = int(MIN_SPAN_SENTINEL)
+    mx0[mx0 > 3900] = int(MAX_SPAN_SENTINEL)
+    mn, mx = mn0.clone(), mx0.clone()
+    sel = torch.from_numpy(np.sort(rng.choice(n_alone, SLASHER_ALONE_SELECTED, replace=False))).to(dev)
+    every = torch.arange(n_alone, dtype=torch.int64, device=dev)
+    last_s, last_t = SLASHER_EPOCHS - 1, SLASHER_EPOCHS  # the path's widest apply: epoch 4 at window base 0
+    cases = {
+        "path": (sel, last_s, last_t),
+        "rows_512": (sel, 1000, 3000),
+        "every_row_t_last": (every, h // 2, h - 1),
+        "source_below": (sel, -5, 2000),
+        "source_eq_target": (sel, 1500, 1500),
+        "empty": (torch.zeros(0, dtype=torch.int64, device=dev), 3, 10),
+        "launch_floor": (sel[:1], 1, 1),  # one row, one cell
+    }
+    alone, max_err = {}, 0
+    for name, (rows, s_col, t_col) in cases.items():
+        mask = torch.zeros(n_alone, dtype=torch.bool, device=dev)
+        mask[rows] = True
+        before = SP.LAUNCHES["span_update"]
+        SP.span_update(mn, mx, rows, s_col, t_col)
+        torch.cuda.synchronize()
+        made = SP.LAUNCHES["span_update"] - before
+        want_min, want_max = SP.span_update_planes_plain(mn0, mx0, mask, s_col, t_col)
+        err = max(int((mn.to(torch.int64) - want_min).abs().max()), int((mx.to(torch.int64) - want_max).abs().max()))
+        max_err = max(max_err, err)
+        if err or not (torch.equal(mn, want_min) and torch.equal(mx, want_max)):
+            raise AssertionError(f"slasher: span_update alone ({name}) differs from its plain version")
+        if made != int(rows.numel() > 0 and SP.touched_columns(h, s_col, t_col) > 0):
+            raise AssertionError(f"slasher: span_update alone ({name}) made {made} launches")
+        del want_min, want_max
+        # timed from the original planes each run, so every run writes
+        times = []
+        for _ in range(TIMED_RUNS):
+            mn.copy_(mn0)
+            mx.copy_(mx0)
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            SP.span_update(mn, mx, rows, s_col, t_col)
+            ev1.record()
+            ev1.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        p_ms, _ = cuda_ms(lambda: SP.span_update_planes_plain(mn0, mx0, mask, s_col, t_col), runs=PLAIN_RUNS)
+        n_rows = int(torch.unique(rows).numel())
+        alone[name] = {"ms": statistics.median(times), "plain_ms": p_ms,
+                       "bound_ms": spans_bound_ms(n_rows, h, s_col, t_col), "rows": n_rows, "s_col": s_col,
+                       "t_col": t_col, "cells_per_row": SP.cells_updated(h, s_col, t_col)}
+        mn.copy_(mn0)
+        mx.copy_(mx0)
+    del mn, mx, mn0, mx0
+    torch.cuda.empty_cache()
+    alone_s = time.perf_counter() - t
+    log(f"slasher: span_update alone equal to its plain version on {n_alone} x {h} planes, "
+        + ", ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.6f})"
+                    for k, v in alone.items()) + f" ({alone_s:.1f} s)")
+
+    n_flush = len(flush_s)
+    line = {
+        "validators": v_all, "history": h, "chunk": SLASHER_CHUNK, "epochs": SLASHER_EPOCHS,
+        "committee": SLASHER_COMMITTEE, "attestations": n_ingested, "applies": acc["applies"],
+        "kernel_launches": launches, "applies_changing_no_cell": acc["applies"] - acc["expected_launches"],
+        "lookups": acc["lookups"], "flushes": n_flush,
+        "flush_ms_p50": statistics.median(flush_s) * 1e3, "flush_ms_max": max(flush_s) * 1e3,
+        "atts_per_s_ingest_and_flush": SLASHER_EPOCHS * len(epochs[0]) / traffic_s,
+        "validator_votes_per_s": sum(len(x["attesting_indices"]) for ep in epochs for x in ep) / traffic_s,
+        "plane_gib": plane_gib, "peak_allocated_gib": peak_gib, "growth_ms": growth_ms,
+        "advance_ms": acc["advance_s"] * 1e3, "on_finalized_ms": finalize_ms,
+        "detections": dict(status["detections"]), "planted_equal": True, "naive_equal": True,
+        "sampled_rows": int(sample.size), "sampled_cells_moved": moved,
+        "time_s": {"make_traffic": make_s, "traffic_ingest_and_flush": traffic_s, "path": path_s,
+                   "in_flush": sum(flush_s), "in_apply": acc["apply_s"], "in_lookup": acc["lookup_s"],
+                   "in_flush_rest": sum(flush_s) - acc["apply_s"] - acc["lookup_s"], "naive": naive_s,
+                   "rows_check": rows_check_s, "kernel_alone": alone_s},
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    log("slasher " + json.dumps(line))
+    ptxas = ptxas_entries(B.ptxas_report()["spans"]) if dev.type == "cuda" else {}
+    path = alone["path"]
+    row = {
+        "name": "span_update", "route": "cuda", "source": SPANS_SOURCE, "replaces": SPANS_REPLACES,
+        "launches": launches, "max_abs_err": max_err, "ms": path["ms"], "plain_ms": path["plain_ms"],
+        "bound_ms": path["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "path": "slasher", "n": SLASHER_ALONE_SELECTED,
+        "launch_floor_ms": alone["launch_floor"]["ms"],
+        "launches_per_flush": launches / n_flush,
+        "ms_by_case": {k: v["ms"] for k, v in alone.items()},
+        "plain_ms_by_case": {k: v["plain_ms"] for k, v in alone.items()},
+        "bound_ms_by_case": {k: v["bound_ms"] for k, v in alone.items()},
+        "case_shapes": {k: {"rows": v["rows"], "s_col": v["s_col"], "t_col": v["t_col"],
+                            "min_max_columns": v["cells_per_row"]} for k, v in alone.items()},
+        "planes": [SLASHER_ALONE_ROWS, h],
+        "ptxas": next((v for k, v in ptxas.items() if "lt_span_update_kernel" in k), None), "card": card,
+    }
+    return line, [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1244,6 +1614,10 @@ def main() -> int:
         f"max SM clock {sm_mhz:.0f} MHz")
     if "--htr-only" in sys.argv[1:]:  # the hash-forest phase alone: its lines, no result line
         _, rows = htr_phase(card, sm_mhz)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if "--slasher-only" in sys.argv[1:]:  # the slasher phase alone: its lines, no result line
+        _, rows = slasher_phase(card)
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
 
@@ -1399,9 +1773,11 @@ def main() -> int:
     # -- 2. kernel phases --------------------------------------------------------
     results = {}  # (name, n) -> (kernel ms, plain ms, max abs err)
 
-    def plain_and_kernel(name, n, kernel, plain, *args, plain_runs=PLAIN_RUNS, tag=None):
-        """plain_runs 0: the plain version timed once, without a warm-up;
-        tag: a third key of the result (a row's extra shapes)."""
+    def plain_and_kernel(name, n, kernel, plain, *args, plain_runs=0, tag=None):
+        """plain_runs 0: the plain version timed once, without a warm-up
+        (seconds a call for these kernels), else the median of plain_runs
+        after a warm-up; tag: a third key of the result (a row's extra
+        shapes)."""
         k_ms, k_out = cuda_ms(lambda: kernel(*args))
         p_ms, p_out = cuda_ms(lambda: plain(*args), max(plain_runs, 1), warm=plain_runs > 0)
         k_outs = k_out if isinstance(k_out, tuple) else (k_out,)
@@ -2410,7 +2786,12 @@ def main() -> int:
     htr_line, htr_rows = htr_phase(card, sm_mhz)
     log(f"hash forest phase: {htr_line['phase_s']:.1f} s")
 
-    # -- 6. result lines -----------------------------------------------------------
+    # -- 6. the slasher (32 GiB of span planes: the earlier phases' tensors released first)
+    torch.cuda.empty_cache()
+    slasher_line, slasher_rows = slasher_phase(card)
+    log(f"slasher phase: {slasher_line['phase_s']:.1f} s")
+
+    # -- 7. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
 
     def needed_muls(name, n, units):
@@ -2573,6 +2954,7 @@ def main() -> int:
         f"keys/s ({card}); "
         f"total {time.perf_counter() - t_start:.1f} s")
     kernels.extend(htr_rows)
+    kernels.extend(slasher_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -40,7 +40,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = (
-    "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum", "sha256",
+    "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum", "sha256", "spans",
 )
 
 NVCC_FLAGS = [
@@ -186,6 +186,7 @@ _ARGTYPES = {
     "lt_sha256_sweep": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
     "lt_sha256_validators": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_last_launch": [_VP],
+    "lt_span_update": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
     # host build only: the ingest building blocks and the pairing's
     # inversions and final exponentiation for the tests
     "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],

@@ -1,7 +1,9 @@
-"""Merkleization of the port (the JAX package's `lodestar_tpu/ssz/`
-names, from the port's modules):
+"""SSZ of the port (the JAX package's `lodestar_tpu/ssz/` names, from the
+port's modules):
 
-  core            the zero hashes, merkleize_chunks, the length mix-in
+  core            the type objects (serialize, deserialize,
+                  hash_tree_root), the zero hashes, merkleize_chunks, the
+                  length mix-in
   hasher          hash_pairs: one tree level on the host (hashlib)
   merkle_tree     ChunkTree: the dirty-tracked per-level node planes
   device_backend  DeviceMerkleBackend: the tree's levels, dirty sweeps and
@@ -9,5 +11,28 @@ names, from the port's modules):
                   (kernels/sha256.py), behind the breaker
 """
 
-from .core import merkleize_chunks  # noqa: F401
+from .core import (  # noqa: F401
+    Bitlist,
+    Bitvector,
+    Boolean,
+    ByteList,
+    ByteVector,
+    Bytes4,
+    Bytes32,
+    Bytes48,
+    Bytes96,
+    Container,
+    List,
+    SszType,
+    UintN,
+    Vector,
+    hash_tree_root,
+    merkleize_chunks,
+    uint8,
+    uint16,
+    uint32,
+    uint64,
+    uint128,
+    uint256,
+)
 from .merkle_tree import ChunkTree, hash_pairs_plane  # noqa: F401

@@ -923,3 +923,58 @@ def test_merkle_backend_on_card(dev):
         assert b.supervisor.status()["state"] == "closed" and b.m_host_levels.value == 0
     finally:
         DB.reset_backend()
+
+
+# -- the slasher's span update (csrc/spans.cu) ------------------------------------
+
+SPAN_EDGES = [(5, 20), (-7, 12), (9, 9), (0, 0), (10, 63), (50, 94), (67, 73), (-9, -2), (12, 40)]
+
+
+@pytest.mark.parametrize("s,t", SPAN_EDGES)
+def test_span_update_on_card(dev, s, t):
+    from lodestar_tpu_torch.kernels import spans as SP
+
+    rng = np.random.default_rng(s * 100 + t + 1000)
+    v, h = 300, 64
+    mn = torch.from_numpy(rng.integers(-4, 80, (v, h)).astype(np.int32)).to(dev)
+    mx = torch.from_numpy(rng.integers(-4, 80, (v, h)).astype(np.int32)).to(dev)
+    for rows in ([3, 0, 299, 17, 3], list(range(v)), []):
+        r = torch.tensor(rows, dtype=torch.int64, device=dev)
+        mask = torch.zeros(v, dtype=torch.bool, device=dev)
+        mask[r] = True
+        want = SP.span_update_planes_plain(mn, mx, mask, s, t)
+        before = SP.LAUNCHES["span_update"]
+        SP.span_update(mn, mx, r, s, t)
+        torch.cuda.synchronize()
+        launched = bool(rows) and SP.touched_columns(h, s, t) > 0
+        assert SP.LAUNCHES["span_update"] == before + launched
+        assert torch.equal(mn, want[0]) and torch.equal(mx, want[1])
+    with pytest.raises(ValueError):
+        SP.span_update(mn, mx, torch.zeros(1, dtype=torch.int64), s, t)  # rows on the host
+
+
+def test_torch_span_state_on_card_equals_numpy(dev):
+    from lodestar_tpu_torch.slasher import AttesterSlasher, SpanState, TorchSpanState
+
+    rng = np.random.default_rng(77)
+    a = SpanState(num_validators=8, history_length=64, chunk_size=8)
+    c = TorchSpanState(num_validators=8, history_length=64, chunk_size=8)
+    assert c.device.type == "cuda" and c.min_spans.is_cuda
+    for step in range(60):
+        t = int(rng.integers(0, 150))
+        s = int(rng.integers(max(0, t - 40), t + 1))
+        rows = np.unique(rng.integers(0, 40 + 4 * step, int(rng.integers(1, 6))))
+        for sp in (a, c):
+            sp.ensure_epoch(t)
+            sp.ensure_validators(int(rows.max()) + 1)
+            sp.apply(rows, s, t)
+        assert a.base_epoch == c.base_epoch and a.num_validators == c.num_validators
+        if s >= a.base_epoch:
+            for x, y in zip(a.lookup(rows, s), c.lookup(rows, s)):
+                assert y.dtype == np.int32 and np.array_equal(x, y)
+        if step % 13 == 12:
+            a.advance_base(a.base_epoch + 24)
+            c.advance_base(c.base_epoch + 24)
+    snap = c.snapshot()
+    assert np.array_equal(snap.min_spans, a.min_spans) and np.array_equal(snap.max_spans, a.max_spans)
+    assert AttesterSlasher().spans.min_spans.is_cuda  # the card with no argument

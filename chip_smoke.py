@@ -121,7 +121,31 @@ Needs one CUDA device; exits non-zero without one.  In order:
      verifier whose wire batch entries fail once with a CUDA launch failure
      trips to host verdicts (equal to the truth), the canary closes it on
      the card, a 128-set job runs on the device, and its `breaker` line;
-  5. the hash forest: the port's StateRootEngine on a 1,048,576-validator
+  5. the node: the port's BeaconNode (queues, processor, fork choice,
+     store, chain config) building its own TorchBlsVerifier over the
+     1,048,576-row table, fed one mainnet slot: the port's EpochCache over
+     every row as an active validator (64 committees of 512 at a capella
+     slot), one AttestationData a committee with its signing root from the
+     port's get_attestation_data_signing_root (the last committee votes for
+     a block not yet imported), one signature a (root, key) pair signed on
+     the host, one attester in 512 signing the next committee's root, 1,024
+     exact re-publishes, everything through on_gossip_attestation in a
+     shuffled slot order, arriving evenly over the 4 s between the
+     attestation and aggregation deadlines (NODE_INTERVALS_PER_SLOT), the
+     queue shedding by its own rules, then drain_verdicts; the block imported and the
+     parked committee released and drained; the 64 committees' full
+     aggregates (K = 512) through the node's service on the critical lane;
+     the accepted votes into the fork choice and its head over 1,048,576
+     equal balances.  Checks: every validator seen as its signature says
+     unless each of its messages was shed, the shed sizes and the stale
+     end they come from as the queue's rule gives, the parking and release,
+     every aggregate True, no set on the host, every
+     kernel of NODE_KERNELS launched (counted from 0 just before the first
+     publish) and the first call of each launched kernel equal to its
+     plain version, the head and its weights as constructed; its `node`
+     line.  `python3 chip_smoke.py --node-only` registers its own table and
+     runs this phase alone (its lines, no result line);
+  6. the hash forest: the port's StateRootEngine on a 1,048,576-validator
      registry state (HtrState: mainnet-like columns, balances, inactivity
      scores, both participation lists, slashings) with the card's
      DeviceMerkleBackend, and in step a second engine on the host path
@@ -138,15 +162,17 @@ Needs one CUDA device; exits non-zero without one.  In order:
      SASS (cuobjdump), its instructions counted pipe by pipe; its `htr` line.
      `python3 chip_smoke.py --htr-only` runs this phase alone (its lines,
      no result line);
-  6. the slasher: the port's SlasherService (no chain, no db, history
+  7. the slasher: the port's SlasherService (no chain, no db, history
      4,096 epochs, chunk 16) with its span planes on the card, sized once
      to 1,048,576 validators (two int32 planes of 16 GiB); 4 epochs in
      which every validator attests once (2,048 committees of 512, 64 a
      slot, one aggregate IndexedAttestation each, through
      ingest_attestation: 4 flushes an epoch), on_finalized(2) (both planes
      shifted on the card), then planted offences: a double vote, a surround
-     and a surrounded vote, the old-source attack (a source below the
-     window base, then an inner vote) and a double proposal; the
+     and a surrounded vote, the old-source attack (a vote whose source
+     lies below the window base and which surrounds the attacker's votes
+     still in the window, found on the host, then an inner vote) and a
+     double proposal; the
      detections by kind and offender equal to the planted ones and to the
      port's NaiveAttesterSlasher's over the same stream; 4,096 sampled
      rows and every offender's row of the card's planes equal to a numpy
@@ -155,15 +181,19 @@ Needs one CUDA device; exits non-zero without one.  In order:
      version on 65,536 x 4,096 planes (512 rows, every row with t = H - 1,
      a source below the window, source = target, no row); its `slasher`
      line.  `python3 chip_smoke.py --slasher-only` runs this phase alone;
-  7. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  8. one JSON line {"kernels": [...]} (each BLS row with its launches in
+     the node phase and, where the phase launched it, its first call's
+     hold) and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import gc
+import itertools
 import json
 import math
 import multiprocessing as mp
@@ -172,6 +202,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -412,7 +443,7 @@ def make_job(pool) -> dict:
     from lodestar_tpu_torch.crypto import hash_to_curve as GH
 
     rng = np.random.default_rng(SEED)
-    sks = [GB.keygen(rng.bytes(32)) for _ in range(N_KEYS)]
+    sks = make_keys(rng)
     pks = [GB.sk_to_pk(sk) for sk in sks]
     roots = [rng.bytes(32) for _ in range(N_ROOTS)]
     hs = [GH.hash_to_g2(r) for r in roots]
@@ -543,7 +574,7 @@ def make_job(pool) -> dict:
         }[fault]
     cof = cof_async.get()
     return dict(
-        pks=pks, roots=roots, hs=hs, sets=sets, kinds=kinds, truth=truth, valid_sets=valid_sets,
+        sks=sks, pks=pks, roots=roots, hs=hs, sets=sets, kinds=kinds, truth=truth, valid_sets=valid_sets,
         wire_valid=wire_valid, wire_mixed=wire_mixed, wire_kinds=wire_kinds, wire_truth=wire_truth,
         wire_agg=wire_agg, agg_truth=agg_truth[:AGG_SETS], wire_sync=wire_sync, sync_truth=agg_truth[AGG_SETS:],
         comp=comp, rej_keys=rej_keys, hash_roots=hash_roots, hash_pts=hash_async.get(),
@@ -1332,8 +1363,9 @@ def slasher_phase(card: str, dev=None) -> tuple:
     plane_gib = 2 * spans.min_spans.numel() * 4 / 2**30
 
     # offenders: a (double vote), b (surround), c (surrounded), d (the
-    # old-source attack; offline in epochs 2.., so its one regular vote is
-    # pruned at finalization), and a double-proposing proposer
+    # old-source attack: online every epoch, so its regular votes of
+    # epochs 2.. outlive the finalization and its old-source vote
+    # surrounds them), and a double-proposing proposer
     a, b, c, d, proposer = (int(x) for x in rng.choice(v_all, 5, replace=False))
     sample = np.unique(np.concatenate([rng.choice(v_all, SLASHER_SAMPLE_ROWS, replace=False), [a, b, c, d]]))
     local = np.full(v_all, -1, np.int64)
@@ -1400,8 +1432,6 @@ def slasher_phase(card: str, dev=None) -> tuple:
         heads = [rng.bytes(32) for _ in range(n_slots)]
         atts = []
         for ci, members in enumerate(committees.tolist()):
-            if e >= 2 and d in members:
-                members.remove(d)
             slot, index = e * n_slots + ci // SLASHER_COMMITTEES_PER_SLOT, ci % SLASHER_COMMITTEES_PER_SLOT
             atts.append(_slasher_att(members, slot, index, heads[ci // SLASHER_COMMITTEES_PER_SLOT], e - 1, e))
         epochs.append(atts)
@@ -1447,11 +1477,16 @@ def slasher_phase(card: str, dev=None) -> tuple:
     launches = SP.LAUNCHES["span_update"]
     svc.stop()  # memory-only store: no snapshot, no plane leaves the card
 
+    # d's old-source vote (1, 14) surrounds each of its regular votes
+    # (e - 1, e) that outlives the finalization (e >= SLASHER_FINALIZED)
+    # and has a source above 1; they are found on the host (the vote's
+    # source lies below the window base)
+    d_surrounds = [("surround", (d,)) for e in range(SLASHER_FINALIZED, SLASHER_EPOCHS + 1) if 1 < e - 1 and e < 14]
     planted = sorted([("double_vote", (a,)), ("surround", (b,)), ("surrounded", (c,)), ("surrounded", (d,)),
-                      ("double_propose", (e5 + 3, proposer))])
+                      ("double_propose", (e5 + 3, proposer))] + d_surrounds)
     if sorted(found) != planted:
         raise AssertionError(f"slasher: detections {sorted(found)}, planted {planted}")
-    want_counts = {"double_vote": 1, "surround": 1, "surrounded": 2, "double_propose": 1}
+    want_counts = {"double_vote": 1, "surround": 1 + len(d_surrounds), "surrounded": 2, "double_propose": 1}
     if svc.detections != want_counts:
         raise AssertionError(f"slasher: detections by kind {svc.detections}, planted {want_counts}")
     if launches != acc["expected_launches"] or not launches:
@@ -1587,6 +1622,418 @@ def slasher_phase(card: str, dev=None) -> tuple:
     return line, [row]
 
 
+# -- the node ------------------------------------------------------------------
+
+NODE_EPOCH = 194_048 + 100  # a capella epoch of MAINNET_CHAIN_CONFIG (capella from 194,048)
+NODE_SLOT_IN_EPOCH = 7
+NODE_BAD_EVERY = 512  # one attester a committee signs the next committee's root
+NODE_REPUBLISH = 1024  # exact re-publishes of attestations already sent
+# a slot's subnet attestations arrive evenly over the 4 s from the attestation
+# deadline to the aggregation deadline, 1/3 and 2/3 of the slot: consensus-specs
+# phase0 validator.md, "Attesting" and "Attestation aggregation" (the fork
+# choice's INTERVALS_PER_SLOT = 3)
+NODE_INTERVALS_PER_SLOT = 3
+NODE_BALANCE = 32 * 10**9  # every validator's effective balance, Gwei
+# the kernels the node's path must launch: the cold roots' hash, the
+# pre-verify aggregation's sums, the RLC batch of the aggregated and the
+# committee sets (agg_pk)
+NODE_KERNELS = ("hash_g2", "g2_decompress", "seg_sum_g2", "affine_g2", "agg_pk", "g1_rpk", "g2_rsig_sub", "sum_g2",
+                "miller_loop", "prod12", "final_one")
+# every wrapper the phase may call, its first call held against its plain version
+NODE_HELD = NODE_KERNELS + ("seg_sum_g1", "g2_subgroup_check", "each_final")
+
+
+def _sign_wire(args):
+    """[sk] H(m) compressed (crypto/curves.py g2_compress)."""
+    from lodestar_tpu_torch.crypto import curves as GC
+
+    sk, h = args
+    return GC.g2_compress(GC.scalar_mul(GC.FP2_OPS, h, sk))
+
+
+def make_keys(rng) -> list:
+    """The script's N_KEYS secret keys, the first draws of `rng`."""
+    from lodestar_tpu_torch.crypto import bls as GB
+
+    return [GB.keygen(rng.bytes(32)) for _ in range(N_KEYS)]
+
+
+def shed_audit(sheds, pulls, n_published, outside, opts, max_ratio) -> list:
+    """A LIFO queue's sheds, dropped by an escalating ratio, against its
+    rules; -> the size of each overflow's shed.  `sheds` holds (stamp,
+    publish index, index of the publish during which it was shed) for each
+    shed message, `pulls` (stamp, publish index) for each pulled one, the
+    stamps from one counter; `outside` the publish indices held outside
+    the queue while the others arrived (parked for their block).  Raises
+    unless every shed happened during a publish, each overflow shed its
+    ratio of the queue one past its length (the start ratio, then a step
+    more each time, at most `max_ratio`; each overflow at this length
+    sheds at least one), from the stale end (every message pulled after a
+    shed, the outside ones apart, was published after it), none of the
+    outside ones, and every publish was pulled or shed once."""
+    by_publish = {}
+    for _, _, at in sheds:
+        by_publish[at] = by_publish.get(at, 0) + 1
+    sizes = [by_publish[at] for at in sorted(by_publish, key=lambda at: -1 if at is None else at)]
+    want, ratio = [], opts.drop.start
+    for _ in sizes:
+        want.append(int((opts.max_length + 1) * ratio))
+        ratio = min(max_ratio, ratio + opts.drop.step)
+    later_min, pull_stamps, min_from = n_published, [], []
+    for st, i in sorted(pulls, reverse=True):
+        if i not in outside:
+            later_min = min(later_min, i)
+        pull_stamps.append(st)
+        min_from.append(later_min)
+    pull_stamps.reverse()
+    min_from.reverse()
+    stale = []
+    for st, i, _ in sheds:
+        k = bisect.bisect_right(pull_stamps, st)
+        if k < len(pull_stamps) and min_from[k] < i:
+            stale.append(i)
+    shed_ids, pulled_ids = [i for _, i, _ in sheds], [i for _, i in pulls]
+    if (None in by_publish or sizes != want or stale or any(i in outside for i in shed_ids)
+            or sorted(pulled_ids + shed_ids) != list(range(n_published))):
+        raise AssertionError(f"sheds {sizes} (the rule gives {want}), {len(stale)} not from the stale end, "
+                             f"{sum(i in outside for i in shed_ids)} held outside the queue, "
+                             f"{None in by_publish} outside a publish; {len(pulled_ids)} pulled + "
+                             f"{len(shed_ids)} shed of {n_published} published")
+    return sizes
+
+
+def node_phase(table, keys, sks, card: str, dev=None) -> tuple:
+    """The port's BeaconNode over `table` (row r registered from `keys[r]`,
+    the compressed key of secret key `sks[r % N_KEYS]`), fed one mainnet slot of subnet attestations: the port's
+    EpochCache over every row of the table as an active validator
+    (committees_per_slot committees of the slot), one AttestationData a
+    committee (the last one votes for a block the fork choice does not know
+    yet), signing roots from get_attestation_data_signing_root on a
+    BeaconStateView of MAINNET_CHAIN_CONFIG at a capella slot, one
+    attester in NODE_BAD_EVERY signing the next committee's root,
+    NODE_REPUBLISH exact re-publishes, everything through
+    on_gossip_attestation in a shuffled slot order at the arrival times of
+    a slot (evenly over SECONDS_PER_SLOT / NODE_INTERVALS_PER_SLOT; each
+    publish tagged with its index as its peer), the attestation queue
+    shedding as its rules say, then drain_verdicts; then the block, the
+    parked committee released and drained; then each committee's full
+    aggregate through the node's service on its critical lane; then the
+    accepted votes into the fork choice and its head.  Raises unless every
+    verdict, shed, park, release and the head are as constructed and as
+    the queue's rules give, no set went to the host, every kernel of
+    NODE_KERNELS launched, and the first call of each kernel equals its
+    plain version.
+    Returns (node line, launches, {kernel: (max abs err, lanes held)})."""
+    from lodestar_tpu_torch.bls.verifier import VerifyOptions
+    from lodestar_tpu_torch.config import MAINNET_CHAIN_CONFIG
+    from lodestar_tpu_torch.crypto import fields as GT
+    from lodestar_tpu_torch.kernels import verify as KV
+    from lodestar_tpu_torch.network.gossip_queues import GOSSIP_QUEUE_OPTS, MAX_DROP_RATIO, GossipType
+    from lodestar_tpu_torch.node import BeaconNode, NodeOptions
+    from lodestar_tpu_torch.params import SECONDS_PER_SLOT, SLOTS_PER_EPOCH
+    from lodestar_tpu_torch.state_transition import (BeaconStateView, EpochCache,
+                                                     get_attestation_data_signing_root,
+                                                     get_indexed_attestation_signature_set)
+    from lodestar_tpu_torch.types import AttestationData
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    cfg = MAINNET_CHAIN_CONFIG
+    slot = NODE_EPOCH * SLOTS_PER_EPOCH + NODE_SLOT_IN_EPOCH
+    n_val = len(keys)
+    if len(table) != n_val:
+        raise AssertionError(f"node: a table of {len(table)} rows for {n_val} keys")
+
+    # committees: the port's EpochCache over every row as an active validator
+    t = time.perf_counter()
+    cache = EpochCache(keys, NODE_EPOCH, rng.bytes(32))
+    cps = cache.committees_per_slot
+    committees = [cache.get_beacon_committee(slot, i).tolist() for i in range(cps)]
+    members = [v for c in committees for v in c]
+    if cps < 2 or len(set(members)) != len(members) or len(members) != n_val // SLOTS_PER_EPOCH:
+        raise AssertionError(f"node: {cps} committees, {len(members)} attesters of {n_val} validators")
+    cache_s = time.perf_counter() - t
+
+    # blocks: P, and two children at the slot before: H (known), B (imported later)
+    hexroot = lambda: rng.bytes(32).hex()  # noqa: E731
+    genesis, p_root, h_root, b_root = hexroot(), hexroot(), hexroot(), hexroot()
+    parked_c = cps - 1
+    source = {"epoch": NODE_EPOCH - 1, "root": bytes.fromhex(p_root)}
+    target = {"epoch": NODE_EPOCH, "root": rng.bytes(32)}
+    view = BeaconStateView(config=cfg, slot=slot, epoch_cache=cache)
+    if cfg.get_fork_name(slot).value != "capella":
+        raise AssertionError(f"node: slot {slot} is in {cfg.get_fork_name(slot)}, not capella")
+    datas = [{"slot": slot, "index": c, "beacon_block_root": bytes.fromhex(b_root if c == parked_c else h_root),
+              "source": source, "target": target} for c in range(cps)]
+    roots = [get_attestation_data_signing_root(view, dt) for dt in datas]
+    data_keys = [AttestationData.hash_tree_root(dt) for dt in datas]
+    if len(set(roots)) != cps:
+        raise AssertionError("node: two committees share a signing root")
+
+    # signatures: one a (root, key) pair that occurs, and each committee's aggregate
+    bad_pos = [int(rng.integers(0, len(com))) for com in committees]
+    signed = {}  # validator -> the committee whose root it signs
+    for c, com in enumerate(committees):
+        for j, v in enumerate(com):
+            signed[v] = (c + 1) % cps if j == bad_pos[c] else c
+    bad = {committees[c][bad_pos[c]] for c in range(cps)}
+    pairs = sorted({(signed[v], v % N_KEYS) for v in members})
+    agg_scalars = [sum(sks[v % N_KEYS] for v in com) % GT.R for com in committees]
+    t = time.perf_counter()
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        hs = pool.map(_hash_to_g2, roots)
+        wire = pool.map(_sign_wire, [(sks[k], hs[r]) for r, k in pairs] + [(s, hs[c]) for c, s in
+                                                                               enumerate(agg_scalars)])
+    sign_s = time.perf_counter() - t
+    sig_of_pair = dict(zip(pairs, wire[:len(pairs)]))
+    agg_sigs = wire[len(pairs):]
+    log(f"node setup: EpochCache over {n_val} validators in {cache_s:.1f} s ({cps} committees of "
+        f"{len(committees[0])} at slot {slot}, {len(members)} attesters); {len(pairs)} (root, key) signatures and "
+        f"{cps} committee aggregates signed on the host in {sign_s:.1f} s ({min(8, os.cpu_count() or 1)} processes)")
+
+    # the gossip: originals in a shuffled order, re-publishes after their originals
+    comm_of = {v: c for c, com in enumerate(committees) for v in com}
+    perm = rng.permutation(len(members))
+    originals = [members[i] for i in perm]
+    pos = {v: i for i, v in enumerate(originals)}
+    others = [v for v in members if v not in bad]
+    reps = sorted(bad) + [others[i] for i in rng.choice(len(others), NODE_REPUBLISH - len(bad), replace=False)]
+    keyed = [((i, 0), v) for i, v in enumerate(originals)]
+    keyed += [((int(rng.integers(pos[v] + 1, len(originals) + 1)), 1), v) for v in reps]
+    order = [v for _, v in sorted(keyed, key=lambda kv: kv[0])]
+
+    arrival_s = SECONDS_PER_SLOT / NODE_INTERVALS_PER_SLOT
+    node = BeaconNode(cfg, table, genesis_root=genesis, opts=NodeOptions(device=dev))
+    try:
+        verifier = node.bls.verifier
+        begun = []
+        begin = verifier.begin_job
+
+        def recording_begin_job(job_sets, batchable):
+            job = begin(job_sets, batchable)
+            begun.append(job)
+            return job
+
+        verifier.begin_job = recording_begin_job
+        fc = node.fork_choice
+        fc.on_block(slot - 2, p_root, genesis)
+        fc.on_block(slot - 1, h_root, p_root)
+        q = node.processor.queues[GossipType.beacon_attestation]
+        q_opts = GOSSIP_QUEUE_OPTS[GossipType.beacon_attestation]
+
+        # instrumentation, through the node's and the queue's observers and
+        # the processor's worker: each publish carries its index in `order`
+        # as its peer; each pull and each shed is stamped from one counter,
+        # with the publish during which it happened; each verdict's time
+        # against its seen_at
+        stamp, publishing = itertools.count(), [None]
+        pulls, sheds, lat = [], [], []
+        worker = node.processor.worker
+
+        def stamped_worker(msg):
+            pulls.append((next(stamp), msg.peer_id))
+            worker(msg)
+
+        node.processor.worker = stamped_worker
+        q.on_drop = lambda msg: sheds.append((next(stamp), msg.peer_id, publishing[0]))
+        node.on_verdict = lambda v, seen_at, fut: lat.append((time.time() - seen_at, time.perf_counter(), v,
+                                                              fut.result()))
+
+        # the first call of each kernel the phase launches, recorded for the
+        # hold (its tensor operands copied before it runs); the calls by
+        # operand count (with or without the Montgomery ingest's plain planes)
+        first_calls, rec_lock, kv_orig, arity = {}, threading.Lock(), {}, {}
+
+        def first_call(name, f):
+            def run(*args):
+                with rec_lock:
+                    n = sum(a is not None for a in args)
+                    arity[name, n] = arity.get((name, n), 0) + 1
+                    first = name not in first_calls
+                    if first:
+                        first_calls[name] = None
+                if not first:
+                    return f(*args)
+                ins = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                out = f(*args)
+                outs = out if isinstance(out, tuple) else (out,)
+                first_calls[name] = (ins, tuple(o.clone() for o in outs))
+                return out
+            return run
+
+        for name in NODE_HELD:
+            kv_orig[name] = getattr(KV, name)
+            setattr(KV, name, first_call(name, kv_orig[name]))
+        try:
+            torch.cuda.synchronize()
+            KV.reset_launches()
+            max_depth = 0
+            t0 = time.perf_counter()
+            for i, v in enumerate(order):
+                due = t0 + i * arrival_s / len(order)
+                while time.perf_counter() < due:  # between arrivals the processor pulls what the service takes
+                    node.processor.execute_work()
+                    time.sleep(min(0.0005, max(0.0, due - time.perf_counter())))
+                c = comm_of[v]
+                publishing[0] = i
+                node.on_gossip_attestation(v, slot, data_keys[c], roots[c], sig_of_pair[signed[v], v % N_KEYS],
+                                           block_root=b_root if c == parked_c else h_root, peer_id=i)
+                max_depth = max(max_depth, len(q))
+            publishing[0] = None
+            t_published = time.perf_counter()
+            while len(q):
+                node.processor.execute_work()
+                time.sleep(0.0005)
+            parked = node.processor.awaiting_count
+            accepted_first = node.drain_verdicts(timeout=600)
+            # the block: imported, the parked committee released and drained
+            fc.on_block(slot - 1, b_root, p_root)
+            node.processor.on_block_processed(slot, b_root)
+            released = parked - node.processor.awaiting_count
+            while len(q):
+                node.processor.execute_work()
+                time.sleep(0.0005)
+            accepted_second = node.drain_verdicts(timeout=600)
+            jobs_gossip = len(begun)
+            # the committees' aggregates on the critical lane, as block import sends them
+            t1 = time.perf_counter()
+            agg_sets = [get_indexed_attestation_signature_set(view, cache.get_indexed_attestation(
+                {"aggregation_bits": [True] * len(com), "data": datas[c], "signature": agg_sigs[c]}))
+                for c, com in enumerate(committees)]
+            agg_futs = [node.bls.verify_signature_sets_async([s], VerifyOptions(batchable=True, priority=True))
+                        for s in agg_sets]
+            agg_ok = [f.result(timeout=600) for f in agg_futs]
+            agg_s = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            counts = dict(KV.LAUNCHES)
+            # (a verdict's observer runs just after its waiter wakes: read them all now)
+            t_gossip_end = max(t for _, t, _, _ in lat)
+        finally:
+            for name, f in kv_orig.items():
+                setattr(KV, name, f)
+        # the fused rows: the heading kernels' launches that made the ingest
+        # (the decoded paths' 8 planes, the wire paths' 4 message planes)
+        counts["mont_convert"] = arity.get(("g2_rsig_sub", 4), 0) + arity.get(("g2_subgroup_check", 3), 0)
+        counts["mont_convert_4"] = arity.get(("g2_decompress", 3), 0)
+        path_s = time.perf_counter() - t0
+        stats = node.processor.stats
+        agg_stats = node.bls.agg_stats()
+        factor = node.bls.mean_aggregation_factor()
+        status = node.bls.breaker_status()
+        host_sets = verifier.supervisor.m_host_fallback_sets.value
+        _breaker_clean(verifier.supervisor, "node")
+
+        parked_ids = {i for i, v in enumerate(order) if comm_of[v] == parked_c}
+        sizes = shed_audit(sheds, pulls, len(order), parked_ids, q_opts, MAX_DROP_RATIO)
+        pulled_ids = [i for _, i in pulls]
+        if stats.dropped != len(sheds) or stats.submitted != len(pulls) or max_depth > q_opts.max_length:
+            raise AssertionError(f"node: processor dropped {stats.dropped} and submitted {stats.submitted}; "
+                                 f"{len(sheds)} shed, {len(pulls)} pulled; queue peak {max_depth} of "
+                                 f"{q_opts.max_length}")
+
+        # the verdicts: a validator with a message left is verified once and
+        # seen as its signature says
+        left = {order[i] for i in pulled_ids}
+        want_seen = left - bad
+        seen_wrong = [v for v in members if node.seen_attesters.is_known(NODE_EPOCH, v) != (v in want_seen)]
+        verdict_wrong = [v for _, _, v, ok in lat if ok != (v not in bad)]
+        if accepted_first + accepted_second != len(want_seen) or seen_wrong or verdict_wrong:
+            raise AssertionError(f"node: {accepted_first} + {accepted_second} accepted, constructed "
+                                 f"{len(want_seen)}; {len(seen_wrong)} validators seen and {len(verdict_wrong)} "
+                                 f"verdicts against their signature")
+        if sorted(v for _, _, v, _ in lat) != sorted(left):
+            raise AssertionError(f"node: {len(lat)} submissions for {len(left)} validators with a message left")
+        expected_parked = sum(comm_of[v] == parked_c for v in order)
+        if (stats.past_slot, stats.reprocess_rejected, stats.reprocess_expired) != (0, 0, 0) \
+                or parked != expected_parked or released != expected_parked \
+                or stats.reprocess_parked != expected_parked:
+            raise AssertionError(f"node: parked {parked} / {stats.reprocess_parked}, released {released}, "
+                                 f"expected {expected_parked}; past slot {stats.past_slot}, rejected "
+                                 f"{stats.reprocess_rejected}, expired {stats.reprocess_expired}")
+        if agg_ok != [True] * cps:
+            raise AssertionError(f"node: committee aggregates {agg_ok}")
+        if host_sets or status["state"] != "closed" or any(j.host_sets or j.host_mode for j in begun):
+            raise AssertionError(f"node: breaker {status['state']}, {host_sets} host-fallback sets")
+        missing = [k for k in NODE_KERNELS if not counts[k]]
+        if missing:
+            raise AssertionError(f"node: kernels never launched: {missing} ({counts})")
+
+        # the first call of each launched kernel against its plain version
+        t = time.perf_counter()
+        held = {}
+        for name, call in sorted(first_calls.items()):
+            if call is None:
+                raise AssertionError(f"node: the first call of {name} did not return")
+            args, k_outs = call
+            p_out = getattr(KV, name + "_plain")(*args)
+            p_outs = p_out if isinstance(p_out, tuple) else (p_out,)
+            if len(p_outs) != len(k_outs):
+                raise AssertionError(f"node: {name} gave {len(k_outs)} outputs, its plain version {len(p_outs)}")
+            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+                      for a, b in zip(k_outs, p_outs))
+            if err or not all(torch.equal(a, b) for a, b in zip(k_outs, p_outs)):
+                raise AssertionError(f"node: the first call of {name} differs from its plain version (max {err})")
+            # the call's lanes: the reductions' inputs, the others' outputs (agg_pk's first operand is the table)
+            held[name] = (err, int((args[0] if name in ("sum_g2", "prod12") else k_outs[0]).shape[-1]))
+        unheld = [k for k, n in counts.items() if n and k not in held and k in NODE_HELD]
+        if unheld:
+            raise AssertionError(f"node: launched but not held: {unheld}")
+        torch.cuda.synchronize()
+        held_s = time.perf_counter() - t
+
+        # the accepted votes into the fork choice, then its head
+        t = time.perf_counter()
+        for v in sorted(want_seen):
+            fc.on_attestation(v, NODE_EPOCH, b_root if comm_of[v] == parked_c else h_root)
+        fc.set_balances(np.full(n_val, NODE_BALANCE, np.int64))
+        votes_s = time.perf_counter() - t
+        t = time.perf_counter()
+        head = fc.update_head()
+        head_ms = (time.perf_counter() - t) * 1e3
+        votes_b = sum(comm_of[v] == parked_c for v in want_seen)
+        weights = {r: fc.get_node(r).weight for r in (p_root, h_root, b_root)}
+        want_w = {p_root: len(want_seen) * NODE_BALANCE, h_root: (len(want_seen) - votes_b) * NODE_BALANCE,
+                  b_root: votes_b * NODE_BALANCE}
+        # the heavier child of P, the larger root on a tie (proto_array.py's tiebreak)
+        want_head = max((want_w[h_root], h_root), (want_w[b_root], b_root))[1]
+        if head != want_head or weights != want_w:
+            raise AssertionError(f"node: head {head} (want {want_head}), weights {weights} (want {want_w})")
+    finally:
+        node.close()
+
+    dt = t_gossip_end - t0
+    lat_all = [x for x, _, _, _ in lat]
+    lat_unparked = [x for x, _, v, _ in lat if comm_of[v] != parked_c]
+    sets_begun = sum(len(j.sets) for j in begun[:jobs_gossip])
+    line = {
+        "validators": n_val, "slot": slot, "fork": cfg.get_fork_name(slot).value, "committees": cps,
+        "committee_size": len(committees[0]), "attestations": len(members), "published": len(order),
+        "bad": len(bad), "republished": len(reps), "arrival_window_s": arrival_s,
+        "arrivals_per_s": len(order) / arrival_s, "publish_s": t_published - t0,
+        "dropped": stats.dropped, "shed_events": sizes, "validators_all_shed": len(members) - len(left),
+        "queue_peak": max_depth, "queue_max_length": q_opts.max_length, "verified": len(lat),
+        "accepted": accepted_first + accepted_second, "deduped": len(pulls) - len(lat),
+        "parked": parked, "released": released,
+        "gossip_s": dt, "verdicts_per_s": len(lat) / dt, "pulled_per_s": len(pulls) / dt,
+        "verdict_latency_p50_ms": _percentile(lat_all, 0.5) * 1e3,
+        "verdict_latency_p99_ms": _percentile(lat_all, 0.99) * 1e3,
+        "verdict_latency_unparked_p50_ms": _percentile(lat_unparked, 0.5) * 1e3,
+        "verdict_latency_unparked_p99_ms": _percentile(lat_unparked, 0.99) * 1e3,
+        "jobs_begun": jobs_gossip, "sets_per_job": sets_begun / max(jobs_gossip, 1),
+        "aggregation_factor": factor, "preagg": agg_stats,
+        "committee_aggregates": {"sets": cps, "k": len(committees[0]), "all_true": all(agg_ok), "s": agg_s,
+                                 "jobs_begun": len(begun) - jobs_gossip},
+        "launches": {k: v for k, v in counts.items() if v}, "first_calls_held": {k: v[1] for k, v in held.items()},
+        "held_s": held_s, "host_fallback_sets": host_sets, "breaker": status["state"],
+        "fork_choice": {"head": head, "votes_s": votes_s, "head_ms": head_ms, "balances": n_val},
+        "epoch_cache_s": cache_s, "signing_s": sign_s, "path_s": path_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    log("node " + json.dumps(line))
+    return line, counts, held
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1619,6 +2066,23 @@ def main() -> int:
     if "--slasher-only" in sys.argv[1:]:  # the slasher phase alone: its lines, no result line
         _, rows = slasher_phase(card)
         print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if "--node-only" in sys.argv[1:]:  # the node phase alone, over its own table: its lines, no result line
+        t = time.perf_counter()
+        with ThreadPoolExecutor(1) as builder:
+            build = builder.submit(B.build_all)
+            sks = make_keys(np.random.default_rng(SEED))
+            comp = [GC.g1_compress(GB.sk_to_pk(sk)) for sk in sks]
+            build.result()
+        keys = [comp[r % N_KEYS] for r in range(TABLE_ROWS)]
+        table = PubkeyTable()
+        if table.register_compressed(keys, device_batch=REG_CHUNK) != list(range(TABLE_ROWS)):
+            raise AssertionError("node: the table's registration")
+        log(f"node setup: kernels built, {TABLE_ROWS} keys registered in {time.perf_counter() - t:.1f} s")
+        _, counts, held = node_phase(table, keys, sks, card)
+        print(json.dumps({"kernels": [{"name": k, "route": "cuda", "launches": counts[k], "max_abs_err": e,
+                                       "first_call_lanes_held": lanes} for k, (e, lanes) in held.items()]}),
+              flush=True)
         return 0
 
     # -- 1. setup --------------------------------------------------------------
@@ -2782,16 +3246,22 @@ def main() -> int:
     breaker_phase(table, d, card)
     log(f"service phases: {time.perf_counter() - t:.1f} s")
 
-    # -- 5. the hash forest ------------------------------------------------------
+    # -- 5. the node --------------------------------------------------------------
+    node_line, node_counts, node_held = node_phase(table, keys, d["sks"], card)
+    paths["node", node_line["attestations"]] = node_counts
+    log(f"node phase: {node_line['phase_s']:.1f} s")
+
+    # -- 6. the hash forest ------------------------------------------------------
     htr_line, htr_rows = htr_phase(card, sm_mhz)
     log(f"hash forest phase: {htr_line['phase_s']:.1f} s")
 
-    # -- 6. the slasher (32 GiB of span planes: the earlier phases' tensors released first)
+    # -- 7. the slasher (32 GiB of span planes: the earlier phases' tensors released first)
+    gc.collect()
     torch.cuda.empty_cache()
     slasher_line, slasher_rows = slasher_phase(card)
     log(f"slasher phase: {slasher_line['phase_s']:.1f} s")
 
-    # -- 7. result lines -----------------------------------------------------------
+    # -- 8. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
 
     def needed_muls(name, n, units):
@@ -2860,6 +3330,7 @@ def main() -> int:
                                 for (r, m, p), (e, pm) in ingest.items() if r == name},
                 "fp_muls_needed": needed_muls(host, n, units), "fp_muls_done": KV.FP_MULS_PER_LANE[host] * units,
                 "launches_by_path": {f"{p} N={pn}": c[host] for (p, pn), c in paths.items()},
+                "node_launches": node_counts[name],
             }
             if (host, JOBS[0]) in results:
                 entry["ms_n128"], entry["plain_ms_n128"] = results[host, JOBS[0]][:2]
@@ -2889,7 +3360,10 @@ def main() -> int:
             "path": path, "n": n,
             "fp_muls_needed": needed_muls(name, n, units), "fp_muls_done": KV.FP_MULS_PER_LANE[name] * done,
             "launches_by_path": {f"{p} N={pn}": c[name] for (p, pn), c in paths.items()},
+            "node_launches": node_counts[name],
         }
+        if name in node_held:  # the node phase's first call of the kernel, held against its plain version
+            entry["node_first_call_held"] = {"max_abs_err": node_held[name][0], "lanes": node_held[name][1]}
         if name == "agg_pk":
             entry["live_rows"], entry["k_bucket"] = agg_live_rows, k_bucket
             entry.update(agg_info)

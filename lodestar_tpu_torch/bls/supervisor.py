@@ -285,14 +285,13 @@ class DeviceSupervisor:
         supervision disabled)."""
         if not self.enabled:
             return True
-        # benign race: a per-job advisory read; a stale state costs one
-        # extra probe or shed, and transitions settle under the lock
+        # tpulint: disable=guarded-by -- benign race: per-job hot-path advisory read; a stale breaker state costs one extra probe/shed, and transitions settle under the lock
         return self.state == STATE_CLOSED
 
     def is_open(self) -> bool:
         """True while degraded (open or half-open) — the health
         endpoint's `degraded` source."""
-        # benign race: the health endpoint's advisory read
+        # tpulint: disable=guarded-by -- benign race: health-endpoint advisory read; staleness is bounded by one watchdog tick and the value is monotonic within a probe window
         return self.enabled and self.state != STATE_CLOSED
 
     # -- the watchdog ------------------------------------------------------

@@ -23,6 +23,10 @@ library as `<name>-<hash>.ptxas.txt`.
 instead (every PTX carry instruction emulated); the tests use it to hold
 the CUDA engine's arithmetic against the plain torch engine on a machine
 without a GPU.
+
+`build_native` compiles the port's host libraries, `native/<name>.cpp`
+(the KV store of `db/controller.py`), with the host C++ compiler into the
+same directory, cached by a hash of the source and the flags.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parents[1] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = (
     "subgroup", "miller", "final", "randmul", "reduce", "tail", "ingest", "aggpk", "keyvalidate", "segsum", "sha256", "spans",
@@ -48,6 +53,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-w"]
+NATIVE_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -93,9 +99,10 @@ def nvcc() -> str:
     return path
 
 
-def _compile_all(cmd_for, out_for, names=SOURCES) -> None:
+def _compile_all(cmd_for, out_for, names=SOURCES, log_suffix=".ptxas.txt") -> None:
     """Start one compiler process per source of `names`, all together; wait
-    for all; raise with the compiler's output if any failed."""
+    for all; raise with the compiler's output if any failed.  Each
+    compiler's output is kept beside its library under `log_suffix`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -118,7 +125,7 @@ def _compile_all(cmd_for, out_for, names=SOURCES) -> None:
             errors.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
             continue
         out = out_for(name)
-        out.with_suffix(".ptxas.txt").write_text(log)
+        out.with_suffix(log_suffix).write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
@@ -141,15 +148,32 @@ def build_host(names=SOURCES) -> Dict[str, Path]:
     compiler (tests)."""
     digest = source_hash(HOST_FLAGS)
     out_for = lambda name: BUILD_DIR / f"host-{name}-{digest}.so"  # noqa: E731
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no host C++ compiler")
+    cxx = host_cxx()
     _compile_all(
         lambda name, tmp: [cxx, *HOST_FLAGS, "-I", str(include_dir()), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         out_for,
         names,
     )
     return {name: out_for(name) for name in names}
+
+
+def host_cxx() -> str:
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler")
+    return cxx
+
+
+def build_native(name: str) -> Path:
+    """Compile the host library `native/<name>.cpp` with the host C++
+    compiler (cached by a hash of the source and the flags)."""
+    src = NATIVE / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(NATIVE_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = BUILD_DIR / f"native-{name}-{h.hexdigest()[:16]}.so"
+    cxx = host_cxx()
+    _compile_all(lambda _n, tmp: [cxx, *NATIVE_FLAGS, "-o", str(tmp), str(src)], lambda _n: out, (name,), ".log")
+    return out
 
 
 def ptxas_report() -> Dict[str, str]:

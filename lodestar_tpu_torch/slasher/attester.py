@@ -51,7 +51,10 @@ class AttesterSlasher:
     span update.  Groups are applied sequentially, so conflicting
     attestations arriving in the SAME batch still detect each other —
     whichever of the pair is processed second sees the first in the
-    spans (both probe directions are covered either way).
+    spans (both probe directions are covered either way).  A vote whose
+    source lies below the window base has no span column: its rows'
+    records are probed on the host instead (the JAX package's detector
+    skips the probe there and misses such surrounds).
     """
 
     def __init__(
@@ -186,8 +189,19 @@ class AttesterSlasher:
                             self.evidence_missing += 1
                         else:
                             emit("surround", att_of[v], prior)
-            # apply UNCONDITIONALLY: a below-window source cannot be
-            # probed, but its max-span updates over (s, t) still land
+            else:
+                # the source lies below the window: the spans hold no
+                # column for it, so the rows' records are probed on the
+                # host, every record the vote surrounds or that surrounds
+                # it (few votes have such a source)
+                for v in rows:
+                    for (ps, pt), (_root, prior) in self._records.get(v, {}).items():
+                        if ps < s and pt > t:
+                            emit("surrounded", prior, att_of[v])
+                        if ps > s and pt < t:
+                            emit("surround", att_of[v], prior)
+            # apply UNCONDITIONALLY: a below-window source has no span
+            # column to probe, but its max-span updates over (s, t) still land
             # inside the window (the kernel clamps), so an INNER vote
             # arriving later is still caught — the classic old-source
             # surround attack must not slip through the window base

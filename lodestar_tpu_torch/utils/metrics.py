@@ -1,12 +1,12 @@
 """The metrics registry of the BLS service layer, a copy of
 `lodestar_tpu/utils/metrics.py` (only the metric kinds the service, the
-pipeline, the aggregator, the verifier and the breaker observe, and the
-whole `BlsPoolMetrics` field set).
+pipeline, the aggregator, the verifier, the breaker and the gossip queues
+observe, and the whole `BlsPoolMetrics` field set).
 
 The names are the JAX package's, verbatim: the reference's
 `lodestar_bls_thread_pool_*` family and the `lodestar_bls_*` series,
-which dashboards and the node read.  The Prometheus text exposition and
-the process-global registry are not ported.
+which dashboards and the node read.  The Prometheus text exposition is
+not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +55,11 @@ class LabeledGauge:
     def inc(self, label_value: str, amount: float) -> None:
         with self._lock:
             self._v[label_value] = self._v.get(label_value, 0.0) + amount
+
+    def set(self, label_value: str, v: float) -> None:
+        """Idempotent resample (the gossip queues' depth)."""
+        with self._lock:
+            self._v[label_value] = v
 
     def get(self, label_value: str) -> float:
         return self._v.get(label_value, 0.0)
@@ -159,6 +164,15 @@ class Registry:
 
 
 _SECONDS = [0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5]
+
+
+_GLOBAL_REGISTRY = Registry()
+
+
+def global_registry() -> Registry:
+    """The process-global registry (where the gossip queues' series land
+    when the processor is given none)."""
+    return _GLOBAL_REGISTRY
 
 
 class BlsPoolMetrics:

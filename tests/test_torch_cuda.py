@@ -978,3 +978,28 @@ def test_torch_span_state_on_card_equals_numpy(dev):
     snap = c.snapshot()
     assert np.array_equal(snap.min_spans, a.min_spans) and np.array_equal(snap.max_spans, a.max_spans)
     assert AttesterSlasher().spans.min_spans.is_cuda  # the card with no argument
+
+
+def test_node_phase_on_card(dev, monkeypatch):
+    """chip_smoke.node_phase at 8,192 validators (2 committees of 128 at
+    the slot, 2 bad attesters, 32 re-publishes, the second committee
+    parked until its block; 288 arrivals over the slot's 4 s, too few to
+    fill the queue): every verdict as constructed, the parked
+    committee released, both committee aggregates True, no set on the
+    host, every kernel of the node's path launched and its first call
+    equal to its plain version, the head where the votes point."""
+    import chip_smoke as CS
+    from lodestar_tpu_torch.crypto import bls as GB
+
+    monkeypatch.setattr(CS, "NODE_REPUBLISH", 32)
+    n = 8192
+    sks = CS.make_keys(np.random.default_rng(CS.SEED))
+    pks = [GB.sk_to_pk(sk) for sk in sks]
+    comp = [GC.g1_compress(pk) for pk in pks]
+    table = PubkeyTable()
+    table.register_points_unchecked(pks, tile_to=n)
+    line, counts, held = CS.node_phase(table, [comp[r % CS.N_KEYS] for r in range(n)], sks, "test")
+    assert (line["committees"], line["attestations"], line["accepted"]) == (2, 256, 254)
+    assert line["parked"] == line["released"] > 128 and line["dropped"] == 0 and line["deduped"] == 32
+    assert line["host_fallback_sets"] == 0 and line["committee_aggregates"]["all_true"]
+    assert set(held) >= set(CS.NODE_KERNELS) and all(counts[k] for k in held)

@@ -43,6 +43,10 @@ def imports_of(path: Path):
 
 def test_the_port_has_modules_to_check():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py") in FILES
+    # the node slice's modules, among them the store that builds its own engine
+    for rel in ("node.py", "db/controller.py", "network/processor.py", "fork_choice/proto_array.py",
+                "config/chain_config.py", "state_transition/signature_sets.py"):
+        assert ROOT / "lodestar_tpu_torch" / rel in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -187,3 +187,20 @@ def test_both_refuse_the_same_malformed_input(case):
     for t in _pair(make):
         with pytest.raises(ValueError):
             getattr(t, method)(arg)
+
+
+def test_the_port_defines_every_container_of_the_jax_package():
+    """Every fork's containers (bellatrix, capella, deneb, the blinded and
+    the builder types among them) and the per-fork `ssz` namespaces."""
+    theirs = sorted(name for name, v in vars(JT).items() if isinstance(v, JS.Container))
+    assert theirs == CONTAINERS
+    for name in ("BeaconBlockBodyBellatrix", "ExecutionPayloadCapella", "BeaconBlockBodyDeneb",
+                 "BlindedBeaconBlockBodyDeneb", "SignedBuilderBidDeneb", "BlobSidecar"):
+        assert name in CONTAINERS
+    for fork, ns in vars(JT.ssz).items():
+        if not hasattr(ns, "__dict__") or hasattr(ns, "hash_tree_root"):  # Epoch, Slot, Root
+            assert _structure(getattr(TT.ssz, fork)) == _structure(ns)
+            continue
+        assert sorted(vars(getattr(TT.ssz, fork))) == sorted(vars(ns))
+        for name, t in vars(ns).items():
+            assert _structure(getattr(getattr(TT.ssz, fork), name)) == _structure(t)

@@ -155,11 +155,17 @@ Needs one CUDA device; exits non-zero without one.  In order:
      equal to the host's, each of hash_pairs, forest_sweep and
      validator_roots launched exactly as the dirty sets and the level gate
      give (`htr_expected`), no host level, the breaker closed; every
-     kernel call of the path, and each kernel alone (hash_pairs at 1 to
-     1,048,576 pairs, forest_sweep on the slot's (40, 512) plan and on it
-     with dead lanes, validator_roots at 512 and 1,048,576 rows), held
-     against its plain version on the card; the bounds from each kernel's
-     SASS (cuobjdump), its instructions counted pipe by pipe; its `htr` line.
+     kernel call of the path (the sweeps with each level's live lanes),
+     and each kernel alone (hash_pairs at 1 to 1,048,576 pairs,
+     forest_sweep on the slot's (40, 512) plan with its live lanes, on it
+     without them and with dead lanes, and on the (40, 1) chain of one
+     live lane, validator_roots at 512 and 1,048,576 rows), held against
+     its plain version on the card; the bounds from each kernel's SASS
+     (cuobjdump), its instructions counted pipe by pipe, the sweep's the
+     larger of that and its chain floor (40 levels x one hash's dependent
+     critical path at ALU_LATENCY_CLK), with this build's lone-warp floor
+     (its instructions at one warp's share of each pipe) printed beside
+     it; its `htr` line.
      `python3 chip_smoke.py --htr-only` runs this phase alone (its lines,
      no result line);
   7. the slasher: the port's SlasherService (no chain, no db, history
@@ -176,11 +182,17 @@ Needs one CUDA device; exits non-zero without one.  In order:
      detections by kind and offender equal to the planted ones and to the
      port's NaiveAttesterSlasher's over the same stream; 4,096 sampled
      rows and every offender's row of the card's planes equal to a numpy
-     SpanState fed the same applies; span_update's launches equal to the
-     applies that can change a cell; the kernel alone against its plain
-     version on 65,536 x 4,096 planes (512 rows, every row with t = H - 1,
-     a source below the window, source = target, no row); its `slasher`
-     line.  `python3 chip_smoke.py --slasher-only` runs this phase alone;
+     SpanState fed the same applies; every apply that can change a cell
+     carried by exactly one span_update launch (TorchSpanState defers
+     them into one span_update_many launch a drain), each drain one
+     launch, at most SLASHER_LAUNCHES_PER_FLUSH launches in each flush
+     (the launches outside flushes reported apart), the drains by reason and the flushes' time split into apply, lookup,
+     drain and the rest; the kernel alone against its plain version on
+     65,536 x 4,096 planes (512 rows, every row with t = H - 1, a source
+     below the window, source = target, no row) and, as a flush drains
+     it, 512 committees of 512 in one launch on 262,144 x 4,096 planes;
+     its `slasher` line.  `python3 chip_smoke.py --slasher-only` runs
+     this phase alone;
   8. one JSON line {"kernels": [...]} (each BLS row with its launches in
      the node phase and, where the phase launched it, its first call's
      hold) and, last, {"ok": true, "device": ...}.
@@ -1041,12 +1053,46 @@ def sass_clocks(counts: dict) -> float:
     return max(counts[pipe] / lanes for pipe, lanes in PIPE_LANES_PER_CLK_PER_SM.items())
 
 
-def sass_counts(so_path: str) -> dict:
-    """sass_pipe_counts of a built library's kernels."""
+def sass_text(so_path: str) -> str:
+    """The SASS listing of a built library (cuobjdump -sass)."""
     from lodestar_tpu_torch.kernels import build as B
 
-    return sass_pipe_counts(subprocess.run([os.path.join(os.path.dirname(B.nvcc()), "cuobjdump"), "-sass", so_path],
-                                           check=True, capture_output=True, text=True).stdout)
+    return subprocess.run([os.path.join(os.path.dirname(B.nvcc()), "cuobjdump"), "-sass", so_path],
+                          check=True, capture_output=True, text=True).stdout
+
+
+# Hopper's fixed-latency integer and logic instructions (IADD3, LOP3, SHF,
+# IMAD, MOV, PRMT, ...): clocks from issue to a dependent instruction's issue
+ALU_LATENCY_CLK = 4
+
+
+def sass_chain_cycles(sass: str, kernel: str) -> int:
+    """One thread's dependent critical path through a kernel of a SASS
+    listing, in clocks: each integer or logic instruction (as
+    sass_pipe_counts counts them) issues when its source registers are
+    ready and makes its destination ready ALU_LATENCY_CLK later; loads,
+    stores, constant reads and control flow take no time (the chain is the
+    arithmetic).  For straight-line code such as one hash."""
+    regs = lambda text: re.findall(r"\b(U?R\d+|U?P\d+)\b", text)  # noqa: E731
+    ready, depth, cur = {}, 0, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if not m or not cur or kernel not in cur:
+            continue
+        op = m.group(2).split(".")[0]
+        operands = [o for o in m.group(3).split(",") if o.strip()]
+        alu = op not in _NON_ALU and not op.startswith("U")
+        srcs = [r for o in operands[1:] for r in regs(o)] + regs(m.group(1) or "")
+        start = max((ready.get(r, 0) for r in srcs), default=0)
+        if alu or op.startswith("LD") or op.startswith("S2"):  # a store's first operand is its address
+            for r in regs(operands[0]) if operands else ():
+                ready[r] = start + (ALU_LATENCY_CLK if alu else 0)
+        depth = max(depth, start + (ALU_LATENCY_CLK if alu else 0))
+    return depth
 
 
 def htr_phase(card: str, sm_mhz: float) -> tuple:
@@ -1192,17 +1238,30 @@ def htr_phase(card: str, sm_mhz: float) -> tuple:
 
     for n in HTR_PAIR_SIZES:
         alone["hash_pairs", n] = hold("hash_pairs", (words((n, 16)),))
-    dead = [x.clone() for x in sweep_plan]
-    dead[1][:, 1::2] = dead[1].shape[1] + 3  # every odd lane's digest dropped (a dead lane)
+    # without live counts (every lane hashed, JAX's semantics), every odd
+    # lane's digest dropped
+    dead = [x.clone() for x in sweep_plan[:3]]
+    dead[1][:, 1::2] = dead[1].shape[1] + 3
+
     def live_lanes(plan):
-        """Lanes whose digest the plan uses: those scattered into the next
-        level, and the root."""
+        """Lanes whose digest the plan uses: with live counts their sum,
+        else those scattered into the next level, and the root."""
+        if len(plan) > 3:
+            return int(plan[3].sum())
         lane = plan[1]
         return int((lane[:-1] < lane.shape[1]).sum()) + 1
 
-    live = {"slot_plan": live_lanes(sweep_plan), "dead_lanes": live_lanes(dead)}
+    # the chain alone: 40 levels of one live lane, each digest the next row's half
+    k_sweep = sweep_plan[0].shape[0]
+    one_lane = (words((k_sweep, 1, 16)), torch.zeros((k_sweep, 1), dtype=torch.int32, device=dev),
+                torch.from_numpy(rng.integers(0, 2, (k_sweep, 1)).astype(np.int32)).to(dev),
+                torch.ones(k_sweep, dtype=torch.int32, device=dev))
+    live = {"slot_plan": live_lanes(sweep_plan), "dead_lanes": live_lanes(dead), "one_lane": k_sweep}
     alone["forest_sweep", "slot_plan"] = hold("forest_sweep", sweep_plan)
     alone["forest_sweep", "dead_lanes"] = hold("forest_sweep", tuple(dead))
+    alone["forest_sweep", "one_lane"] = hold("forest_sweep", one_lane)
+    if sweep_plan[3].tolist() != sorted(sweep_plan[3].tolist(), reverse=True) or int(sweep_plan[3][-1]) != 1:
+        raise AssertionError(f"htr: the slot plan's live lanes {sweep_plan[3].tolist()}")
     for n in HTR_ROOT_SIZES:
         cols = [words((n, 8)), words((n, 8))] + [words((n, 2)) for _ in range(5)]
         cols.append(SK.to_tensor(rng.integers(0, 2, n).astype(np.uint32), dev))
@@ -1211,11 +1270,26 @@ def htr_phase(card: str, sm_mhz: float) -> tuple:
 
     # bounds: each kernel's SASS instructions, pipe by pipe, over the card's
     # rate for that pipe (the busiest pipe), or its bytes over the memory rate
-    sass = sass_counts(str(B.build_all()["sha256"]))
+    listing = sass_text(str(B.build_all()["sha256"]))
+    sass = sass_pipe_counts(listing)
     ptxas = ptxas_entries(B.ptxas_report()["sha256"])
     clk_per_ms = sm_mhz * 1e3
     per_hash = sass_clocks(sass["hash_pairs"])  # one hash, straight-line code
     per_validator = sass_clocks(sass["validator_roots"])  # seven hashes and the packing, straight-line
+    # the sweep's chain floor: its K levels are K dependent hashes, so no
+    # design beats K x one hash's dependent critical path.  Beside it, this
+    # build's own floor for a lone warp: its instructions at one warp's
+    # share of each pipe (an SM's 4 sub-partitions each issue one warp
+    # instruction a clock to 16-lane ALU and FMA pipes: 128 x sass_clocks),
+    # which follows the compiler's instruction mix and is not the bound
+    chain_clk = sass_chain_cycles(listing, HTR_KERNELS["hash_pairs"][0])
+    warp_clk = 128 * per_hash
+    chain_floor_ms = k_sweep * chain_clk / clk_per_ms
+    one_warp_issue_ms = k_sweep * max(chain_clk, warp_clk) / clk_per_ms
+    log(f"htr: forest_sweep chain floor {chain_floor_ms:.6f} ms ({k_sweep} x {chain_clk} clk at {sm_mhz:.0f} MHz), "
+        f"this build's lone-warp issue floor {one_warp_issue_ms:.6f} ms ({k_sweep} x {max(chain_clk, warp_clk)} clk), "
+        f"the ({k_sweep}, 1) one-lane sweep {alone['forest_sweep', 'one_lane'][0]:.6f} ms, "
+        f"the slot plan {alone['forest_sweep', 'slot_plan'][0]:.6f} ms")
 
     def bound(name, n):
         if name == "hash_pairs":
@@ -1225,6 +1299,8 @@ def htr_phase(card: str, sm_mhz: float) -> tuple:
         else:
             clocks, nbytes = n * per_validator, n * (2 * 32 + 5 * 8 + 4 + 32)
         ops_ms, bytes_ms = clocks / N_SM / clk_per_ms, nbytes / PEAK_BYTES_PER_S * 1e3
+        if name == "forest_sweep":  # the larger of the throughput bound and the chain floor (operations both)
+            ops_ms = max(ops_ms, chain_floor_ms)
         return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
     rows_out = []
@@ -1249,13 +1325,19 @@ def htr_phase(card: str, sm_mhz: float) -> tuple:
             "sass_int_mix": sass[name]["mix"], "pipe_lanes_per_clk_per_sm": PIPE_LANES_PER_CLK_PER_SM,
             "ptxas": next((v for k, v in ptxas.items() if kernel in k), None), "card": card,
         }
+        entry.update({"launches_per_flush": None, "applies_per_launch": None, "live": None,
+                      "chain_floor_ms": None, "one_lane_ms": None})
         if name == "forest_sweep":
-            entry["live_lanes_slot_plan"] = live["slot_plan"]
-            entry["plan_shape"] = list(sweep_plan[0].shape[:2])
-            # the design's floor: one block hashes all K x B lanes, dead ones
-            # too (the output equals JAX's on every lane), on one SM
-            entry["one_sm_issue_ms"] = sweep_plan[0].shape[0] * sweep_plan[0].shape[1] * sass_clocks(
-                sass[name]) / clk_per_ms
+            entry.update({
+                "live": sweep_plan[3].tolist(), "live_lanes_slot_plan": live["slot_plan"],
+                "plan_shape": list(sweep_plan[0].shape[:2]), "chain_floor_ms": chain_floor_ms,
+                "one_lane_ms": alone[name, "one_lane"][0], "bound_kind": "chain floor" if b_ms == chain_floor_ms
+                else "throughput", "throughput_bound_ms": max(live["slot_plan"] * per_hash / N_SM / clk_per_ms,
+                                                              live["slot_plan"] * (64 + 8 + 32) / PEAK_BYTES_PER_S * 1e3),
+                "chain_clk_per_hash": chain_clk, "one_warp_clk_per_hash": warp_clk,
+                "one_warp_issue_floor_ms": one_warp_issue_ms,
+                "alu_latency_clk": ALU_LATENCY_CLK, "sm_mhz": sm_mhz,
+            })
         if name == "validator_roots":
             entry["note"] = "its first phase is pack_validator_blocks_device (lodestar_tpu/kernels/sha256.py:250)"
         rows_out.append(entry)
@@ -1279,6 +1361,8 @@ SLASHER_FINALIZED = 2
 SLASHER_SAMPLE_ROWS = 4096  # rows of the card's planes held against the numpy SpanState
 SLASHER_ALONE_ROWS = 65536  # planes of the kernel-alone check: 65,536 x 4,096
 SLASHER_ALONE_SELECTED = 512
+SLASHER_FLUSH_DATAS = 512  # the flush drain: a flush's (max_batch) committees, one launch
+SLASHER_LAUNCHES_PER_FLUSH = 3  # the most a flush may make: the batch drains at a row cap, an overlap or a read
 SPANS_SOURCE = "lodestar_tpu_torch/kernels/csrc/spans.cu"
 SPANS_REPLACES = "lodestar_tpu/slasher/device.py:39"
 
@@ -1374,41 +1458,55 @@ def slasher_phase(card: str, dev=None) -> tuple:
 
     # the path's hooks: the applies fed to the numpy mirror, their host
     # time, the launches they should make, the lookups, the flushes
-    acc = {"applies": 0, "expected_launches": 0, "apply_s": 0.0, "lookups": 0, "lookup_s": 0.0,
-           "advance_s": 0.0}
-    flush_s, batches, found = [], [], []
-    real_apply, real_lookup, real_advance = spans.apply, spans.lookup, spans.advance_base
+    # the drains' host time (the launch and its rows' copy) is taken out of
+    # the apply, lookup or window shift that made them
+    acc = {"applies": 0, "changing_applies": 0, "apply_s": 0.0, "lookups": 0, "lookup_s": 0.0, "advance_s": 0.0,
+           "drain_s": 0.0, "drain_in_flush_s": 0.0, "in_flush": False}
+    flush_s, flush_launches, batches, found, drains_outside = [], [], [], [], {}
+    real_apply, real_lookup, real_advance, real_drain = spans.apply, spans.lookup, spans.advance_base, spans.drain
     real_batch, real_emit_a, real_emit_p = svc.attester.process_batch, svc._emit_attester, svc._emit_proposer
+
+    def timed(fn, key, *args):
+        d0, t0 = acc["drain_s"], time.perf_counter()
+        out = fn(*args)
+        acc[key] += time.perf_counter() - t0 - (acc["drain_s"] - d0)
+        return out
+
+    def drain(reason):
+        t0, n0 = time.perf_counter(), SP.LAUNCHES["span_update"]
+        real_drain(reason)
+        dt = time.perf_counter() - t0
+        acc["drain_s"] += dt
+        acc["drain_in_flush_s"] += dt if acc["in_flush"] else 0.0
+        if not acc["in_flush"] and SP.LAUNCHES["span_update"] > n0:
+            drains_outside[reason] = drains_outside.get(reason, 0) + 1
 
     def apply(rows, s, t):
         sc, tc = s - spans.base_epoch, t - spans.base_epoch
         acc["applies"] += 1
-        acc["expected_launches"] += int(len(rows) > 0 and SP.touched_columns(h, sc, tc) > 0)
-        t0 = time.perf_counter()
-        real_apply(rows, s, t)
-        acc["apply_s"] += time.perf_counter() - t0
+        acc["changing_applies"] += int(len(rows) > 0 and SP.touched_columns(h, sc, tc) > 0)
+        timed(real_apply, "apply_s", rows, s, t)
         lr = local[np.asarray(rows, np.int64)]
         mirror.apply(lr[lr >= 0], s, t)
 
     def lookup(rows, s):
-        t0 = time.perf_counter()
-        out = real_lookup(rows, s)
-        acc["lookup_s"] += time.perf_counter() - t0
         acc["lookups"] += 1
-        return out
+        return timed(real_lookup, "lookup_s", rows, s)
 
     def advance_base(new_base):
-        t0 = time.perf_counter()
-        real_advance(new_base)
-        torch.cuda.synchronize()
-        acc["advance_s"] += time.perf_counter() - t0
+        timed(lambda: (real_advance(new_base), torch.cuda.synchronize()), "advance_s")
         mirror.advance_base(new_base)
 
     def process_batch(batch):
         batches.append(batch)
-        t0 = time.perf_counter()
-        out = real_batch(batch)
+        t0, n0 = time.perf_counter(), SP.LAUNCHES["span_update"]
+        acc["in_flush"] = True
+        try:
+            out = real_batch(batch)
+        finally:
+            acc["in_flush"] = False
         flush_s.append(time.perf_counter() - t0)
+        flush_launches.append(SP.LAUNCHES["span_update"] - n0)
         return out
 
     def emit_attester(kind, slashing):
@@ -1420,7 +1518,7 @@ def slasher_phase(card: str, dev=None) -> tuple:
         found.append(("double_propose", (int(m["slot"]), int(m["proposer_index"]))))
         return real_emit_p(slashing)
 
-    spans.apply, spans.lookup, spans.advance_base = apply, lookup, advance_base
+    spans.apply, spans.lookup, spans.advance_base, spans.drain = apply, lookup, advance_base, drain
     svc.attester.process_batch, svc._emit_attester, svc._emit_proposer = process_batch, emit_attester, emit_proposer
 
     # the traffic: every validator once an epoch, 2,048 committees of 512
@@ -1472,9 +1570,11 @@ def slasher_phase(card: str, dev=None) -> tuple:
         svc.flush()
     svc.ingest_block(_slasher_block(e5 + 3, proposer, b"\x00" * 32))
     svc.ingest_block(_slasher_block(e5 + 3, proposer, b"\x42" * 32))
+    spans.min_spans  # a read of the planes: drains what the last flush left pending
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t_path
-    launches = SP.LAUNCHES["span_update"]
+    launches, carried = SP.LAUNCHES["span_update"], SP.APPLIES["span_update"]
+    drains = {k: v for k, v in spans.drains.items() if v}
     svc.stop()  # memory-only store: no snapshot, no plane leaves the card
 
     # d's old-source vote (1, 14) surrounds each of its regular votes
@@ -1489,9 +1589,22 @@ def slasher_phase(card: str, dev=None) -> tuple:
     want_counts = {"double_vote": 1, "surround": 1 + len(d_surrounds), "surrounded": 2, "double_propose": 1}
     if svc.detections != want_counts:
         raise AssertionError(f"slasher: detections by kind {svc.detections}, planted {want_counts}")
-    if launches != acc["expected_launches"] or not launches:
-        raise AssertionError(f"slasher: {launches} span_update launches, the applies that can change a cell "
-                             f"{acc['expected_launches']}")
+    # every apply that can change a cell rides in exactly one launch: the
+    # launches carried as many applies as there were, each drain made one
+    # launch, and no flush made more than SLASHER_LAUNCHES_PER_FLUSH (the
+    # drains at the window shift and the final read fall outside flushes)
+    n_flush = len(flush_s)
+    outside = launches - sum(flush_launches)
+    if outside != sum(drains_outside.values()):
+        raise AssertionError(f"slasher: {outside} launches outside flushes, drains there {drains_outside}")
+    if carried != acc["changing_applies"] or sum(drains.values()) != launches or not launches:
+        raise AssertionError(f"slasher: {launches} span_update launches carried {carried} applies, the applies that "
+                             f"can change a cell {acc['changing_applies']}, drains {drains}")
+    if max(flush_launches) > SLASHER_LAUNCHES_PER_FLUSH:
+        raise AssertionError(f"slasher: span_update launches by flush {flush_launches}, at most "
+                             f"{SLASHER_LAUNCHES_PER_FLUSH} a flush")
+    log(f"slasher: {acc['applies']} applies ({acc['changing_applies']} can change a cell) in {launches} launches: "
+        f"{flush_launches} by flush, {outside} outside flushes {drains_outside}; drains by reason {drains}")
 
     # the port's naive detector over the same stream
     t = time.perf_counter()
@@ -1516,7 +1629,7 @@ def slasher_phase(card: str, dev=None) -> tuple:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     status = svc.status()
     del svc, spans, idx
-    real_apply = real_lookup = real_advance = real_batch = real_emit_a = real_emit_p = None
+    real_apply = real_lookup = real_advance = real_drain = real_batch = real_emit_a = real_emit_p = None
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1542,6 +1655,25 @@ def slasher_phase(card: str, dev=None) -> tuple:
         "launch_floor": (sel[:1], 1, 1),  # one row, one cell
     }
     alone, max_err = {}, 0
+
+    def time_runs(fn, reset):
+        """Median CUDA-event ms of TIMED_RUNS calls, the planes reset from
+        the originals before each, so every run writes."""
+        times = []
+        for _ in range(TIMED_RUNS):
+            reset()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn()
+            ev1.record()
+            ev1.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        return statistics.median(times)
+
+    def reset():
+        mn.copy_(mn0)
+        mx.copy_(mx0)
+
     for name, (rows, s_col, t_col) in cases.items():
         mask = torch.zeros(n_alone, dtype=torch.bool, device=dev)
         mask[rows] = True
@@ -1557,36 +1689,80 @@ def slasher_phase(card: str, dev=None) -> tuple:
         if made != int(rows.numel() > 0 and SP.touched_columns(h, s_col, t_col) > 0):
             raise AssertionError(f"slasher: span_update alone ({name}) made {made} launches")
         del want_min, want_max
-        # timed from the original planes each run, so every run writes
-        times = []
-        for _ in range(TIMED_RUNS):
-            mn.copy_(mn0)
-            mx.copy_(mx0)
-            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            SP.span_update(mn, mx, rows, s_col, t_col)
-            ev1.record()
-            ev1.synchronize()
-            times.append(ev0.elapsed_time(ev1))
+        k_ms = time_runs(lambda: SP.span_update(mn, mx, rows, s_col, t_col), reset)
         p_ms, _ = cuda_ms(lambda: SP.span_update_planes_plain(mn0, mx0, mask, s_col, t_col), runs=PLAIN_RUNS)
         n_rows = int(torch.unique(rows).numel())
-        alone[name] = {"ms": statistics.median(times), "plain_ms": p_ms,
-                       "bound_ms": spans_bound_ms(n_rows, h, s_col, t_col), "rows": n_rows, "s_col": s_col,
-                       "t_col": t_col, "cells_per_row": SP.cells_updated(h, s_col, t_col)}
-        mn.copy_(mn0)
-        mx.copy_(mx0)
+        alone[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": spans_bound_ms(n_rows, h, s_col, t_col),
+                       "rows": n_rows, "s_col": s_col, "t_col": t_col, "datas": 1,
+                       "cells_per_row": SP.cells_updated(h, s_col, t_col)}
+        reset()
     del mn, mx, mn0, mx0
     torch.cuda.empty_cache()
+
+    # the flush drain: one launch of a flush's 512 disjoint committees of
+    # 512 at the path's widest columns, on planes of those 262,144 rows,
+    # against the plain version data after data
+    v_flush = SLASHER_FLUSH_DATAS * SLASHER_COMMITTEE
+    mn0 = torch.randint(-4, 4000, (v_flush, h), generator=gen, device=dev, dtype=torch.int32)
+    mx0 = torch.randint(-4, 4000, (v_flush, h), generator=gen, device=dev, dtype=torch.int32)
+    mn, mx = mn0.clone(), mx0.clone()
+    committees = np.sort(rng.permutation(v_flush).reshape(SLASHER_FLUSH_DATAS, SLASHER_COMMITTEE), axis=1)
+    rows = torch.from_numpy(committees.reshape(-1)).to(dev)
+    seg = np.arange(SLASHER_FLUSH_DATAS + 1, dtype=np.int64) * SLASHER_COMMITTEE
+    s_cols, t_cols = [last_s] * SLASHER_FLUSH_DATAS, [last_t] * SLASHER_FLUSH_DATAS
+
+    def plain_flush():
+        pm, px = mn0, mx0
+        for d in range(SLASHER_FLUSH_DATAS):
+            mask = torch.zeros(v_flush, dtype=torch.bool, device=dev)
+            mask[rows[seg[d] : seg[d + 1]]] = True
+            pm, px = SP.span_update_planes_plain(pm, px, mask, s_cols[d], t_cols[d])
+        return pm, px
+
+    before = SP.LAUNCHES["span_update"], SP.APPLIES["span_update"]
+    SP.span_update_many(mn, mx, rows, seg, s_cols, t_cols)
+    torch.cuda.synchronize()
+    made = SP.LAUNCHES["span_update"] - before[0], SP.APPLIES["span_update"] - before[1]
+    if made != (1, SLASHER_FLUSH_DATAS):
+        raise AssertionError(f"slasher: the flush drain made {made} (launches, applies carried)")
+    p_ms, (want_min, want_max) = cuda_ms(plain_flush, runs=1, warm=False)
+    err = max(int((mn.to(torch.int64) - want_min).abs().max()), int((mx.to(torch.int64) - want_max).abs().max()))
+    max_err = max(max_err, err)
+    if err or not (torch.equal(mn, want_min) and torch.equal(mx, want_max)):
+        raise AssertionError("slasher: span_update_many (the flush drain) differs from its plain version")
+    del want_min, want_max
+    k_ms = time_runs(lambda: SP.span_update_many(mn, mx, rows, seg, s_cols, t_cols), reset)
+    # the launch alone: the plan already on the card, no host preparation
+    plan = SP.span_plan(mn, mx, seg, np.array(s_cols, np.int64), np.array(t_cols, np.int64))
+    args, lib = plan.args(mn, mx, rows), B.load("spans")
+    torch.cuda.synchronize()
+
+    def launch():
+        if lib.lt_span_update_many(*args, torch.cuda.current_stream().cuda_stream):
+            raise AssertionError("slasher: lt_span_update_many refused the flush drain")
+
+    launch_ms = time_runs(launch, reset)
+    cells = sum(SP.cells_updated(h, last_s, last_t))
+    alone["flush_drain"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": spans_bound_ms(v_flush, h, last_s, last_t),
+                            "rows": v_flush, "s_col": last_s, "t_col": last_t, "datas": SLASHER_FLUSH_DATAS,
+                            "cells_per_row": SP.cells_updated(h, last_s, last_t), "launch_ms": launch_ms,
+                            # each row's cells sit in one 32-byte sector, read and written
+                            "sector_bound_ms": v_flush * -(-cells * 4 // 32) * 32 * 2 / PEAK_BYTES_PER_S * 1e3}
+    del mn, mx, mn0, mx0, rows, plan
+    torch.cuda.empty_cache()
     alone_s = time.perf_counter() - t
-    log(f"slasher: span_update alone equal to its plain version on {n_alone} x {h} planes, "
+    log(f"slasher: span_update alone equal to its plain version on {n_alone} x {h} planes and the flush drain on "
+        f"{v_flush} x {h}, "
         + ", ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.6f})"
                     for k, v in alone.items()) + f" ({alone_s:.1f} s)")
 
-    n_flush = len(flush_s)
     line = {
         "validators": v_all, "history": h, "chunk": SLASHER_CHUNK, "epochs": SLASHER_EPOCHS,
         "committee": SLASHER_COMMITTEE, "attestations": n_ingested, "applies": acc["applies"],
-        "kernel_launches": launches, "applies_changing_no_cell": acc["applies"] - acc["expected_launches"],
+        "kernel_launches": launches, "applies_carried": carried, "drains_by_reason": drains,
+        "launches_per_flush": launches / n_flush, "launches_by_flush": flush_launches,
+        "launches_outside_flushes": outside, "drains_outside_flushes": drains_outside,
+        "applies_changing_no_cell": acc["applies"] - acc["changing_applies"],
         "lookups": acc["lookups"], "flushes": n_flush,
         "flush_ms_p50": statistics.median(flush_s) * 1e3, "flush_ms_max": max(flush_s) * 1e3,
         "atts_per_s_ingest_and_flush": SLASHER_EPOCHS * len(epochs[0]) / traffic_s,
@@ -1597,27 +1773,34 @@ def slasher_phase(card: str, dev=None) -> tuple:
         "sampled_rows": int(sample.size), "sampled_cells_moved": moved,
         "time_s": {"make_traffic": make_s, "traffic_ingest_and_flush": traffic_s, "path": path_s,
                    "in_flush": sum(flush_s), "in_apply": acc["apply_s"], "in_lookup": acc["lookup_s"],
-                   "in_flush_rest": sum(flush_s) - acc["apply_s"] - acc["lookup_s"], "naive": naive_s,
+                   "in_drain": acc["drain_s"], "in_flush_drain": acc["drain_in_flush_s"],
+                   "in_flush_rest": sum(flush_s) - acc["apply_s"] - acc["lookup_s"] - acc["drain_in_flush_s"],
+                   "naive": naive_s,
                    "rows_check": rows_check_s, "kernel_alone": alone_s},
         "phase_s": time.perf_counter() - t_phase, "card": card,
     }
     log("slasher " + json.dumps(line))
     ptxas = ptxas_entries(B.ptxas_report()["spans"]) if dev.type == "cuda" else {}
-    path = alone["path"]
+    drained = alone["flush_drain"]
     row = {
         "name": "span_update", "route": "cuda", "source": SPANS_SOURCE, "replaces": SPANS_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": path["ms"], "plain_ms": path["plain_ms"],
-        "bound_ms": path["bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "path": "slasher", "n": SLASHER_ALONE_SELECTED,
+        "launches": launches, "max_abs_err": max_err, "ms": drained["ms"], "plain_ms": drained["plain_ms"],
+        "bound_ms": drained["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "path": "slasher", "n": "flush_drain",
         "launch_floor_ms": alone["launch_floor"]["ms"],
-        "launches_per_flush": launches / n_flush,
+        "launches_per_flush": launches / n_flush, "applies_per_launch": carried / launches,
+        "live": None, "chain_floor_ms": None, "one_lane_ms": None,
+        "most_launches_in_a_flush": max(flush_launches), "launches_outside_flushes": outside,
+        "drains_by_reason": drains,
         "ms_by_case": {k: v["ms"] for k, v in alone.items()},
         "plain_ms_by_case": {k: v["plain_ms"] for k, v in alone.items()},
         "bound_ms_by_case": {k: v["bound_ms"] for k, v in alone.items()},
-        "case_shapes": {k: {"rows": v["rows"], "s_col": v["s_col"], "t_col": v["t_col"],
+        "flush_drain_sector_bound_ms": drained["sector_bound_ms"],
+        "flush_drain_launch_ms": drained["launch_ms"],
+        "case_shapes": {k: {"rows": v["rows"], "datas": v["datas"], "s_col": v["s_col"], "t_col": v["t_col"],
                             "min_max_columns": v["cells_per_row"]} for k, v in alone.items()},
-        "planes": [SLASHER_ALONE_ROWS, h],
-        "ptxas": next((v for k, v in ptxas.items() if "lt_span_update_kernel" in k), None), "card": card,
+        "planes": [SLASHER_ALONE_ROWS, h], "flush_drain_planes": [SLASHER_FLUSH_DATAS * SLASHER_COMMITTEE, h],
+        "ptxas": {k: v for k, v in ptxas.items() if "lt_span_update_kernel" in k} or None, "card": card,
     }
     return line, [row]
 

@@ -59,6 +59,14 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class LaunchRefused(RuntimeError):
+    """A kernel's C entry point returned a CUDA error: the card did not take
+    the launch (a cluster it cannot place, more shared memory than it has,
+    no image for the card).  A fault of the build or of the card's setup,
+    not of one call's data, so the seams that degrade to the host on a
+    device fault let this one propagate."""
+
+
 @functools.lru_cache(maxsize=None)
 def generated_headers() -> Dict[str, str]:
     """Name -> text of the headers the generators write (once per process)."""
@@ -207,10 +215,11 @@ _ARGTYPES = {
     "lt_seg_sum_g2": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP],
     "lt_warp_last_launch": [ctypes.c_char_p, _VP],
     "lt_sha256_pairs": [_VP, _VP, _INT, _VP],
-    "lt_sha256_sweep": [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "lt_sha256_sweep": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     "lt_sha256_validators": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     "lt_agg_last_launch": [_VP],
     "lt_span_update": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
+    "lt_span_update_many": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, ctypes.c_longlong, _VP],
     # host build only: the ingest building blocks and the pairing's
     # inversions and final exponentiation for the tests
     "lt_host_fp2_sqrt": [_VP, _VP, _VP, _INT],

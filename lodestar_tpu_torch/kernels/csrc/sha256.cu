@@ -4,7 +4,8 @@
 //   lt_sha256_pairs       one tree level, one thread per pair
 //                         (replaces lodestar_tpu/kernels/sha256.py
 //                         hash_pairs_device, :166)
-//   lt_sha256_sweep       K levels of a dirty batch, one block of B threads
+//   lt_sha256_sweep       K levels of a dirty batch, its live lanes only,
+//                         over a cluster of up to 8 blocks
 //                         (replaces forest_sweep_device, :184)
 //   lt_sha256_validators  the validator leaves packed from the columns and
 //                         hashed 8 -> 4 -> 2 -> 1, one thread per validator
@@ -28,8 +29,8 @@
 // reads its row with 16-byte loads, hashes it, and writes its digest; the
 // validator kernel packs its 8 chunks in registers and keeps the subtree's
 // inner levels out of device memory; the sweep keeps a level's pair plane
-// in shared memory, one row a thread, and moves the previous level's
-// digests into it between two barriers, so its K levels take one launch.
+// in shared memory, one row a thread, so its K levels take one launch
+// (its design is with kernel 2 below).
 //
 // Words are uint32 bit patterns (big-endian message words, as SHA-256
 // reads them).  The same source compiles with a host C++ compiler, the
@@ -39,10 +40,13 @@
 #include <stdint.h>
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #define SHA_DEV __device__ __forceinline__
+#define SHA_HOST_DEV __host__ __device__ __forceinline__
 #define SHA_CONST static __constant__
 #else
 #define SHA_DEV static inline
+#define SHA_HOST_DEV static inline
 #define SHA_CONST static const
 #endif
 
@@ -181,38 +185,112 @@ SHA_DEV void pairs_lane(const uint32_t *in, uint32_t *out, size_t i) {
 
 // ---------------------------------------------------------------------------
 // Kernel 2: the forest sweep.  pairs [k, b, 16], lane and half [k, b],
-// out [k, b, 8].  At level l each thread loads its row of pairs[l] into the
-// shared plane (sweep_load); after a barrier it writes its level l - 1
-// digest into row lane[l - 1], half half[l - 1] (sweep_scatter: a lane
-// outside [0, b) or a half outside {0, 1} is dropped); after a second
-// barrier it hashes its row (sweep_hash) into out[l] and keeps the digest
-// for the next level.  Level 0 scatters nothing.
+// live [k] (NULL: every lane live), out [k, b, 8].  Level l hashes its
+// live lanes [0, live[l]) (clamped to [0, b]); a dead lane's output row is
+// zeros.  Level l's digest of lane i (i live) goes into row lane[l, i],
+// half half[l, i] of level l + 1's plane (dropped where that row is not
+// live at l + 1 or the half is not 0 or 1) before that level hashes.
+//
+// What holds it back is the chain: level l + 1 reads level l's digests,
+// so the K levels are K dependent hashes, and no design beats K times one
+// hash's dependent critical path (chip_smoke.py reads it from the SASS:
+// the chain floor); this build's lone warp also waits on its ALU-pipe
+// instructions, 2 clocks a warp instruction on an SM sub-partition's
+// 16-lane pipe, which chip_smoke.py prints beside the floor.  The plan's wide levels
+// (~256 live lanes a level for the first ~12 of a slot's 40) are the part
+// that throughput can shorten: one SM issues 256 hashes in ~4 us, eight
+// SMs in about one hash's latency.  So the sweep runs on a thread-block
+// cluster of C = min(8, ceil(b / 32)) blocks of S = ceil(b / C) threads;
+// lane i is thread i % S of block i / S, and each block keeps its lanes'
+// rows of two planes (levels l and l + 1) in its own shared memory.  A
+// phase, one a level: each live thread starts the 16-byte loads of its
+// row of level l + 2 and of its scatter map entry, hashes its row of
+// level l (the body as
+// hash_pairs': registers, the rolling schedule, SHA_KPAD), writes its
+// digest to out, stores it into its destination row of level l + 1 in
+// the owning block's shared memory (distributed shared memory,
+// cluster.map_shared_rank), and stores the level l + 2 row into the plane
+// it just hashed; then one barrier.  Two planes make one barrier a level
+// enough: a phase writes the other plane's rows of other threads and its
+// own rows of this one.  From the first level after which no level has
+// more than S live lanes, block 0 runs alone (the others write their zero
+// rows and exit after a cluster barrier), with a block barrier a level in
+// place of the cluster's.  Dead lanes hash nothing.  One block of B
+// threads over the live lanes, the other design, hashes a slot plan's
+// wide levels on one SM and was slower on every plan measured (PERF.md);
+// a rolled hash (a quarter of the code) made the lone warp slower too.
 // ---------------------------------------------------------------------------
 
 #define SHA_SWEEP_STRIDE 17  // words a shared row: 16, padded against bank conflicts
+#define SHA_SWEEP_CTAS 8  // blocks of the cluster at most (the portable cluster size)
 
-SHA_DEV void sweep_load(const uint32_t *pairs, uint32_t *plane, int level, int b, int t) {
-  const uint32_t *src = pairs + ((size_t)level * b + t) * 16;
-  uint32_t *row = plane + t * SHA_SWEEP_STRIDE;
-  for (int i = 0; i < 16; i++) row[i] = src[i];
+// blocks of a sweep's cluster for b lanes
+SHA_HOST_DEV int sweep_ctas(int b) {
+  const int c = (b + 31) / 32;
+  return c < 1 ? 1 : (c > SHA_SWEEP_CTAS ? SHA_SWEEP_CTAS : c);
 }
 
-SHA_DEV void sweep_scatter(uint32_t *plane, const int32_t *lane, const int32_t *half, const uint32_t dg[8],
-                           int level, int b, int t) {
-  const int32_t dst = lane[(size_t)(level - 1) * b + t], hf = half[(size_t)(level - 1) * b + t];
-  if (dst < 0 || dst >= b || (hf != 0 && hf != 1)) return;
-  uint32_t *row = plane + dst * SHA_SWEEP_STRIDE + hf * 8;
-  for (int i = 0; i < 8; i++) row[i] = dg[i];
+// the live lanes of level l, clamped to [0, b]
+SHA_DEV int sweep_live(const int32_t *live, int level, int b) {
+  if (!live) return b;
+  const int n = live[level];
+  return n < 0 ? 0 : (n > b ? b : n);
 }
 
-SHA_DEV void sweep_hash(const uint32_t *plane, uint32_t *out, uint32_t dg[8], int level, int b, int t) {
-  uint32_t w[16];
-  const uint32_t *row = plane + t * SHA_SWEEP_STRIDE;
+// the first level from which no level has more than `share` live lanes
+SHA_DEV int sweep_narrow(const int32_t *lv, int k, int share) {
+  int narrow = k;
+  while (narrow > 0 && lv[narrow - 1] <= share) narrow--;
+  return narrow;
+}
+
+SHA_DEV void sweep_store_row(uint32_t *row, const uint32_t w[16]) {
+  for (int j = 0; j < 16; j++) row[j] = w[j];
+}
+
+// lane i's row of level `level` from pairs into registers
+SHA_DEV void sweep_fetch(const uint32_t *pairs, uint32_t w[16], int level, int b, int i) {
+  load_words(pairs + ((size_t)level * b + i) * 16, w, 16);
+}
+
+// lane i at level `level`: hash its row into dg and out if it is live,
+// else write its output row as zeros
+SHA_DEV void sweep_hash(const uint32_t *row, uint32_t *out, uint32_t dg[8], int level, int b, int i, int live_l) {
+  if (i >= b) return;
+  if (i < live_l) {
+    uint32_t w[16];
 #pragma unroll
-  for (int i = 0; i < 16; i++) w[i] = row[i];
-  sha256_block64(w, dg);
-  uint32_t *dst = out + ((size_t)level * b + t) * 8;
-  for (int i = 0; i < 8; i++) dst[i] = dg[i];
+    for (int j = 0; j < 16; j++) w[j] = row[j];
+    sha256_block64(w, dg);
+    store8(out + ((size_t)level * b + i) * 8, dg);
+  } else {
+    const uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    store8(out + ((size_t)level * b + i) * 8, zero);
+  }
+}
+
+// lane i's scatter map entry at level `level`: its row in level + 1's
+// plane and its half (read before the hash, so the loads are in flight
+// across it)
+SHA_DEV void sweep_map(const int32_t *lane, const int32_t *half, int level, int b, int i, int32_t *to, int32_t *hf) {
+  *to = lane[(size_t)level * b + i];
+  *hf = half[(size_t)level * b + i];
+}
+
+// whether that entry lands: a live row of the next level, half 0 or 1
+SHA_DEV bool sweep_lands(int32_t to, int32_t hf, int live_next) {
+  return to >= 0 && to < live_next && (hf == 0 || hf == 1);
+}
+
+SHA_DEV void sweep_put(uint32_t *row_half, const uint32_t dg[8]) {
+  for (int j = 0; j < 8; j++) row_half[j] = dg[j];
+}
+
+// lane i's zero rows of levels [from, k)
+SHA_DEV void sweep_zeros(uint32_t *out, int from, int k, int b, int i) {
+  const uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (i < b)
+    for (int l = from; l < k; l++) store8(out + ((size_t)l * b + i) * 8, zero);
 }
 
 // ---------------------------------------------------------------------------
@@ -287,16 +365,46 @@ __global__ void __launch_bounds__(SHA_THREADS) lt_sha256_pairs_kernel(const uint
 __global__ void __launch_bounds__(1024) lt_sha256_sweep_kernel(const uint32_t *__restrict__ pairs,
                                                               const int32_t *__restrict__ lane,
                                                               const int32_t *__restrict__ half,
+                                                              const int32_t *__restrict__ live,
                                                               uint32_t *__restrict__ out, int k, int b) {
-  extern __shared__ uint32_t plane[];
-  const int t = threadIdx.x;
-  uint32_t dg[8];
-  for (int level = 0; level < k; level++) {
-    sweep_load(pairs, plane, level, b, t);
-    __syncthreads();
-    if (level > 0) sweep_scatter(plane, lane, half, dg, level, b, t);
-    __syncthreads();
-    sweep_hash(plane, out, dg, level, b, t);
+  namespace cg = cooperative_groups;
+  extern __shared__ uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int share = blockDim.x, t = threadIdx.x, rank = (int)cluster.block_rank();
+  const int i = rank * share + t;
+  uint32_t *planes = smem;  // [2][share][SHA_SWEEP_STRIDE]: levels l and l + 1
+  int32_t *lv = (int32_t *)(smem + 2 * share * SHA_SWEEP_STRIDE);
+  for (int l = t; l < k; l += share) lv[l] = sweep_live(live, l, b);
+  __syncthreads();
+  const int narrow = sweep_narrow(lv, k, share);
+  uint32_t w[16], dg[8];
+  for (int l = 0; l < 2 && l < k; l++)
+    if (i < lv[l]) {
+      sweep_fetch(pairs, w, l, b, i);
+      sweep_store_row(planes + (l * share + t) * SHA_SWEEP_STRIDE, w);
+    }
+  if (narrow > 0) cluster.sync();  // also: every block has started before any remote store
+  else __syncthreads();
+  for (int l = 0; l < k; l++) {
+    const bool wide = l < narrow;
+    if (!wide && rank != 0) {
+      sweep_zeros(out, l, k, b, i);
+      return;
+    }
+    uint32_t *row = planes + ((l & 1) * share + t) * SHA_SWEEP_STRIDE;
+    const bool ahead = l + 2 < k && i < lv[l + 2];
+    if (ahead) sweep_fetch(pairs, w, l + 2, b, i);
+    const bool scatters = l + 1 < k && i < lv[l];
+    int32_t to = -1, hf = 0;
+    if (scatters) sweep_map(lane, half, l, b, i, &to, &hf);
+    sweep_hash(row, out, dg, l, b, i, lv[l]);
+    if (scatters && sweep_lands(to, hf, lv[l + 1])) {
+      uint32_t *dst = planes + (((l + 1) & 1) * share + to % share) * SHA_SWEEP_STRIDE + hf * 8;
+      sweep_put(wide ? cluster.map_shared_rank(dst, to / share) : dst, dg);
+    }
+    if (ahead) sweep_store_row(row, w);
+    if (wide) cluster.sync();
+    else __syncthreads();
   }
 }
 
@@ -317,17 +425,35 @@ extern "C" int lt_sha256_pairs(const void *in, void *out, int n, void *stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int lt_sha256_sweep(const void *pairs, const void *lane, const void *half, void *out, int k, int b,
-                               void *stream) {
+// dynamic shared bytes a block of the sweep's cluster takes
+static size_t sweep_smem(int k, int share) { return ((size_t)2 * share * SHA_SWEEP_STRIDE + k) * 4; }
+
+extern "C" int lt_sha256_sweep(const void *pairs, const void *lane, const void *half, const void *live, void *out,
+                               int k, int b, void *stream) {
   if (k > 0 && b > 0) {
-    const int smem = b * SHA_SWEEP_STRIDE * 4;
+    const int ctas = sweep_ctas(b), share = (b + ctas - 1) / ctas;
+    const size_t smem = sweep_smem(k, share);
     if (smem > 48 * 1024) {
       const cudaError_t e =
-          cudaFuncSetAttribute(lt_sha256_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          cudaFuncSetAttribute(lt_sha256_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    lt_sha256_sweep_kernel<<<1, b, smem, (cudaStream_t)stream>>>(
-        (const uint32_t *)pairs, (const int32_t *)lane, (const int32_t *)half, (uint32_t *)out, k, b);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(share);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, lt_sha256_sweep_kernel, (const uint32_t *)pairs,
+                                             (const int32_t *)lane, (const int32_t *)half, (const int32_t *)live,
+                                             (uint32_t *)out, k, b);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }
@@ -360,29 +486,59 @@ extern "C" int lt_sha256_pairs(const void *in, void *out, int n, void *stream) {
   return 0;
 }
 
-extern "C" int lt_sha256_sweep(const void *pairs, const void *lane, const void *half, void *out, int k, int b,
-                               void *stream) {
+// The sweep's cluster: each phase runs block by block and, in each block,
+// thread by thread, blocks and threads forwards or both reversed.  Each
+// block's two planes are one slice of `planes`, as distributed shared
+// memory addresses them.
+extern "C" int lt_sha256_sweep(const void *pairs, const void *lane, const void *half, const void *live, void *out,
+                               int k, int b, void *stream) {
   (void)stream;
   if (k <= 0 || b <= 0) return 0;
-  uint32_t *plane = (uint32_t *)malloc((size_t)b * SHA_SWEEP_STRIDE * 4);
-  uint32_t *dg = (uint32_t *)malloc((size_t)b * 8 * 4);
-  for (int level = 0; level < k; level++) {
-    for (int i = 0; i < b; i++) {
-      const int t = sha_host_rev ? b - 1 - i : i;
-      sweep_load((const uint32_t *)pairs, plane, level, b, t);
-    }
-    if (level > 0)
-      for (int i = 0; i < b; i++) {
-        const int t = sha_host_rev ? b - 1 - i : i;
-        sweep_scatter(plane, (const int32_t *)lane, (const int32_t *)half, dg + 8 * t, level, b, t);
+  const int ctas = sweep_ctas(b), share = (b + ctas - 1) / ctas;
+  const size_t per_cta = (size_t)2 * share * SHA_SWEEP_STRIDE;
+  uint32_t *planes = (uint32_t *)calloc((size_t)ctas * per_cta, 4);
+  uint32_t *dg = (uint32_t *)calloc((size_t)ctas * share * 8, 4);
+  uint32_t *w = (uint32_t *)calloc((size_t)ctas * share * 16, 4);
+  int32_t *lv = (int32_t *)malloc((size_t)k * 4);
+  for (int l = 0; l < k; l++) lv[l] = sweep_live((const int32_t *)live, l, b);
+  const int narrow = sweep_narrow(lv, k, share);
+  const uint32_t *pw = (const uint32_t *)pairs;
+  const int32_t *ln = (const int32_t *)lane, *hv = (const int32_t *)half;
+  uint32_t *ow = (uint32_t *)out;
+  const int n = ctas * share;
+  for (int x = 0; x < n; x++) {  // the prologue
+    const int i = sha_host_rev ? n - 1 - x : x, rank = i / share, t = i % share;
+    for (int l = 0; l < 2 && l < k; l++)
+      if (i < lv[l]) {
+        sweep_fetch(pw, w + 16 * i, l, b, i);
+        sweep_store_row(planes + rank * per_cta + (l * share + t) * SHA_SWEEP_STRIDE, w + 16 * i);
       }
-    for (int i = 0; i < b; i++) {
-      const int t = sha_host_rev ? b - 1 - i : i;
-      sweep_hash(plane, (uint32_t *)out, dg + 8 * t, level, b, t);
+  }
+  for (int l = 0; l < k; l++) {
+    const bool wide = l < narrow;
+    for (int x = 0; x < n; x++) {
+      const int i = sha_host_rev ? n - 1 - x : x, rank = i / share, t = i % share;
+      if (!wide && rank != 0) {
+        if (l == narrow) sweep_zeros(ow, l, k, b, i);  // the block's exit
+        continue;
+      }
+      uint32_t *row = planes + rank * per_cta + ((l & 1) * share + t) * SHA_SWEEP_STRIDE;
+      const bool ahead = l + 2 < k && i < lv[l + 2];
+      if (ahead) sweep_fetch(pw, w + 16 * i, l + 2, b, i);
+      const bool scatters = l + 1 < k && i < lv[l];
+      int32_t to = -1, hf = 0;
+      if (scatters) sweep_map(ln, hv, l, b, i, &to, &hf);
+      sweep_hash(row, ow, dg + 8 * i, l, b, i, lv[l]);
+      if (scatters && sweep_lands(to, hf, lv[l + 1]))
+        sweep_put(planes + (to / share) * per_cta + (((l + 1) & 1) * share + to % share) * SHA_SWEEP_STRIDE + hf * 8,
+                  dg + 8 * i);
+      if (ahead) sweep_store_row(row, w + 16 * i);
     }
   }
+  free(lv);
+  free(w);
   free(dg);
-  free(plane);
+  free(planes);
   return 0;
 }
 

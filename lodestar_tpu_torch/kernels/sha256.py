@@ -11,7 +11,8 @@ device functions, each a kernel of `csrc/sha256.cu`:
                    (replaces `hash_pairs_device`, `:166`)
   forest_sweep     K levels of a dirty batch in one launch; level l's
                    digests are written into level l + 1's pair plane on
-                   the device (replaces `forest_sweep_device`, `:184`)
+                   the device; with `live`, each level's live lanes only
+                   (replaces `forest_sweep_device`, `:184`)
   validator_roots  the 8-chunk validator leaves packed from the columns
                    and hashed 8 -> 4 -> 2 -> 1 per validator (replaces
                    `validator_roots_device`, `:293`, and, as its first
@@ -72,7 +73,7 @@ _PAD_SCHEDULE = _py_schedule((0x80000000,) + (0,) * 14 + (512,))
 # the forest sweep's lanes: the per-slot dirty batch (256 touched
 # validators -> at most 256 dirty parents a level), as the JAX package
 HTR_SWEEP_LANES = 512
-SWEEP_MAX_LANES = 1024  # one block of threads
+SWEEP_MAX_LANES = 1024  # a cluster of 8 blocks of 128 threads
 
 LAUNCHES: Dict[str, int] = {"hash_pairs": 0, "forest_sweep": 0, "validator_roots": 0}
 
@@ -193,23 +194,28 @@ def hash_pairs_plain(blocks: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def forest_sweep_plain(pairs: torch.Tensor, dst_lane: torch.Tensor, dst_half: torch.Tensor) -> torch.Tensor:
-    """int32 [K, B, 16] pair planes, int32 [K, B] scatter maps -> int32
-    [K, B, 8]: at level l > 0 lane i of level l - 1's digests overwrites
-    half dst_half[l - 1, i] of row dst_lane[l - 1, i] of level l's plane
-    (a lane outside [0, B) or a half outside {0, 1} is dropped), then
-    every row of the plane is hashed."""
+def forest_sweep_plain(pairs: torch.Tensor, dst_lane: torch.Tensor, dst_half: torch.Tensor,
+                       live: torch.Tensor = None) -> torch.Tensor:
+    """int32 [K, B, 16] pair planes, int32 [K, B] scatter maps, int32 [K]
+    live lanes (None: every lane) -> int32 [K, B, 8]: at level l > 0 each
+    live lane i of level l - 1 overwrites half dst_half[l - 1, i] of row
+    dst_lane[l - 1, i] of level l's plane (dropped where that row is not
+    live at level l or the half is not 0 or 1), then the plane's live rows
+    [0, live[l]) are hashed; the other rows of the output are zeros."""
     k, b = pairs.shape[:2]
-    out = torch.empty((k, b, 8), dtype=torch.int32, device=pairs.device)
+    lv = [b] * k if live is None else [min(max(int(n), 0), b) for n in live.tolist()]
+    out = torch.zeros((k, b, 8), dtype=torch.int32, device=pairs.device)
     word = torch.arange(8, device=pairs.device)
     for level in range(k):
+        n = lv[level]
         plane = pairs[level].clone()
         if level > 0:
-            lane, half = dst_lane[level - 1].to(torch.int64), dst_half[level - 1].to(torch.int64)
-            keep = (lane >= 0) & (lane < b) & ((half == 0) | (half == 1))
+            m = lv[level - 1]
+            lane, half = dst_lane[level - 1, :m].to(torch.int64), dst_half[level - 1, :m].to(torch.int64)
+            keep = (lane >= 0) & (lane < n) & ((half == 0) | (half == 1))
             rows, cols = lane[keep], half[keep] * 8
-            plane[rows[:, None], cols[:, None] + word] = out[level - 1][keep]
-        out[level] = hash_pairs_plain(plane)
+            plane[rows[:, None], cols[:, None] + word] = out[level - 1, :m][keep]
+        out[level, :n] = hash_pairs_plain(plane[:n])
     return out
 
 
@@ -286,12 +292,12 @@ def _shape(t: torch.Tensor, shape, what: str) -> None:
 
 
 def _launch(name: str, symbol: str, *args) -> None:
-    """Call a kernel's C entry point on the current stream; raise on the
-    CUDA error it returns."""
+    """Call a kernel's C entry point on the current stream; raise
+    LaunchRefused on the CUDA error it returns."""
     fn = getattr(B.load("sha256"), symbol)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+        raise B.LaunchRefused(f"{symbol} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
 
 
@@ -307,21 +313,27 @@ def hash_pairs(blocks: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def forest_sweep(pairs: torch.Tensor, dst_lane: torch.Tensor, dst_half: torch.Tensor) -> torch.Tensor:
-    """K levels of a dirty batch in one launch (see `forest_sweep_plain`);
-    B lanes, at most SWEEP_MAX_LANES (one block of threads)."""
+def forest_sweep(pairs: torch.Tensor, dst_lane: torch.Tensor, dst_half: torch.Tensor,
+                 live: torch.Tensor = None) -> torch.Tensor:
+    """K levels of a dirty batch in one launch (see `forest_sweep_plain`):
+    B lanes, at most SWEEP_MAX_LANES; `live` the int32 [K] live lanes of
+    each level (None: every lane, JAX's semantics)."""
     k, b = pairs.shape[:2]
     _shape(pairs, (k, b, 16), "forest_sweep pairs")
     _shape(dst_lane, (k, b), "forest_sweep dst_lane")
     _shape(dst_half, (k, b), "forest_sweep dst_half")
+    ops = (pairs, dst_lane, dst_half)
+    if live is not None:
+        _shape(live, (k,), "forest_sweep live")
+        ops += (live,)
     if b > SWEEP_MAX_LANES:
         raise ValueError(f"forest_sweep: {b} lanes, at most {SWEEP_MAX_LANES}")
-    if _on_cpu(pairs, dst_lane, dst_half):
-        return forest_sweep_plain(pairs, dst_lane, dst_half)
+    if _on_cpu(*ops):
+        return forest_sweep_plain(pairs, dst_lane, dst_half, live)
     out = torch.empty((k, b, 8), dtype=torch.int32, device=pairs.device)
     if k and b:
         _launch("forest_sweep", "lt_sha256_sweep", pairs.data_ptr(), dst_lane.data_ptr(), dst_half.data_ptr(),
-                out.data_ptr(), k, b)
+                None if live is None else live.data_ptr(), out.data_ptr(), k, b)
     return out
 
 

@@ -18,7 +18,10 @@ The host ``hash_pairs`` (ssz/hasher.py) stays the bit-identical ground
 truth and the degraded path: the port's ``DeviceSupervisor`` breaker
 supervises every dispatch, a classified fault trips it, an open breaker
 sends every level to the host (no root is lost), and a canary (one hash
-on the card against hashlib) closes it again.
+on the card against hashlib) closes it again.  A launch the card refuses
+(`kernels.build.LaunchRefused`: a cluster it cannot place, no image for
+it) is no fault of one dispatch but of the build or the card's setup: it
+propagates out of every seam and never turns into host levels.
 
 ``device=None`` means the CUDA device, and the kernels are built at
 construction, outside the supervisor, so a failed build raises there and
@@ -203,6 +206,8 @@ class DeviceMerkleBackend:
         try:
             digests = self._dispatch("htr_hash_pairs", SK.hash_pairs, (SK.pairs_to_blocks(pairs),), n, 1)
             return SK.digests_to_bytes(digests[:n])
+        except B.LaunchRefused:
+            raise
         except Exception as e:  # noqa: BLE001 — every device fault degrades to the host
             self._failed(e, "htr_hash_level", 1)
             return None
@@ -214,13 +219,17 @@ class DeviceMerkleBackend:
     ) -> Optional[List[np.ndarray]]:
         """K levels of dirty-path hashing in one launch: uint32 [K, B, 16]
         pair planes, int32 [K, B] scatter maps, sizes[l] the live lanes of
-        level l -> the per-level (sizes[l], 32) uint8 parents, or None."""
+        level l (the kernel hashes those alone) -> the per-level (sizes[l],
+        32) uint8 parents, or None."""
         k = pairs.shape[0]
         if self._degraded(k):
             return None
         try:
-            out = self._dispatch("htr_forest_sweep", SK.forest_sweep, (pairs, dst_lane, dst_half), k, k)
+            live = np.asarray(sizes, dtype=np.int32)
+            out = self._dispatch("htr_forest_sweep", SK.forest_sweep, (pairs, dst_lane, dst_half, live), k, k)
             return [SK.digests_to_bytes(out[level, : sizes[level]]) for level in range(k)]
+        except B.LaunchRefused:
+            raise
         except Exception as e:  # noqa: BLE001 — degrade, never propagate
             self._failed(e, "htr_forest_sweep", k)
             return None
@@ -248,6 +257,8 @@ class DeviceMerkleBackend:
             args = (SK.rows_to_words(pk_root_rows), SK.rows_to_words(cred_rows), *cols, slashed.astype(np.uint32))
             digests = self._dispatch("htr_validator_roots", SK.validator_roots, args, d, 3)
             return SK.digests_to_bytes(digests[:d])
+        except B.LaunchRefused:
+            raise
         except Exception as e:  # noqa: BLE001 — degrade, never propagate
             self._failed(e, "htr_validator_roots", 3)
             return None

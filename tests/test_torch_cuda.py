@@ -877,6 +877,42 @@ def test_sha256_forest_sweep_on_card(dev, k, b):
     assert torch.equal(SK.forest_sweep(pairs, lane, half), SK.forest_sweep_plain(pairs, lane, half))
 
 
+def _sweep_plan(rng, k, b, dev):
+    pairs = _sha_words(rng, (k, b, 16), dev)
+    lane = torch.from_numpy(np.stack([rng.permutation(b + 4)[:b] for _ in range(k)]).astype(np.int32)).to(dev)
+    half = torch.from_numpy(rng.integers(0, 2, (k, b)).astype(np.int32)).to(dev)
+    return pairs, lane, half
+
+
+@pytest.mark.parametrize("case", ["slot_like", "one_lane", "dead_lanes", "narrow_from_start", "wide_to_the_end"])
+def test_sha256_forest_sweep_live_on_card(dev, case):
+    """The cluster sweep with live counts against its plain version: a
+    slot-like plan (~256 live lanes for 12 levels, then halving to 1), the
+    (40, 1) chain, live counts with dead lanes scattering, a plan narrow
+    from its first level (block 0 alone) and one wide to its last."""
+    from lodestar_tpu_torch.kernels import sha256 as SK
+
+    rng = np.random.default_rng(len(case))
+    k, b = (40, 1) if case == "one_lane" else (40, 512)
+    pairs, lane, half = _sweep_plan(rng, k, b, dev)
+    if case == "slot_like":
+        live = [256] * 12 + [max(1, 256 >> (l - 11)) for l in range(12, 40)]
+    elif case == "one_lane":
+        live = [1] * 40
+    elif case == "dead_lanes":
+        live = [int(x) for x in rng.integers(0, b + 1, k)]
+    elif case == "narrow_from_start":
+        live = [64] * 5 + [3] * 35
+    else:
+        live = [b] * 39 + [300]
+    live = torch.tensor(live, dtype=torch.int32, device=dev)
+    before = SK.LAUNCHES["forest_sweep"]
+    out = SK.forest_sweep(pairs, lane, half, live)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["forest_sweep"] == before + 1
+    assert torch.equal(out, SK.forest_sweep_plain(pairs, lane, half, live))
+
+
 @pytest.mark.parametrize("d", [1, 513])
 def test_sha256_validator_roots_on_card(dev, d):
     from lodestar_tpu_torch.kernels import sha256 as SK
@@ -925,6 +961,30 @@ def test_merkle_backend_on_card(dev):
         DB.reset_backend()
 
 
+def test_a_refused_sweep_launch_raises_on_card(dev, monkeypatch):
+    """A sweep launch the card refuses (its entry point returning a CUDA
+    error, as a cluster the card cannot place does) raises LaunchRefused
+    out of the state root's tree on the card: no host level, the breaker
+    closed."""
+    from lodestar_tpu_torch.ssz import ChunkTree
+    from lodestar_tpu_torch.ssz import device_backend as DB
+
+    b = DB.DeviceMerkleBackend()
+    DB.set_backend(b)
+    try:
+        rng = np.random.default_rng(4)
+        leaves = rng.integers(0, 256, (3000, 32), dtype=np.uint8)
+        tree = ChunkTree(1 << 40)
+        tree.update(leaves)
+        monkeypatch.setattr(B.load("sha256"), "lt_sha256_sweep", lambda *args: 1)  # cudaErrorInvalidValue
+        leaves[rng.integers(0, 3000, 100)] = rng.integers(0, 256, (100, 32), dtype=np.uint8)
+        with pytest.raises(B.LaunchRefused):
+            tree.update(leaves)
+        assert b.supervisor.status()["state"] == "closed" and b.m_host_levels.value == 0
+    finally:
+        DB.reset_backend()
+
+
 # -- the slasher's span update (csrc/spans.cu) ------------------------------------
 
 SPAN_EDGES = [(5, 20), (-7, 12), (9, 9), (0, 0), (10, 63), (50, 94), (67, 73), (-9, -2), (12, 40)]
@@ -953,6 +1013,43 @@ def test_span_update_on_card(dev, s, t):
         SP.span_update(mn, mx, torch.zeros(1, dtype=torch.int64), s, t)  # rows on the host
 
 
+@pytest.mark.parametrize("case", ["narrow", "wide", "odd_h"])
+def test_span_update_many_on_card(dev, case):
+    """One launch of many datas with disjoint rows against the plain
+    version data after data: 64 narrow datas (3 columns, the path's), 4
+    wide ones (16-byte vectors over ~4,000 columns), and single columns at
+    an odd h."""
+    from lodestar_tpu_torch.kernels import spans as SP
+
+    rng = np.random.default_rng(len(case) + 50)
+    v, h = {"narrow": (4096, 4096), "wide": (256, 4096), "odd_h": (300, 61)}[case]
+    d = {"narrow": 64, "wide": 4, "odd_h": 9}[case]
+    mn = torch.from_numpy(rng.integers(-4, 4000, (v, h)).astype(np.int32)).to(dev)
+    mx = torch.from_numpy(rng.integers(-4, 4000, (v, h)).astype(np.int32)).to(dev)
+    per = v // d
+    rows = rng.permutation(v)[: per * d].reshape(d, per)
+    if case == "narrow":
+        cols = [(3, 4)] * d
+    elif case == "wide":
+        cols = [(2048, 4095), (-5, 3000), (4000, 4000), (1, 4096)]
+    else:
+        cols = [(int(s), int(s) + int(g)) for s, g in zip(rng.integers(-3, 64, d), rng.integers(-2, 30, d))]
+    seg = np.arange(d + 1, dtype=np.int64) * per
+    pm, px = mn.clone(), mx.clone()
+    for i, (s_col, t_col) in enumerate(cols):
+        mask = torch.zeros(v, dtype=torch.bool, device=dev)
+        mask[torch.from_numpy(rows[i]).to(dev)] = True
+        pm, px = SP.span_update_planes_plain(pm, px, mask, s_col, t_col)
+    assert SP.span_width(mn, mx) == (1 if case == "odd_h" else 4)
+    before = SP.LAUNCHES["span_update"], SP.APPLIES["span_update"]
+    carried = SP.span_update_many(mn, mx, torch.from_numpy(rows.reshape(-1)).to(dev), seg,
+                                  [c[0] for c in cols], [c[1] for c in cols])
+    torch.cuda.synchronize()
+    assert carried == sum(1 for s_col, t_col in cols if SP.touched_columns(h, s_col, t_col))
+    assert (SP.LAUNCHES["span_update"] - before[0], SP.APPLIES["span_update"] - before[1]) == (1, carried)
+    assert torch.equal(mn, pm) and torch.equal(mx, px)
+
+
 def test_torch_span_state_on_card_equals_numpy(dev):
     from lodestar_tpu_torch.slasher import AttesterSlasher, SpanState, TorchSpanState
 
@@ -977,6 +1074,7 @@ def test_torch_span_state_on_card_equals_numpy(dev):
             c.advance_base(c.base_epoch + 24)
     snap = c.snapshot()
     assert np.array_equal(snap.min_spans, a.min_spans) and np.array_equal(snap.max_spans, a.max_spans)
+    assert sum(c.drains.values()) > 0  # the deferred applies went through span_update_many
     assert AttesterSlasher().spans.min_spans.is_cuda  # the card with no argument
 
 

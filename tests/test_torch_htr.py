@@ -23,6 +23,8 @@ from lodestar_tpu.ssz import ChunkTree as JChunkTree
 from lodestar_tpu.ssz import device_backend as JDB
 from lodestar_tpu.state_transition.slot import process_slots
 from lodestar_tpu_torch.bls.supervisor import DeviceSupervisor
+from lodestar_tpu_torch.kernels import build as B
+from lodestar_tpu_torch.kernels import sha256 as SK
 from lodestar_tpu_torch.ssz import ChunkTree, merkleize_chunks
 from lodestar_tpu_torch.ssz import device_backend as DB
 from lodestar_tpu_torch.ssz.core import _ZERO_HASHES
@@ -180,7 +182,7 @@ def test_jax_chunk_tree_on_the_port_backend():
         snap = JMG.memory_snapshot()["htr_device"]
         assert snap == {"active": True, "dispatches": 4, "last_dispatch_bytes": b.last_dispatch_bytes,
                         "peak_dispatch_bytes": b.peak_dispatch_bytes}
-        assert b.last_dispatch_bytes == 12 * 512 * (16 + 1 + 1 + 8) * 4  # pairs, two maps, digests
+        assert b.last_dispatch_bytes == 12 * 512 * (16 + 1 + 1 + 8) * 4 + 12 * 4  # pairs, two maps, digests, live lanes
         _closed(b)
     finally:
         JDB.reset_backend()
@@ -299,6 +301,33 @@ def test_fault_trips_the_breaker_and_roots_survive(port_backend, fault, outcome)
         port_backend._canary()
     port_backend.heal()
     assert port_backend._canary()
+
+
+@pytest.mark.parametrize("kernel", ["forest_sweep", "validator_roots", "hash_pairs"])
+def test_a_refused_launch_raises_from_the_state_root_path(monkeypatch, kernel):
+    """A launch the card refuses (LaunchRefused, as the wrappers raise on a
+    CUDA error such as a cluster the card cannot place) propagates out of
+    the port's StateRootEngine from each seam: no host level, the breaker
+    untouched."""
+    b = _backend(min_level_rows=1)
+    DB.set_backend(b)
+    try:
+        rng, nprng = random.Random(21), np.random.default_rng(21)
+        st = _synthetic_state(20, 21)
+        engine = StateRootEngine()
+        if kernel == "forest_sweep":  # a dirty batch after the cold build
+            assert engine.hash_tree_root(st) == _full_root(st)
+            _mutate_once(st, rng, nprng)
+
+        def refused(*args):
+            raise B.LaunchRefused(f"{kernel} launch failed: cudaError 1")
+
+        monkeypatch.setattr(SK, kernel, refused)
+        with pytest.raises(B.LaunchRefused):
+            engine.hash_tree_root(st)
+        _closed(b)
+    finally:
+        DB.reset_backend()
 
 
 def test_hash_level_and_validator_roots_seams(port_backend):

@@ -4,9 +4,14 @@ against the JAX package's (`lodestar_tpu/kernels/sha256.py`, under plain
 build of `csrc/sha256.cu` (the kernels' own code, compiled with the host
 C++ compiler) against the plain versions.
 
-Inputs are made with numpy from fixed seeds.  The sweep's plan is the one
-the JAX package's `ChunkTree` builds for a dirty batch in a 2^40-leaf tree
-(K = 40 levels, B = 512 lanes), recorded through its backend seam.
+Inputs are made with numpy from fixed seeds.  The sweep's plans are the
+ones the JAX package's `ChunkTree` builds for a dirty batch in a 2^40-leaf
+tree (K = 40 levels, B = 512 lanes), recorded through its backend seam,
+with their live lanes a level: the live lanes of the sweep with live counts
+equal JAX's `forest_sweep_device`, its dead lanes are zeros, and without
+live counts every lane equals JAX's.  The host build runs the sweep's
+cluster block by block and thread by thread, both forwards and both
+reversed.
 """
 
 import hashlib
@@ -131,6 +136,47 @@ def test_forest_sweep_plain_matches_jax_on_a_tree_plan(tree_plan):
     assert sizes[-1] == 1
 
 
+@pytest.fixture(scope="module")
+def one_leaf_plan():
+    """The plan of one dirty leaf of the same kind of tree: one live lane a
+    level."""
+    rng = np.random.default_rng(41)
+    leaves = rng.integers(0, 256, (700, 32), dtype=np.uint8)
+    tree = JChunkTree(1 << 40)
+    rec = _PlanRecorder()
+    JDB.set_backend(rec)
+    try:
+        tree.update(leaves)
+        leaves[333] = rng.integers(0, 256, 32, dtype=np.uint8)
+        tree.update(leaves)
+    finally:
+        JDB.reset_backend()
+    (plan,) = rec.plans
+    assert plan[3] == [1] * 40
+    return plan
+
+
+def _plans(tree_plan, one_leaf_plan):
+    return {"dirty_300": tree_plan[0], "dirty_1": one_leaf_plan}
+
+
+@pytest.mark.parametrize("which", ["dirty_300", "dirty_1"])
+def test_forest_sweep_live_lanes_match_jax(tree_plan, one_leaf_plan, which):
+    """With each level's live lanes (the plan's sizes): the live lanes equal
+    JAX's forest_sweep_device, the rest are zeros; the wrapper on CPU
+    tensors is the plain version."""
+    pairs, lane, half, sizes = _plans(tree_plan, one_leaf_plan)[which]
+    live = np.asarray(sizes, np.int32)
+    got = SK.to_words(SK.forest_sweep_plain(_t(pairs), _t(lane), _t(half), _t(live)))
+    want = np.asarray(jax.jit(JSK.forest_sweep_device)(pairs, lane, half))
+    for level, n in enumerate(sizes):
+        np.testing.assert_array_equal(got[level, :n], want[level, :n])
+        assert not got[level, n:].any()
+    np.testing.assert_array_equal(SK.to_words(SK.forest_sweep(_t(pairs), _t(lane), _t(half), _t(live))), got)
+    if which == "dirty_300":
+        assert SK.digests_to_bytes(got[39, :1]).tobytes() == tree_plan[1].root
+
+
 def _small_plan(rng, k, b):
     """Random pair planes; each level's lanes scattered to a random
     permutation of [0, b + 4), so some land at or past b (dropped)."""
@@ -191,6 +237,12 @@ def test_wrappers_refuse_bad_operands():
         SK.forest_sweep(torch.zeros((2, 1025, 16), dtype=torch.int32), torch.zeros((2, 1025), dtype=torch.int32),
                         torch.zeros((2, 1025), dtype=torch.int32))
     with pytest.raises(ValueError):
+        SK.forest_sweep(torch.zeros((2, 8, 16), dtype=torch.int32), torch.zeros((2, 8), dtype=torch.int32),
+                        torch.zeros((2, 8), dtype=torch.int32), torch.ones(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        SK.forest_sweep(torch.zeros((2, 8, 16), dtype=torch.int32), torch.zeros((2, 8), dtype=torch.int32),
+                        torch.zeros((2, 8), dtype=torch.int32), torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError):
         SK.validator_roots(*[torch.zeros((3, 8), dtype=torch.int32)] * 2,
                            *[torch.zeros((3, 2), dtype=torch.int32)] * 5, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -222,11 +274,46 @@ def test_host_build_forest_sweep(host_lib, tree_plan, k, b, reverse):
     out = torch.empty((k, b, 8), dtype=torch.int32)
     host_lib.lt_host_warp_order(reverse)
     try:
-        assert host_lib.lt_sha256_sweep(pairs.data_ptr(), lane.data_ptr(), half.data_ptr(), out.data_ptr(), k, b,
-                                        None) == 0
+        assert host_lib.lt_sha256_sweep(pairs.data_ptr(), lane.data_ptr(), half.data_ptr(), None, out.data_ptr(), k,
+                                        b, None) == 0
     finally:
         host_lib.lt_host_warp_order(0)
     assert torch.equal(out, SK.forest_sweep_plain(pairs, lane, half))
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("which", ["dirty_300", "dirty_1", "clamped", "small"])
+def test_host_build_forest_sweep_live(host_lib, tree_plan, one_leaf_plan, which, reverse):
+    """The cluster's blocks (8 of 64 threads at B = 512, 2 of 17 at B = 33)
+    and their threads run each phase forwards and reversed, with live
+    counts: equal to the plain version with the same counts, and on the
+    live lanes to JAX; counts past B or below 0 are clamped."""
+    if which in ("dirty_300", "dirty_1"):
+        pairs, lane, half, sizes = _plans(tree_plan, one_leaf_plan)[which]
+        live = np.asarray(sizes, np.int32)
+    elif which == "clamped":
+        pairs, lane, half = tree_plan[0][:3]
+        live = np.asarray(tree_plan[0][3], np.int32)
+        live[0], live[5] = 9999, -3
+    else:  # random scatter maps, each level's live lanes shrinking
+        pairs, lane, half = _small_plan(np.random.default_rng(33), 9, 33)
+        live = np.array([33, 30, 30, 17, 16, 9, 2, 1, 1], np.int32)
+    k, b = pairs.shape[:2]
+    pt, lt, ht, vt = _t(pairs), _t(lane), _t(half), _t(live)
+    out = torch.empty((k, b, 8), dtype=torch.int32)
+    host_lib.lt_host_warp_order(reverse)
+    try:
+        assert host_lib.lt_sha256_sweep(pt.data_ptr(), lt.data_ptr(), ht.data_ptr(), vt.data_ptr(), out.data_ptr(), k,
+                                        b, None) == 0
+    finally:
+        host_lib.lt_host_warp_order(0)
+    assert torch.equal(out, SK.forest_sweep_plain(pt, lt, ht, vt))
+    if which in ("dirty_300", "dirty_1"):
+        want = np.asarray(jax.jit(JSK.forest_sweep_device)(pairs, lane, half))
+        got = SK.to_words(out)
+        for level, n in enumerate(live.tolist()):
+            np.testing.assert_array_equal(got[level, :n], want[level, :n])
+            assert not got[level, n:].any()
 
 
 @pytest.mark.parametrize("d", [1, 5, 257])

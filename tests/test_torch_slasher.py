@@ -6,9 +6,13 @@
     source below the window, source == target, columns past the window,
     no row, every row);
   - the host build of `csrc/spans.cu` (the kernel's own code, compiled
-    with the host C++ compiler) against the plain version, both row orders;
+    with the host C++ compiler) against the plain version, both work-item
+    orders, one data a launch and batches of up to 16 (`lt_span_update_many`)
+    against the plain version and JAX's, data after data;
   - `TorchSpanState(device="cpu")` against `JaxSpanState` and the numpy
-    `SpanState` over random apply, advance and growth sequences;
+    `SpanState` over random apply, advance and growth sequences, and with
+    its deferred batch under interleaved apply, lookup, advance, growth,
+    snapshot and plane assignment (its drains by reason);
   - the JAX `AttesterSlasher` with a `TorchSpanState` assigned as its
     spans against the JAX naive detector;
   - the port's detectors and `SlasherService` against the JAX ones on the
@@ -119,6 +123,88 @@ def test_host_build_equals_plain(host_lib, case, order):
     assert torch.equal(hm, pm) and torch.equal(hx, px)
 
 
+# batches of datas for lt_span_update_many: (s_col, t_col, rows) each, on
+# 37 rows; repeated and overlapping rows, a source below the window, past
+# it, target <= source, an empty data
+def _batch(rng, h, kind):
+    if kind == "edges":
+        datas = [EDGES[c] for c in sorted(EDGES)]
+        datas = [(s * h // H if s > 0 else s, t * h // H if t > 0 else t, rows) for s, t, rows in datas]
+    else:
+        datas = []
+        for _ in range(16):
+            t = int(rng.integers(-3, h + 8))
+            s = int(rng.integers(-6, h + 4)) if rng.random() < 0.3 else int(rng.integers(-6, max(t, -5) + 1))
+            datas.append((s, t, rng.choice(37, int(rng.integers(0, 9))).tolist()))
+        datas[3] = (datas[3][0], datas[3][1], [])  # an empty data
+        datas[5] = (h // 2, h - 1, datas[4][2] + [5, 5])  # a wide one meeting the previous data's rows
+    return datas
+
+
+def _many_plan(datas):
+    rows = torch.tensor([r for _, _, rs in datas for r in rs], dtype=torch.int64)
+    seg = np.cumsum([0] + [len(rs) for _, _, rs in datas]).astype(np.int64)
+    return rows, seg, np.array([s for s, _, _ in datas], np.int64), np.array([t for _, t, _ in datas], np.int64)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("kind", ["edges", "mixed"])
+@pytest.mark.parametrize("h", [64, 61, 4096])
+def test_host_build_many_equals_plain_and_jax(host_lib, jitted, h, kind, order):
+    """One launch of a batch equals the datas one after another through the
+    plain version and JAX's span_update_planes, in both work-item orders;
+    16-byte vectors where h % 4 == 0, single columns else."""
+    rng = np.random.default_rng(h + 10 * order + len(kind))
+    datas = _batch(rng, h, kind)
+    mn, mx = _planes(rng, 37, h)
+    pm, px = torch.from_numpy(mn), torch.from_numpy(mx)
+    jm, jx = mn, mx
+    for s, t, rows in datas:
+        mask = np.zeros(37, bool)
+        mask[rows] = True
+        pm, px = SP.span_update_planes_plain(pm, px, torch.from_numpy(mask), s, t)
+        jm, jx = jitted(jm, jx, mask, np.int32(s), np.int32(t))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(px.numpy(), np.asarray(jx))
+    rows, seg, s_cols, t_cols = _many_plan(datas)
+    hm, hx = torch.from_numpy(mn.copy()), torch.from_numpy(mx.copy())
+    plan = SP.span_plan(hm, hx, seg, s_cols, t_cols)
+    assert plan.width == (4 if h % 4 == 0 else 1)
+    assert plan.n_items == SP.work_items(h, plan.width, seg, s_cols, t_cols)[-1]
+    host_lib.lt_host_warp_order(order)
+    try:
+        assert host_lib.lt_span_update_many(*plan.args(hm, hx, rows), None) == 0
+        # a width the planes cannot take is refused
+        if plan.width == 1:
+            assert host_lib.lt_span_update_many(*plan._replace(width=4, n_items=1).args(hm, hx, rows), None) != 0
+    finally:
+        host_lib.lt_host_warp_order(0)
+    assert torch.equal(hm, pm) and torch.equal(hx, px)
+    # the wrapper on CPU tensors: data after data, the applies that can change a cell
+    wm, wx = torch.from_numpy(mn.copy()), torch.from_numpy(mx.copy())
+    SP.reset_launches()
+    carried = SP.span_update_many(wm, wx, rows, seg, s_cols, t_cols)
+    assert torch.equal(wm, pm) and torch.equal(wx, px)
+    assert carried == sum(1 for s, t, r in datas if r and SP.touched_columns(h, s, t))
+    assert SP.LAUNCHES["span_update"] == SP.APPLIES["span_update"] == 0  # the plain version is no launch
+
+
+def test_many_wrapper_refuses_bad_plans():
+    mn = torch.zeros((4, 8), dtype=torch.int32)
+    rows = torch.tensor([0, 1, 2], dtype=torch.int64)
+    with pytest.raises(ValueError):
+        SP.span_update_many(mn, mn.clone(), rows, [0, 2], [1, 2], [3, 4])  # two datas, one offset pair
+    with pytest.raises(ValueError):
+        SP.span_update_many(mn, mn.clone(), rows, [0, 2, 4], [1, 2], [3, 4])  # offsets past the rows
+    with pytest.raises(ValueError):
+        SP.span_update_many(mn, mn.clone(), rows, [0, 2, 1], [1, 2], [3, 4])  # decreasing offsets
+    with pytest.raises(ValueError):
+        SP.span_update_many(mn, mn.clone(), rows, [0, 3], [1], [1 << 31])
+    assert SP.span_update_many(mn, mn.clone(), rows[:0], [0], [], []) == 0
+    assert SP.work_items(8, 4, np.array([0, 3, 3, 5]), np.array([1, 2, 0]), np.array([7, 9, 1])).tolist() == \
+        [0, 6, 6, 6]  # 3 rows x 2 vectors; no row; 2 rows, no column
+
+
 def test_wrapper_refuses_bad_operands():
     mn = torch.zeros((4, 8), dtype=torch.int32)
     rows = torch.tensor([0], dtype=torch.int64)
@@ -177,6 +263,120 @@ def test_torch_span_state_equals_jax_and_numpy(seed):
     for x, y, z in ((a.min_spans, snap_b.min_spans, snap_c.min_spans), (a.max_spans, snap_b.max_spans,
                                                                           snap_c.max_spans)):
         assert z.dtype == np.int32 and np.array_equal(x, y) and np.array_equal(x, z)
+
+
+def _spans_equal(a, c):
+    snap = c.snapshot()
+    assert np.array_equal(snap.min_spans, a.min_spans) and np.array_equal(snap.max_spans, a.max_spans)
+
+
+@pytest.mark.parametrize("seed", [3, 8, 21])
+def test_deferred_applies_equal_numpy_and_jax(monkeypatch, seed):
+    """The CPU TorchSpanState with its pending batch (a small row cap)
+    against the numpy SpanState and JaxSpanState under interleaved apply,
+    lookup, advance, growth, snapshot and plane assignment; one
+    validator's surround inside one batch (a lookup meeting a pending row)
+    drains first."""
+    monkeypatch.setattr(TSL.device, "BATCH_ROWS", 12)
+    rng = np.random.default_rng(seed)
+    a = TSL.SpanState(num_validators=20, history_length=32, chunk_size=8)
+    b = JSL.JaxSpanState(num_validators=20, history_length=32, chunk_size=8, use_export=False)
+    c = TSL.TorchSpanState(num_validators=20, history_length=32, chunk_size=8, device="cpu")
+    both = (a, b, c)
+    # a surround inside one batch: (2, 9) then (4, 6) by validator 7
+    for sp in both:
+        sp.apply(np.array([7, 8]), 2, 9)
+    assert c._pending and c.drains["lookup"] == 0
+    la, lc = a.lookup(np.array([7]), 4), c.lookup(np.array([7]), 4)
+    assert c.drains["lookup"] == 1 and not c._pending
+    assert np.array_equal(la[0], lc[0]) and np.array_equal(la[1], lc[1]) and int(lc[1][0]) > 6 - 4
+    # disjoint applies up to the row cap, one past it, one meeting a pending
+    # row, then growth, each draining for its reason
+    steps = [([0, 1, 2, 3], "cap"), ([4, 5, 6, 7], "cap"), ([8, 9, 10, 11], "cap"), ([12, 13], "cap"),
+             ([13, 14], "apply"), (None, "ensure_validators")]
+    for rows, reason in steps:
+        before = c.drains[reason]
+        for sp in both:
+            if rows is None:
+                sp.ensure_validators(30)
+            else:
+                sp.apply(np.array(rows), 3, 11)
+        assert c.drains[reason] == before + (rows in ([12, 13], [13, 14], None))
+    buf = np.array([20, 21])
+    for sp in both:
+        sp.apply(buf, 2, 30)
+    buf[:] = [22, 23]  # a caller reusing its array: the pending batch keeps its own rows
+    _spans_equal(a, c)
+    for step in range(60):
+        op = rng.random()
+        if op < 0.55:
+            t = int(a.base_epoch + rng.integers(0, 40))
+            s = int(rng.integers(a.base_epoch - 3, t + 2))
+            rows = np.unique(rng.integers(0, a.num_validators + 3, int(rng.integers(0, 6))))
+            for sp in both:
+                sp.ensure_epoch(max(t, s))
+                if rows.size:
+                    sp.ensure_validators(int(rows.max()) + 1)
+                sp.apply(rows, s, t)
+        elif op < 0.8:
+            rows = np.unique(rng.integers(0, a.num_validators, int(rng.integers(1, 5))))
+            s = int(a.base_epoch + rng.integers(0, a.history_length))
+            outs = [sp.lookup(rows, s) for sp in both]
+            for o in outs[1:]:
+                assert np.array_equal(outs[0][0], np.asarray(o[0])) and np.array_equal(outs[0][1], np.asarray(o[1]))
+        elif op < 0.88:
+            k = 8 * int(rng.integers(1, 3))
+            for sp in both:
+                sp.advance_base(sp.base_epoch + k)
+        elif op < 0.94:
+            _spans_equal(a, c)
+        else:  # the store's warm start: numpy planes assigned
+            for sp in (b, c):
+                sp.min_spans, sp.max_spans = a.min_spans.copy(), a.max_spans.copy()
+        assert a.base_epoch == b.base_epoch == c.base_epoch
+        assert a.num_validators == b.num_validators == c.num_validators
+    for sp in both:
+        sp.apply(np.array([0]), sp.base_epoch + 1, sp.base_epoch + 5)
+    before = c.drains["snapshot"]
+    _spans_equal(a, c)
+    assert c.drains["snapshot"] == before + 1
+    assert np.array_equal(np.asarray(b.snapshot().min_spans), a.min_spans)
+
+
+def test_a_batch_of_disjoint_committees_makes_one_drain():
+    """A flush of disjoint committees at one epoch (the path's shape)
+    defers all 16 applies, and a read of the planes drains them in one
+    batch; a surround of one validator inside the next flush drains once
+    more (its second lookup meets its first apply).  Detections equal the
+    naive detector's and JAX's, the planes the numpy backend's and JAX's."""
+    rng = np.random.default_rng(4)
+    committees = rng.permutation(256).reshape(16, 16)
+    ports = [TSL.AttesterSlasher(history_length=64, chunk_size=16, device="cpu"),
+             TSL.AttesterSlasher(history_length=64, chunk_size=16, span_backend="numpy")]
+    jaxs, naive = JSL.AttesterSlasher(history_length=64, chunk_size=16), JSL.NaiveAttesterSlasher()
+    for p in ports + [jaxs]:
+        p.spans.ensure_validators(256)
+    first = [_att(m.tolist(), 5, 7, root=bytes([i]) * 32, index=i) for i, m in enumerate(committees)]
+    v = int(committees[3, 2])
+    second = [_att([v], 4, 9, root=b"\xee" * 32), _att([v], 6, 7, root=b"\xef" * 32)]
+    spans = ports[0].spans
+    found = []
+    for batch in (first, second):
+        want = _offender_pairs(naive.process_batch(batch))
+        assert _offender_pairs(jaxs.process_batch(batch)) == want
+        for p in ports:
+            assert _offender_pairs(p.process_batch(batch)) == want
+        found.append(want)
+        if batch is first:
+            assert sum(spans.drains.values()) == 0 and len(spans._pending) == 16
+            assert torch.equal(spans.min_spans, torch.from_numpy(ports[1].spans.min_spans))
+            assert spans.drains == {**dict.fromkeys(TSL.device.DRAIN_REASONS, 0), "planes": 1}
+            assert not spans._pending
+    assert not found[0] and ("surround*", v) in found[1]
+    assert spans.drains["planes"] == spans.drains["lookup"] == 1 and sum(spans.drains.values()) == 2
+    snap = spans.snapshot()
+    assert np.array_equal(snap.min_spans, ports[1].spans.min_spans)
+    assert np.array_equal(snap.max_spans, np.asarray(jaxs.spans.max_spans))
 
 
 def test_torch_span_state_shift_in_row_chunks(monkeypatch):

@@ -193,9 +193,37 @@ Needs one CUDA device; exits non-zero without one.  In order:
      it, 512 committees of 512 in one launch on 262,144 x 4,096 planes;
      its `slasher` line.  `python3 chip_smoke.py --slasher-only` runs
      this phase alone;
-  8. one JSON line {"kernels": [...]} (each BLS row with its launches in
+  8. the chain: the port's BeaconChain (state transition, regen, memory
+     governor with its default budget, op pools, block production, fork
+     choice, a BeaconDb) over a 1,048,576-validator altair genesis made by
+     the port's create_genesis_state from the table's keys, its signatures
+     through create_bls_service(TorchBlsVerifier(table)), its state roots
+     through the card's DeviceMerkleBackend; the blocks at slots 29 to 33
+     (32 crosses the epoch boundary) made by the chain's own
+     produce_block from its pools (the previous slot's 64 committees of
+     512 as full aggregates, a full sync aggregate from four subnet
+     contributions), signed with the proposers' keys and imported by
+     process_block; before the last imports, a copy with one attestation's
+     signature swapped for another committee's (refused by the signature
+     leg, its batch bisected on the card) and one with a wrong state root
+     (refused by the state-root leg), neither moving the head nor leaving
+     a fork-choice node.  Checks: every block imported, the head the last
+     one, each post-state's root equal to a second StateRootEngine's on
+     the host path (in step), no set on the host, no signature checked
+     inside the state transition, no tree level on the host, the breakers
+     closed, every kernel of CHAIN_KERNELS and CHAIN_SHA launched (counted
+     from 0 just before the genesis) and every kernel call of the phase
+     equal to its plain version (`hold_chain_calls`); its `chain block`
+     lines (the chain's named phases, the view's committee caches, sets,
+     import and host-root ms) and its `chain` line (cold root, sync
+     committee on the host, rejections, launches, calls held, the
+     governor's resident bytes, evictions and demotions, wall time).
+     `python3 chip_smoke.py --chain-only` registers its own table and runs
+     this phase alone (its lines, no result line);
+  9. one JSON line {"kernels": [...]} (each BLS row with its launches in
      the node phase and, where the phase launched it, its first call's
-     hold) and, last, {"ok": true, "device": ...}.
+     hold; every row with its launches in the chain phase and the calls of
+     it held there) and, last, {"ok": true, "device": ...}.
 
 Any mismatch or error raises, and the script exits non-zero.
 """
@@ -214,6 +242,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -2217,6 +2246,442 @@ def node_phase(table, keys, sks, card: str, dev=None) -> tuple:
 
 
 
+CHAIN_VALIDATORS = 1 << 20  # the node phase's registry: row r holds key r % N_KEYS
+CHAIN_SLOTS = (29, 30, 31, 32, 33)  # the block at 32 crosses the epoch boundary: its pre-state runs process_epoch
+CHAIN_TAMPERED_SLOT = 33  # the two rejected copies are made of this slot's block
+CHAIN_SWAPPED = (3, 7)  # the tampered copy's attestation 3 carries attestation 7's signature
+# the kernels the phase must launch: the block's sets as one RLC batch of
+# wire sets (K = 512 aggregates through agg_pk), the bisection of the
+# tampered copy, the state roots' three SHA-256 kernels
+CHAIN_KERNELS = ("g2_decompress", "hash_g2", "agg_pk", "g1_rpk", "g2_rsig_sub", "sum_g2", "miller_loop", "prod12",
+                 "affine_g2", "final_one", "g2_subgroup_check", "each_final")
+CHAIN_SHA = tuple(HTR_KERNELS)
+CHAIN_LANE_WISE = ("g2_decompress", "hash_g2", "g1_rpk", "g2_rsig_sub", "miller_loop", "affine_g2", "final_one",
+                   "g2_subgroup_check", "each_final")  # a lane's result depends on that lane's inputs alone
+
+
+def _merged_sweeps(calls):
+    """The forest_sweep calls of one depth K as one plain run's operands:
+    each call's live rows of each level placed one after another (its
+    scatter map shifted by the rows before it at the level above), so the
+    merged plan hashes exactly what every call hashes.  Returns (pairs,
+    dst_lane, dst_half, live, [(call, level) -> offset])."""
+    k = calls[0][0][0].shape[0]
+    dev = calls[0][0][0].device
+    lives = []
+    for (pairs, dst_lane, dst_half, *rest), _ in calls:
+        b = pairs.shape[1]
+        lv = rest[0].tolist() if rest and rest[0] is not None else [b] * k
+        lives.append([min(max(int(n), 0), b) for n in lv])
+    width = max(1, max(sum(lv[level] for lv in lives) for level in range(k)))
+    pairs_m = torch.zeros((k, width, 16), dtype=torch.int32, device=dev)
+    lane_m = torch.full((k, width), -1, dtype=torch.int32, device=dev)
+    half_m = torch.zeros((k, width), dtype=torch.int32, device=dev)
+    offsets = []
+    base = [0] * k
+    for ((pairs, dst_lane, dst_half, *_), _), lv in zip(calls, lives):
+        offsets.append(list(base))
+        for level in range(k):
+            n, o = lv[level], base[level]
+            pairs_m[level, o:o + n] = pairs[level, :n]
+            if level + 1 < k:
+                lane = dst_lane[level, :n].to(torch.int64)
+                # a row the call drops (outside the next level's live rows) stays dropped
+                keep = (lane >= 0) & (lane < lv[level + 1])
+                lane_m[level, o:o + n] = torch.where(keep, lane + base[level + 1], -1).to(torch.int32)
+                half_m[level, o:o + n] = dst_half[level, :n]
+        base = [b + lv[level] for level, b in enumerate(base)]
+    live_m = torch.tensor(base, dtype=torch.int32, device=dev)
+    return pairs_m, lane_m, half_m, live_m, offsets, lives
+
+
+def hold_chain_calls(calls, KV, SK) -> dict:
+    """Every recorded kernel call of the chain phase against its plain
+    version on the same inputs: the lane-wise BLS kernels' calls side by
+    side in one plain run per kernel and operand pattern, agg_pk's sets
+    side by side over the one table (one run per K bucket), the
+    reductions one plain run per call, hash_pairs' and validator_roots'
+    rows side by side, forest_sweep's calls of one depth merged into one
+    plain run.  Raises on the first difference; returns {kernel: (calls,
+    lanes)}."""
+    held = {}
+
+    def differ(name, k_outs, p_outs):
+        if len(p_outs) != len(k_outs):
+            raise AssertionError(f"chain: {name} gave {len(k_outs)} outputs, its plain version {len(p_outs)}")
+        for a, b in zip(k_outs, p_outs):
+            if not torch.equal(a, b):
+                err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                raise AssertionError(f"chain: a call of {name} differs from its plain version (max {err})")
+
+    for name, recs in calls.items():
+        if not recs:
+            continue
+        lanes = 0
+        if name in CHAIN_LANE_WISE:
+            for pattern in sorted({tuple(a is None for a in r[0]) for r in recs}):
+                part = [r for r in recs if tuple(a is None for a in r[0]) == pattern]
+                args = [None if none else torch.cat([r[0][i] for r in part], dim=-1)
+                        for i, none in enumerate(pattern)]
+                while args and args[-1] is None:
+                    args.pop()
+                k_outs = [torch.cat([r[1][i] for r in part], dim=-1) for i in range(len(part[0][1]))]
+                p_out = getattr(KV, name + "_plain")(*args)
+                differ(name, k_outs, p_out if isinstance(p_out, tuple) else (p_out,))
+                lanes += k_outs[0].shape[-1]
+        elif name == "agg_pk":  # (table_x, table_y, idx [N, K], kmask [N, K]): a set's sum is its rows' alone
+            for k in sorted({r[0][2].shape[1] for r in recs}):
+                part = [r for r in recs if r[0][2].shape[1] == k]
+                if any(r[0][0].data_ptr() != part[0][0][0].data_ptr() for r in part):
+                    raise AssertionError("chain: agg_pk called on two tables")
+                idx = torch.cat([r[0][2] for r in part], dim=0)
+                kmask = torch.cat([r[0][3] for r in part], dim=0)
+                k_outs = [torch.cat([r[1][i] for r in part], dim=-1) for i in range(len(part[0][1]))]
+                differ(name, k_outs, KV.agg_pk_plain(part[0][0][0], part[0][0][1], idx, kmask))
+                lanes += idx.shape[0]
+        elif name in ("hash_pairs", "validator_roots"):
+            args = [torch.cat([r[0][i] for r in recs], dim=0) for i in range(len(recs[0][0]))]
+            k_out = torch.cat([r[1][0] for r in recs], dim=0)
+            differ(name, (k_out,), (getattr(SK, name + "_plain")(*args),))
+            lanes = k_out.shape[0]
+        elif name == "forest_sweep":
+            for k in sorted({r[0][0].shape[0] for r in recs}):
+                part = [r for r in recs if r[0][0].shape[0] == k]
+                pairs, lane, half, live, offsets, lives = _merged_sweeps(part)
+                merged = SK.forest_sweep_plain(pairs, lane, half, live)
+                for (_, (k_out,)), offs, lv in zip(part, offsets, lives):
+                    for level in range(k):
+                        n, o = lv[level], offs[level]
+                        if not torch.equal(k_out[level, :n], merged[level, o:o + n]):
+                            raise AssertionError(f"chain: a forest_sweep call (K = {k}) differs from its plain "
+                                                 f"version at level {level}")
+                lanes += int(live.sum())
+        else:  # the reductions: one plain run a call
+            for args, k_outs in recs:
+                p_out = getattr(KV, name + "_plain")(*args)
+                differ(name, k_outs, p_out if isinstance(p_out, tuple) else (p_out,))
+                lanes += args[0].shape[-1]
+        held[name] = (len(recs), int(lanes))
+    return held
+
+
+def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
+    """Block import on the card: the port's BeaconChain over a
+    CHAIN_VALIDATORS-validator altair genesis made by the port's
+    create_genesis_state (pubkeys `keys`, row r the key of sks[r % N_KEYS];
+    MAINNET_CHAIN_CONFIG with altair from epoch 0), its signatures through
+    create_bls_service(TorchBlsVerifier(table)), its state roots through the
+    card's DeviceMerkleBackend, its default memory governor and a BeaconDb.
+    The blocks at CHAIN_SLOTS are made by the chain's own produce_block from
+    its pools (the aggregated pool holding the previous slot's committees,
+    each one full aggregate of 512; four sync contributions of 128, a full
+    sync aggregate), signed with the proposers' keys and imported by
+    process_block; before the last one imports, a copy with one
+    attestation's signature swapped for another committee's (refused by the
+    signature leg, the batch bisected on the card) and one with a wrong
+    state root (refused by the state-root leg), neither moving the head nor
+    leaving a fork-choice node.  Each imported post-state's root is held
+    against a second StateRootEngine on the host path, in step; every kernel
+    call of the phase against its plain version (`hold_chain_calls`).
+    Raises unless every block imports, the head is the last block, no set
+    went to the host, the transition checked no signature itself, no tree
+    level was hashed on the host, the breakers stayed closed and every
+    kernel of CHAIN_KERNELS and CHAIN_SHA launched.
+    Returns (chain line, launches)."""
+    from lodestar_tpu_torch.bls import create_bls_service
+    from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.chain.chain import BeaconChain
+    from lodestar_tpu_torch.config import MAINNET_CHAIN_CONFIG, create_chain_config
+    from lodestar_tpu_torch.crypto import bls as GB
+    from lodestar_tpu_torch.crypto import fields as GT
+    from lodestar_tpu_torch.db import BeaconDb
+    from lodestar_tpu_torch.kernels import sha256 as SK
+    from lodestar_tpu_torch.kernels import verify as KV
+    from lodestar_tpu_torch.params import DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, DOMAIN_RANDAO, \
+        DOMAIN_SYNC_COMMITTEE, SLOTS_PER_EPOCH, SYNC_COMMITTEE_SUBNET_COUNT, ForkName
+    from lodestar_tpu_torch.ssz import device_backend as DB
+    from lodestar_tpu_torch.ssz import uint64
+    from lodestar_tpu_torch.state_transition import StateRootEngine, accessors as AC, block as BK, \
+        genesis as GEN, signature_sets as SS
+    from lodestar_tpu_torch.state_transition.slot import process_slots
+    from lodestar_tpu_torch.types import AttestationData, BeaconBlockAltair
+
+    t_phase = time.perf_counter()
+    if len(table) != len(keys) or len(keys) != CHAIN_VALIDATORS:
+        raise AssertionError(f"chain: a table of {len(table)} rows for {len(keys)} keys")
+    cfg = create_chain_config(MAINNET_CHAIN_CONFIG, fork_epochs={ForkName.altair: 0})
+    sk_of = {keys[k]: sks[k] for k in range(N_KEYS)}
+    backend = DB.DeviceMerkleBackend(device=dev)
+    DB.set_backend(backend)
+    verifier = TorchBlsVerifier(table, device=dev)
+    service = create_bls_service(verifier)
+    BK.reset_host_signature_checks()
+
+    # every kernel call of the phase: operands and results copied for the hold
+    calls = {name: [] for name in NODE_HELD + CHAIN_SHA}
+    real = {name: getattr(KV, name) for name in NODE_HELD}
+    real.update({name: getattr(SK, name) for name in CHAIN_SHA})
+    rec_lock = threading.Lock()
+
+    def recorder(name):
+        f = real[name]
+
+        # agg_pk's first two operands are the table's planes, which no call writes: kept, not copied
+        kept = 2 if name == "agg_pk" else 0
+
+        def run(*args):
+            ins = tuple(a.clone() if torch.is_tensor(a) and i >= kept else a for i, a in enumerate(args))
+            out = f(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            with rec_lock:
+                calls[name].append((ins, tuple(o.clone() for o in outs)))
+            return out
+        return run
+
+    # the chain's named phases, the view's committee caches and the sets, per import
+    phases, views, n_sets = [], [], []
+    timer = type("PhaseTimer", (), {"observe": lambda self, name, s: phases.append((name, s))})()
+    real_from_state, real_sets = SS.BeaconStateView.from_state.__func__, SS.get_block_signature_sets
+    real_sync = GEN.get_next_sync_committee
+    sync_s = []
+
+    def from_state(cls, state):
+        t = time.perf_counter()
+        out = real_from_state(cls, state)
+        views.append(time.perf_counter() - t)
+        return out
+
+    def block_sets(view, signed_block, *a, **kw):
+        out = real_sets(view, signed_block, *a, **kw)
+        n_sets.append(len(out))
+        return out
+
+    def sync_committee(state):
+        t = time.perf_counter()
+        out = real_sync(state)
+        sync_s.append(time.perf_counter() - t)
+        return out
+
+    pool = mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    db_dir = tempfile.TemporaryDirectory(prefix="chain_db_")
+    chain = None
+    for name in NODE_HELD:
+        setattr(KV, name, recorder(name))
+    for name in CHAIN_SHA:
+        setattr(SK, name, recorder(name))
+    SS.BeaconStateView.from_state = classmethod(from_state)
+    SS.get_block_signature_sets = block_sets
+    GEN.get_next_sync_committee = sync_committee
+    try:
+        torch.cuda.synchronize()
+        KV.reset_launches()
+        SK.reset_launches()
+        t = time.perf_counter()
+        anchor = GEN.create_genesis_state(cfg, keys)
+        genesis_s = time.perf_counter() - t
+        t = time.perf_counter()
+        anchor_root = anchor.hash_tree_root()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t) * 1e3
+        db = BeaconDb(os.path.join(db_dir.name, "chain"))
+        t = time.perf_counter()
+        chain = BeaconChain(cfg, anchor, db=db, bls_verifier=service)
+        chain.phase_timer = timer
+        chain_s = time.perf_counter() - t
+        log(f"chain setup: genesis of {len(keys)} validators in {genesis_s:.1f} s (the sync committee's 512 keys "
+            f"aggregated on the host in {sum(sync_s):.1f} s), its cold root {cold_ms:.1f} ms on the card, "
+            f"BeaconChain in {chain_s:.1f} s")
+
+        host_engine = StateRootEngine()
+        blocks, rejected, per_block, host_ms = [], [], [], []
+
+        def leg_check(seen):
+            """True unless the import ran every named phase."""
+            return set(seen["phases_ms"]) < {"validation", "signature_verify", "stf", "state_root", "fork_choice"}
+
+        def signed(block):
+            pre = chain.head_state
+            root = cfg.compute_signing_root(BeaconBlockAltair.hash_tree_root(block),
+                                            cfg.get_domain(block["slot"], DOMAIN_BEACON_PROPOSER, block["slot"]))
+            return {"message": block, "signature": GB.sign_bytes(sk_of[pre.pubkeys[block["proposer_index"]]], root)}
+
+        def import_(signed_block, seen):
+            """process_block; `seen` gets the named phases it completed and its ms."""
+            first = len(phases)
+            t = time.perf_counter()
+            try:
+                return chain.process_block(signed_block, timely=True)
+            finally:
+                seen["ms"] = (time.perf_counter() - t) * 1e3
+                seen["phases_ms"] = {k: v * 1e3 for k, v in phases[first:]}
+
+        t_path = time.perf_counter()
+        sign_s = produce_s = 0.0
+        for slot in CHAIN_SLOTS:
+            # the pools: the previous slot's committees and the sync committee's contributions
+            t = time.perf_counter()
+            att_slot = slot - 1
+            head = chain.head_state
+            head_root = chain.get_head_root()
+            chain.aggregated_attestation_pool = type(chain.aggregated_attestation_pool)()
+            cps = AC.get_committee_count_per_slot(head, att_slot // SLOTS_PER_EPOCH)
+            datas, roots, scalars = [], [], []
+            for index in range(cps):
+                data = chain.produce_attestation_data(index, att_slot)
+                committee = AC.get_beacon_committee(head, att_slot, index)
+                datas.append((data, len(committee)))
+                roots.append(cfg.compute_signing_root(AttestationData.hash_tree_root(data), cfg.get_domain(
+                    att_slot, DOMAIN_BEACON_ATTESTER, att_slot)))
+                scalars.append(sum(sks[int(v) % N_KEYS] for v in committee) % GT.R)
+            seats = head.current_sync_committee["pubkeys"]
+            size = len(seats) // SYNC_COMMITTEE_SUBNET_COUNT
+            roots.append(cfg.compute_signing_root(head_root, cfg.get_domain(att_slot, DOMAIN_SYNC_COMMITTEE,
+                                                                            att_slot)))
+            for sub in range(SYNC_COMMITTEE_SUBNET_COUNT):
+                scalars.append(sum(sk_of[pk] for pk in seats[sub * size:(sub + 1) * size]) % GT.R)
+            hs = pool.map(_hash_to_g2, roots)
+            # the cps committees' scalars sign their roots, the four subnets' the one sync root (roots[cps])
+            wire = pool.map(_sign_wire, [(s, hs[min(i, cps)]) for i, s in enumerate(scalars)])
+            for (data, n), sig in zip(datas, wire[:cps]):
+                chain.aggregated_attestation_pool.add({"aggregation_bits": [True] * n, "data": data,
+                                                       "signature": sig})
+            for sub, sig in enumerate(wire[cps:]):
+                chain.sync_contribution_pool.add({"slot": att_slot, "beacon_block_root": head_root,
+                                                  "subcommittee_index": sub, "aggregation_bits": [True] * size,
+                                                  "signature": sig})
+            # the proposer's randao reveal, then the block from the pools; within the
+            # head's epoch the head state names the slot's proposer, across it the
+            # state is advanced
+            epoch = slot // SLOTS_PER_EPOCH
+            if head.slot // SLOTS_PER_EPOCH == epoch:
+                proposer = AC.get_proposer_indices_for_epoch(head, epoch)[slot % SLOTS_PER_EPOCH]
+            else:
+                pre = head.clone()
+                process_slots(pre, slot)
+                proposer = AC.get_beacon_proposer_index(pre)
+                del pre
+            reveal = GB.sign_bytes(sk_of[head.pubkeys[proposer]], cfg.compute_signing_root(
+                uint64.hash_tree_root(epoch), cfg.get_domain(slot, DOMAIN_RANDAO, slot)))
+            sign_s += time.perf_counter() - t
+            t = time.perf_counter()
+            block = chain.produce_block(slot, reveal)
+            produce_s += time.perf_counter() - t
+            body = block["body"]
+            if block["proposer_index"] != proposer:
+                raise AssertionError(f"chain: the block at {slot} names proposer {block['proposer_index']}, the "
+                                     f"reveal was signed by {proposer}")
+            if (len(body["attestations"]) != cps or not all(all(a["aggregation_bits"]) for a in body["attestations"])
+                    or not all(body["sync_aggregate"]["sync_committee_bits"])):
+                raise AssertionError(f"chain: the block at {slot} carries {len(body['attestations'])} attestations "
+                                     f"of {cps} committees, sync bits {sum(body['sync_aggregate']['sync_committee_bits'])}")
+            head_before, nodes_before = chain.head_root_hex, len(chain.fork_choice.proto.nodes)
+            if slot == CHAIN_TAMPERED_SLOT:
+                a, b = CHAIN_SWAPPED
+                atts = list(body["attestations"])
+                atts[a] = dict(atts[a], signature=atts[b]["signature"])
+                for label, copy, want in (
+                        ("signature", dict(block, body=dict(body, attestations=atts)),
+                         (ValueError, "block signature verification failed")),
+                        ("state_root", dict(block, state_root=b"\x01" * 32),
+                         (BK.BlockProcessError, "state root mismatch"))):
+                    sets_before, seen = len(n_sets), {}
+                    try:
+                        import_(signed(copy), seen)
+                        raise AssertionError(f"chain: the {label} copy of block {slot} imported")
+                    except want[0] as e:
+                        if not str(e).startswith(want[1]):
+                            raise
+                        # the leg that refused it: the first named phase that did not complete
+                        legs = ("validation", "signature_verify", "stf", "state_root")
+                        leg = next(x for x in legs if x not in seen["phases_ms"])
+                        rejected.append({"copy": label, "leg": leg, "error": str(e)[:80],
+                                         "sets": n_sets[sets_before] if len(n_sets) > sets_before else 0, **seen})
+                    if chain.head_root_hex != head_before or len(chain.fork_choice.proto.nodes) != nodes_before:
+                        raise AssertionError(f"chain: the {label} copy moved the head or left a fork-choice node")
+            seen = {}
+            root = import_(signed(block), seen)
+            if leg_check(seen) or chain.head_root_hex != root.hex():
+                raise AssertionError(f"chain: block {slot} imported but the head is {chain.head_root_hex}")
+            # the post-state's root on the host path, in step
+            post = chain.head_state
+            DB.set_backend(None)
+            try:
+                t = time.perf_counter()
+                host_root = host_engine.hash_tree_root(post)
+                host_ms.append((time.perf_counter() - t) * 1e3)
+            finally:
+                DB.set_backend(backend)
+            if host_root != block["state_root"]:
+                raise AssertionError(f"chain: block {slot}'s state root {block['state_root'].hex()} differs from "
+                                     f"the host path's {host_root.hex()}")
+            blocks.append(root)
+            per_block.append({"slot": slot, "phases_ms": seen["phases_ms"], "view_ms": views[-1] * 1e3,
+                              "sets": n_sets[-1], "import_ms": seen["ms"], "host_root_ms": host_ms[-1]})
+            log(f"chain block {slot}: " + json.dumps(per_block[-1]))
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t_path
+        counts = {k: v for k, v in KV.LAUNCHES.items()}
+        counts.update(SK.LAUNCHES)
+        host_checks = BK.host_signature_checks()
+        governor = chain.memory_governor.status()
+    finally:
+        for name in NODE_HELD:
+            setattr(KV, name, real[name])
+        for name in CHAIN_SHA:
+            setattr(SK, name, real[name])
+        SS.BeaconStateView.from_state = classmethod(real_from_state)
+        SS.get_block_signature_sets = real_sets
+        GEN.get_next_sync_committee = real_sync
+        pool.close()
+        pool.join()
+        service.close()
+        if chain is not None and chain.db is not None:
+            chain.db.close()
+        db_dir.cleanup()
+        DB.reset_backend()
+
+    # the fused rows: the heading kernels' launches that made the ingest
+    counts["mont_convert"] = sum(1 for args, _ in calls["g2_rsig_sub"] if len(args) > 3 and args[3] is not None) \
+        + sum(1 for args, _ in calls["g2_subgroup_check"] if len(args) > 2 and args[2] is not None)
+    counts["mont_convert_4"] = sum(1 for args, _ in calls["g2_decompress"] if len(args) > 2 and args[2] is not None)
+    host_sets = verifier.supervisor.m_host_fallback_sets.value
+    _breaker_clean(verifier.supervisor, "chain")
+    sup = backend.supervisor.status()
+    if chain.head_root_hex != blocks[-1].hex() or len(blocks) != len(CHAIN_SLOTS):
+        raise AssertionError(f"chain: head {chain.head_root_hex}, {len(blocks)} blocks imported")
+    if [r["leg"] for r in rejected] != ["signature_verify", "state_root"]:
+        raise AssertionError(f"chain: rejections {rejected}")
+    if host_sets or host_checks or backend.m_host_levels.value or sup["state"] != "closed":
+        raise AssertionError(f"chain: {host_sets} host-fallback sets, {host_checks} host signature checks in the "
+                             f"transition, {backend.m_host_levels.value} host tree levels, breaker {sup['state']}")
+    missing = [k for k in CHAIN_KERNELS + CHAIN_SHA if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"chain: kernels never launched: {missing} ({counts})")
+    unrecorded = [k for k in NODE_HELD + CHAIN_SHA if counts.get(k, 0) and not calls[k]]
+    if unrecorded:
+        raise AssertionError(f"chain: launched outside the recorded wrappers: {unrecorded}")
+
+    t = time.perf_counter()
+    held = hold_chain_calls(calls, KV, SK)
+    torch.cuda.synchronize()
+    held_s = time.perf_counter() - t
+    del calls
+    line = {
+        "validators": len(keys), "slots": list(CHAIN_SLOTS), "fork": "altair", "card": card,
+        "anchor_root": anchor_root.hex(), "head": blocks[-1].hex(),
+        "genesis_s": genesis_s, "sync_committee_host_s": sync_s, "cold_root_ms": cold_ms, "chain_init_s": chain_s,
+        "blocks": per_block, "rejected": rejected, "pools_and_signing_s": sign_s, "produce_s": produce_s,
+        "launches": {k: v for k, v in counts.items() if v}, "held": held, "held_s": held_s,
+        "host_fallback_sets": host_sets, "host_signature_checks_in_stf": host_checks,
+        "host_tree_levels": backend.m_host_levels.value, "breaker": sup["state"],
+        "governor": {k: governor[k] for k in ("budget_bytes", "resident_bytes", "plane_bytes", "column_bytes",
+                                              "spill_bytes", "evictions", "pressure_events", "entries")},
+        "path_s": path_s, "phase_s": time.perf_counter() - t_phase,
+    }
+    log("chain " + json.dumps(line))
+    return line, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2250,7 +2715,8 @@ def main() -> int:
         _, rows = slasher_phase(card)
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
-    if "--node-only" in sys.argv[1:]:  # the node phase alone, over its own table: its lines, no result line
+    if "--node-only" in sys.argv[1:] or "--chain-only" in sys.argv[1:]:
+        # the node phase or the chain phase alone, over its own table: its lines, no result line
         t = time.perf_counter()
         with ThreadPoolExecutor(1) as builder:
             build = builder.submit(B.build_all)
@@ -2261,7 +2727,15 @@ def main() -> int:
         table = PubkeyTable()
         if table.register_compressed(keys, device_batch=REG_CHUNK) != list(range(TABLE_ROWS)):
             raise AssertionError("node: the table's registration")
-        log(f"node setup: kernels built, {TABLE_ROWS} keys registered in {time.perf_counter() - t:.1f} s")
+        log(f"{sys.argv[1][2:-5]} setup: kernels built, {TABLE_ROWS} keys registered in "
+            f"{time.perf_counter() - t:.1f} s")
+        if "--chain-only" in sys.argv[1:]:
+            line, counts = chain_phase(table, keys, sks, card)
+            print(json.dumps({"kernels": [{"name": k, "route": "cuda", "chain_launches": n, "calls_held": held[0],
+                                           "lanes_held": held[1]}
+                                          for k, n in counts.items() if n for held in [line["held"].get(k, (0, 0))]]}),
+                  flush=True)
+            return 0
         _, counts, held = node_phase(table, keys, sks, card)
         print(json.dumps({"kernels": [{"name": k, "route": "cuda", "launches": counts[k], "max_abs_err": e,
                                        "first_call_lanes_held": lanes} for k, (e, lanes) in held.items()]}),
@@ -3444,7 +3918,13 @@ def main() -> int:
     slasher_line, slasher_rows = slasher_phase(card)
     log(f"slasher phase: {slasher_line['phase_s']:.1f} s")
 
-    # -- 8. result lines -----------------------------------------------------------
+    # -- 8. the chain (the slasher's 32 GiB of planes released first) ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    chain_line, chain_counts = chain_phase(table, keys, d["sks"], card)
+    log(f"chain phase: {chain_line['phase_s']:.1f} s")
+
+    # -- 9. result lines -----------------------------------------------------------
     imad_per_ms = N_SM * IMAD_PER_CLK_PER_SM * sm_mhz * 1e3
 
     def needed_muls(name, n, units):
@@ -3612,6 +4092,11 @@ def main() -> int:
         f"total {time.perf_counter() - t_start:.1f} s")
     kernels.extend(htr_rows)
     kernels.extend(slasher_rows)
+    for entry in kernels:  # the chain phase's launches and the calls of it held against the plain versions
+        entry["chain_launches"] = chain_counts.get(entry["name"], 0)
+        calls_lanes = chain_line["held"].get(entry["name"])
+        if calls_lanes:
+            entry["chain_calls_held"], entry["chain_lanes_held"] = calls_lanes
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -16,12 +16,13 @@ run time with `configure(True)`.
 from __future__ import annotations
 
 import contextvars
+import functools
 import itertools
 import os
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 DEFAULT_CAPACITY = 65536
 
@@ -175,3 +176,16 @@ class trace_span:
             )
         )
         return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        """As a decorator: each call of `fn` runs inside the span."""
+        name, attrs = self.name, self.attrs
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _STATE.enabled:
+                return fn(*args, **kwargs)
+            with trace_span(name, **attrs):
+                return fn(*args, **kwargs)
+
+        return wrapper

@@ -27,6 +27,7 @@ from .core import (  # noqa: F401
     UintN,
     Vector,
     hash_tree_root,
+    is_valid_merkle_branch,
     merkleize_chunks,
     uint8,
     uint16,

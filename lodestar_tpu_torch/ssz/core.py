@@ -1,5 +1,5 @@
 """SSZ type objects: serialization + merkleization, the port's copy of
-`lodestar_tpu/ssz/core.py` (its proof helpers are not ported yet).
+`lodestar_tpu/ssz/core.py` (of its proof helpers only `is_valid_merkle_branch`).
 
 Implements the consensus-spec SSZ rules the reference relies on through
 `@chainsafe/ssz` (reference: packages/types/src/sszTypes.ts):
@@ -423,3 +423,20 @@ def _elems_root(elem: SszType, value, limit: Optional[int]) -> bytes:
 
 def hash_tree_root(sztype: SszType, value) -> bytes:
     return sztype.hash_tree_root(value)
+
+
+def is_valid_merkle_branch(
+    leaf: bytes, branch: Sequence[bytes], depth: int, index: int, root: bytes
+) -> bool:
+    """Spec is_valid_merkle_branch — proves `leaf` sits at generalized
+    index (2**depth + index) under `root` (deposit proofs against the
+    eth1 deposit root)."""
+    if len(branch) != depth:
+        return False
+    node = leaf
+    for i in range(depth):
+        if (index >> i) & 1:
+            node = digest(branch[i] + node)
+        else:
+            node = digest(node + branch[i])
+    return node == root

@@ -42,6 +42,7 @@ class EpochCache:
         seed: bytes,
         active_indices: Optional[np.ndarray] = None,
         sync_committee_indices: Optional[Sequence[int]] = None,
+        shuffling: Optional[np.ndarray] = None,
     ):
         self.epoch = epoch
         self.seed = seed
@@ -59,7 +60,13 @@ class EpochCache:
             len(self.active_indices)
         )
         # One whole-registry shuffle for the epoch; committees are slices.
-        self._shuffling = shuffle_list(self.active_indices, seed)
+        # `shuffling` passes one already made (shuffle_list of these active
+        # indices by this seed, e.g. a state's accessors.get_shuffling)
+        self._shuffling = (
+            shuffle_list(self.active_indices, seed)
+            if shuffling is None
+            else np.asarray(shuffling, np.int64)
+        )
         # Sync committee membership (reference: epochCtx.currentSyncCommitteeIndexed)
         self.sync_committee_indices = (
             list(sync_committee_indices)

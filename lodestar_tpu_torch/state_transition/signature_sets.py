@@ -66,14 +66,43 @@ class BeaconStateView:
 
     @classmethod
     def from_state(cls, state) -> "BeaconStateView":
-        """Build the view from a full columnar BeaconState (the JAX
-        package's `signature_sets.py:64-101`: the seeds, the active
-        indices and the block-root window read off the state).  The port
-        has no BeaconState yet: this waits for the state slice, and the
-        view is built from its fields meanwhile."""
-        raise NotImplementedError(
-            "BeaconStateView.from_state needs the port's BeaconState, which is "
-            "not ported yet; build the view from its fields"
+        """Build the view from a full columnar BeaconState — the bridge
+        from the state machine to the wire extractors (the reference
+        passes CachedBeaconState straight through)."""
+        from .accessors import get_active_validator_indices, get_seed, get_shuffling
+
+        epoch = compute_epoch_at_slot(state.slot)
+        sync_indices = [
+            state.pubkey_index(pk)
+            for pk in state.current_sync_committee["pubkeys"]
+        ]
+
+        def _cache(ep: int) -> EpochCache:
+            return EpochCache(
+                state.pubkeys,
+                ep,
+                get_seed(state, ep, params.DOMAIN_BEACON_ATTESTER),
+                active_indices=get_active_validator_indices(state, ep),
+                sync_committee_indices=sync_indices,
+                # the state's memoized shuffle (the JAX package's view
+                # shuffles the registry anew for each epoch)
+                shuffling=get_shuffling(state, ep),
+            )
+
+        window = {
+            s: state.block_roots[s % params.SLOTS_PER_HISTORICAL_ROOT]
+            for s in range(
+                max(0, state.slot - params.SLOTS_PER_HISTORICAL_ROOT),
+                state.slot,
+            )
+        }
+        return cls(
+            config=state.config,
+            slot=state.slot,
+            epoch_cache=_cache(epoch),
+            block_roots=window,
+            prev_epoch_cache=_cache(epoch - 1) if epoch > 0 else None,
+            _genesis_validators_root=state.genesis_validators_root,
         )
 
 

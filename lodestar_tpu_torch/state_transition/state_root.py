@@ -11,8 +11,8 @@ and device backend (ssz/merkle_tree.py, ssz/device_backend.py).
     differ from the plane the tree last hashed, so an untracked mutation
     can cost extra hashing but never a stale root;
   - every other field memoizes (serialized bytes -> root) through the
-    field types the state's `_container()` gives (the port has no SSZ
-    type system of its own);
+    field types of the state's fork container (`state._container()`:
+    the port's `BeaconState` gives the port's own SSZ types);
   - `clone()` shares the whole engine copy-on-write.
 
 On the card a cold root is one `validator_roots` launch over the

@@ -1,2 +1,2 @@
-"""Host utilities the service layer needs: the metrics registry and the
-deadline runner (copies of the JAX package's `utils/`)."""
+"""Host utilities: the metrics registry, the deadline runner and the job
+queue (copies of the JAX package's `utils/`)."""

@@ -1101,3 +1101,32 @@ def test_node_phase_on_card(dev, monkeypatch):
     assert line["parked"] == line["released"] > 128 and line["dropped"] == 0 and line["deduped"] == 32
     assert line["host_fallback_sets"] == 0 and line["committee_aggregates"]["all_true"]
     assert set(held) >= set(CS.NODE_KERNELS) and all(counts[k] for k in held)
+
+
+def test_chain_phase_on_card(dev, monkeypatch):
+    """chip_smoke.chain_phase at 8,192 validators (2 committees of 128 a
+    slot), two blocks (32, crossing the epoch boundary, and 33) and the two
+    tampered copies of 33: every block imported, each post-state's root
+    equal to the host path's, the copies refused by their legs, no set on
+    the host, no host tree level, no signature checked inside the
+    transition, every kernel of the chain's path launched and every call
+    of it equal to its plain version."""
+    import chip_smoke as CS
+    from lodestar_tpu_torch.crypto import bls as GB
+
+    n = 8192
+    monkeypatch.setattr(CS, "CHAIN_VALIDATORS", n)
+    monkeypatch.setattr(CS, "CHAIN_SLOTS", (32, 33))
+    monkeypatch.setattr(CS, "CHAIN_SWAPPED", (0, 1))
+    sks = CS.make_keys(np.random.default_rng(CS.SEED))
+    pks = [GB.sk_to_pk(sk) for sk in sks]
+    comp = [GC.g1_compress(pk) for pk in pks]
+    table = PubkeyTable()
+    table.register_points_unchecked(pks, tile_to=n)
+    line, counts = CS.chain_phase(table, [comp[r % CS.N_KEYS] for r in range(n)], sks, "test")
+    assert [b["slot"] for b in line["blocks"]] == [32, 33]
+    assert [r["leg"] for r in line["rejected"]] == ["signature_verify", "state_root"]
+    assert line["host_fallback_sets"] == 0 and line["host_tree_levels"] == 0
+    assert line["host_signature_checks_in_stf"] == 0
+    assert set(line["held"]) >= set(CS.CHAIN_KERNELS + CS.CHAIN_SHA)
+    assert all(counts[k] for k in CS.CHAIN_KERNELS + CS.CHAIN_SHA)

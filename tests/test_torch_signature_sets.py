@@ -172,5 +172,34 @@ def test_gossip_extractors_equal_jax(fork):
 
 
 def test_from_state_waits_for_the_state_slice():
-    with pytest.raises(NotImplementedError):
-        TS.BeaconStateView.from_state(object())
+    """The state slice is here: the view built from a port BeaconState
+    equals the JAX package's built from the JAX state of the same keys."""
+    from lodestar_tpu.config import MAINNET_CHAIN_CONFIG as J_MAINNET
+    from lodestar_tpu.config import create_chain_config as j_config
+    from lodestar_tpu.state_transition import create_genesis_state as j_genesis
+    from lodestar_tpu.state_transition.slot import process_slots as j_slots
+    from lodestar_tpu_torch.config import MAINNET_CHAIN_CONFIG, create_chain_config
+    from lodestar_tpu_torch.params import ForkName
+    from lodestar_tpu_torch.ssz import device_backend as DB
+    from lodestar_tpu_torch.state_transition import create_genesis_state
+    from lodestar_tpu_torch.state_transition.slot import process_slots
+
+    from lodestar_tpu_torch.crypto import bls as B
+    from lodestar_tpu_torch.crypto import curves as C
+
+    pks = [C.g1_compress(B.sk_to_pk(B.keygen(bytes([i]) * 32))) for i in range(16)]
+    DB.set_backend(None)
+    try:
+        sp = create_genesis_state(create_chain_config(MAINNET_CHAIN_CONFIG, fork_epochs={ForkName.altair: 0}), pks)
+        process_slots(sp, 35)
+        ours = TS.BeaconStateView.from_state(sp)
+    finally:
+        DB.reset_backend()
+    sj = j_genesis(j_config(J_MAINNET, fork_epochs={JP.ForkName.altair: 0}), pks)
+    j_slots(sj, 35)
+    theirs = JS.BeaconStateView.from_state(sj)
+    assert (ours.slot, ours.block_roots, ours._genesis_validators_root) == (
+        theirs.slot, theirs.block_roots, theirs._genesis_validators_root)
+    for a, b in ((ours.epoch_cache, theirs.epoch_cache), (ours.prev_epoch_cache, theirs.prev_epoch_cache)):
+        assert (a.epoch, a.seed, list(a._shuffling), a.sync_committee_indices) == (
+            b.epoch, b.seed, list(b._shuffling), b.sync_committee_indices)

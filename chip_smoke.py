@@ -170,7 +170,7 @@ Needs one CUDA device; exits non-zero without one.  In order:
      no result line);
   7. the slasher: the port's SlasherService (no chain, no db, history
      4,096 epochs, chunk 16) with its span planes on the card, sized once
-     to 1,048,576 validators (two int32 planes of 16 GiB); 4 epochs in
+     to 1,048,576 validators (two int32 planes of 16 GiB); 3 epochs in
      which every validator attests once (2,048 committees of 512, 64 a
      slot, one aggregate IndexedAttestation each, through
      ingest_attestation: 4 flushes an epoch), on_finalized(2) (both planes
@@ -193,31 +193,49 @@ Needs one CUDA device; exits non-zero without one.  In order:
      it, 512 committees of 512 in one launch on 262,144 x 4,096 planes;
      its `slasher` line.  `python3 chip_smoke.py --slasher-only` runs
      this phase alone;
-  8. the chain: the port's BeaconChain (state transition, regen, memory
-     governor with its default budget, op pools, block production, fork
-     choice, a BeaconDb) over a 1,048,576-validator altair genesis made by
-     the port's create_genesis_state from the table's keys, its signatures
-     through create_bls_service(TorchBlsVerifier(table)), its state roots
-     through the card's DeviceMerkleBackend; the blocks at slots 29 to 33
-     (32 crosses the epoch boundary) made by the chain's own
+  8. the chain, a fork walk: the port's BeaconChain (state transition with
+     the phase0 epoch and upgrade_to_altair, regen, memory governor with
+     its default budget, op pools, block production, the execution-payload
+     leg with an ExecutionEngineMock, deneb data availability, fork
+     choice, a fork-aware BeaconDb) over a 1,048,576-validator phase0
+     genesis made by the port's create_genesis_state from the table's
+     keys (MAINNET_CHAIN_CONFIG with altair at epoch 2, bellatrix 3,
+     capella 4, deneb 5; the withdrawer row holding 1 ETH over the
+     maximum), its signatures through
+     create_bls_service(TorchBlsVerifier(table)), its state roots
+     through the card's DeviceMerkleBackend; the blocks at slots 33
+     (phase0, the committees of slots 31 and 32), 64 (the phase0 epoch
+     that rewards epoch 0's records, then the upgrade), 96 (the merge
+     block, its payload from the engine), 128 (capella, the withdrawer's
+     BLS-to-execution change) and 160 (deneb, the payload's withdrawal
+     skimming the withdrawer's excess), made by the chain's own
      produce_block from its pools (the previous slot's 64 committees of
-     512 as full aggregates, a full sync aggregate from four subnet
-     contributions), signed with the proposers' keys and imported by
-     process_block; before the last imports, a copy with one attestation's
-     signature swapped for another committee's (refused by the signature
-     leg, its batch bisected on the card) and one with a wrong state root
-     (refused by the state-root leg), neither moving the head nor leaving
-     a fork-choice node.  Checks: every block imported, the head the last
-     one, each post-state's root equal to a second StateRootEngine's on
-     the host path (in step), no set on the host, no signature checked
-     inside the state transition, no tree level on the host, the breakers
-     closed, every kernel of CHAIN_KERNELS and CHAIN_SHA launched (counted
-     from 0 just before the genesis) and every kernel call of the phase
-     equal to its plain version (`hold_chain_calls`); its `chain block`
-     lines (the chain's named phases, the view's committee caches, sets,
-     import and host-root ms) and its `chain` line (cold root, sync
-     committee on the host, rejections, launches, calls held, the
-     governor's resident bytes, evictions and demotions, wall time).
+     512 as full aggregates, two slots' at 33; a full sync aggregate
+     from four subnet contributions where the head has a sync
+     committee), their proposers from get_proposer_duties, signed with
+     the proposers' keys and imported by process_block; before the last imports, a copy with one
+     attestation's signature swapped for another committee's (refused by
+     the signature leg, its batch bisected on the card), one with a wrong
+     state root (refused by the state-root leg) and the block itself
+     during an engine outage (refused as retryable by the payload leg,
+     then imported), none moving the head or leaving a fork-choice node.
+     Checks: every block imported on its scheduled fork, the balances
+     after the rewarded phase0 epoch up for epoch 0's attesters and
+     their includer and down for every other validator, the altair
+     flags those of epoch 1's records, the head the last block with the
+     engine's head as its payload's block hash and not optimistic, each
+     post-state's root equal to a second StateRootEngine's on the host
+     path (in step), no set on the host, no signature checked inside the
+     state transition, no tree level on the host, the breakers closed,
+     every kernel of CHAIN_KERNELS and CHAIN_SHA launched (counted from
+     0 just before the genesis) and every kernel call of the phase equal
+     to its plain version (`hold_chain_calls`); its `chain block` lines
+     (fork, the chain's named phases, the payload leg's ms, the view's
+     committee caches, sets, import and host-root ms, engine calls) and
+     its `chain` line (cold root, the phase0 epoch's and the upgrade's
+     ms, sync committee on the host, rejections, the engine's calls,
+     launches, calls held, the governor's resident bytes, evictions and
+     demotions, wall time).
      `python3 chip_smoke.py --chain-only` registers its own table and runs
      this phase alone (its lines, no result line);
   9. one JSON line {"kernels": [...]} (each BLS row with its launches in
@@ -1383,7 +1401,7 @@ def htr_phase(card: str, sm_mhz: float) -> tuple:
 SLASHER_VALIDATORS = 1 << 20  # every validator of a mainnet-scale registry
 SLASHER_HISTORY = 4096  # slasher_history_length (node.py:79, the Lighthouse default)
 SLASHER_CHUNK = 16
-SLASHER_EPOCHS = 4
+SLASHER_EPOCHS = 3  # the fewest that keep a surround of the old-source attacker's own votes (e = 3)
 SLASHER_COMMITTEE = 512  # 1,048,576 / 32 slots / 64 committees (MAX_COMMITTEES_PER_SLOT)
 SLASHER_COMMITTEES_PER_SLOT = 64
 SLASHER_FINALIZED = 2
@@ -1673,7 +1691,7 @@ def slasher_phase(card: str, dev=None) -> tuple:
     mn, mx = mn0.clone(), mx0.clone()
     sel = torch.from_numpy(np.sort(rng.choice(n_alone, SLASHER_ALONE_SELECTED, replace=False))).to(dev)
     every = torch.arange(n_alone, dtype=torch.int64, device=dev)
-    last_s, last_t = SLASHER_EPOCHS - 1, SLASHER_EPOCHS  # the path's widest apply: epoch 4 at window base 0
+    last_s, last_t = SLASHER_EPOCHS - 1, SLASHER_EPOCHS  # the path's widest apply: the last epoch at window base 0
     cases = {
         "path": (sel, last_s, last_t),
         "rows_512": (sel, 1000, 3000),
@@ -2247,8 +2265,17 @@ def node_phase(table, keys, sks, card: str, dev=None) -> tuple:
 
 
 CHAIN_VALIDATORS = 1 << 20  # the node phase's registry: row r holds key r % N_KEYS
-CHAIN_SLOTS = (29, 30, 31, 32, 33)  # the block at 32 crosses the epoch boundary: its pre-state runs process_epoch
-CHAIN_TAMPERED_SLOT = 33  # the two rejected copies are made of this slot's block
+# the walk's fork schedule (MAINNET_CHAIN_CONFIG's versions) and its blocks, one an epoch: 33 is phase0
+# (PendingAttestations of epochs 0 and 1), 64 runs the phase0 epoch with its rewards and penalties over epoch
+# 0's records, then upgrade_to_altair; 96 is the merge block
+CHAIN_FORKS = {"altair": 2, "bellatrix": 3, "capella": 4, "deneb": 5}
+CHAIN_SLOTS = (33, 64, 96, 128, 160)
+CHAIN_FORK_OF = {33: "phase0", 64: "altair", 96: "bellatrix", 128: "capella", 160: "deneb"}
+CHAIN_ATT_SLOTS = {33: (31, 32)}  # the slots whose committees a block carries; the slot before it elsewhere
+CHAIN_UPGRADE_SLOT = 64  # the first altair block: its pre-state crossed the rewarded phase0 epoch and the upgrade
+CHAIN_MERGE_SLOT = 96  # the first block with an execution payload
+CHAIN_CHANGE_SLOT = 128  # the capella block carries the withdrawer's BLS-to-execution change
+CHAIN_TAMPERED_SLOT = 160  # the three refused copies are made of this slot's block, the deneb one
 CHAIN_SWAPPED = (3, 7)  # the tampered copy's attestation 3 carries attestation 7's signature
 # the kernels the phase must launch: the block's sets as one RLC batch of
 # wire sets (K = 512 aggregates through agg_pk), the bisection of the
@@ -2366,28 +2393,40 @@ def hold_chain_calls(calls, KV, SK) -> dict:
 
 
 def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
-    """Block import on the card: the port's BeaconChain over a
-    CHAIN_VALIDATORS-validator altair genesis made by the port's
+    """The fork walk on the card: the port's BeaconChain over a
+    CHAIN_VALIDATORS-validator phase0 genesis made by the port's
     create_genesis_state (pubkeys `keys`, row r the key of sks[r % N_KEYS];
-    MAINNET_CHAIN_CONFIG with altair from epoch 0), its signatures through
+    MAINNET_CHAIN_CONFIG with the forks of CHAIN_FORKS; the withdrawer, the
+    row whose turn in the withdrawal sweep the deneb block reaches, holds 1
+    ETH over MAX_EFFECTIVE_BALANCE), its signatures through
     create_bls_service(TorchBlsVerifier(table)), its state roots through the
-    card's DeviceMerkleBackend, its default memory governor and a BeaconDb.
-    The blocks at CHAIN_SLOTS are made by the chain's own produce_block from
-    its pools (the aggregated pool holding the previous slot's committees,
-    each one full aggregate of 512; four sync contributions of 128, a full
-    sync aggregate), signed with the proposers' keys and imported by
-    process_block; before the last one imports, a copy with one
-    attestation's signature swapped for another committee's (refused by the
-    signature leg, the batch bisected on the card) and one with a wrong
-    state root (refused by the state-root leg), neither moving the head nor
-    leaving a fork-choice node.  Each imported post-state's root is held
-    against a second StateRootEngine on the host path, in step; every kernel
-    call of the phase against its plain version (`hold_chain_calls`).
-    Raises unless every block imports, the head is the last block, no set
-    went to the host, the transition checked no signature itself, no tree
-    level was hashed on the host, the breakers stayed closed and every
-    kernel of CHAIN_KERNELS and CHAIN_SHA launched.
-    Returns (chain line, launches)."""
+    card's DeviceMerkleBackend, its default memory governor, a BeaconDb and
+    an ExecutionEngineMock.  The blocks at CHAIN_SLOTS (phase0 at 33 with
+    the committees of slots 31 and 32; 64 runs the phase0 epoch of epoch 1,
+    which rewards epoch 0's records, and upgrade_to_altair; the merge block
+    at 96; a BLS-to-execution change for the withdrawer at 128; deneb at
+    160, its payload's withdrawal skimming the withdrawer's excess) are made
+    by the chain's own produce_block from its pools (the committees of
+    CHAIN_ATT_SLOTS as full aggregates, 64 of 512 a slot; from altair on a
+    full sync aggregate of four subnet contributions where the head has a sync
+    committee), their proposers from get_proposer_duties, signed with the
+    proposers' keys and imported by process_block.  Before the last one
+    imports, a copy with one attestation's signature swapped for another
+    committee's (refused by the signature leg, the batch bisected on the
+    card), one with a wrong state root (refused by the state-root leg) and
+    the block itself while the engine answers UNAVAILABLE (refused as
+    retryable by the payload leg, then imported once the engine is back),
+    none moving the head or leaving a fork-choice node.  Each imported
+    post-state's root is held against a second StateRootEngine on the host
+    path, in step; every kernel call of the phase against its plain version
+    (`hold_chain_calls`).  Raises unless every block imports on its
+    scheduled fork, the rewarded phase0 epoch raised the balances of epoch
+    0's attesters and their includer and lowered every other, the altair
+    state's flags are those epoch 1's records earn, the head is the last block with the engine's head as its
+    payload's block hash and not optimistic, no set went to the host, the
+    transition checked no signature itself, no tree level was hashed on the
+    host, the breakers stayed closed and every kernel of CHAIN_KERNELS and
+    CHAIN_SHA launched.  Returns (chain line, launches)."""
     from lodestar_tpu_torch.bls import create_bls_service
     from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier
     from lodestar_tpu_torch.chain.chain import BeaconChain
@@ -2395,22 +2434,28 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     from lodestar_tpu_torch.crypto import bls as GB
     from lodestar_tpu_torch.crypto import fields as GT
     from lodestar_tpu_torch.db import BeaconDb
+    from lodestar_tpu_torch.execution import ExecutePayloadStatus, ExecutionEngineMock, ExecutionEngineUnavailable
     from lodestar_tpu_torch.kernels import sha256 as SK
     from lodestar_tpu_torch.kernels import verify as KV
-    from lodestar_tpu_torch.params import DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, DOMAIN_RANDAO, \
-        DOMAIN_SYNC_COMMITTEE, SLOTS_PER_EPOCH, SYNC_COMMITTEE_SUBNET_COUNT, ForkName
+    from lodestar_tpu_torch.params import ACTIVE_PRESET, DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, \
+        DOMAIN_BLS_TO_EXECUTION_CHANGE, DOMAIN_RANDAO, DOMAIN_SYNC_COMMITTEE, ETH1_ADDRESS_WITHDRAWAL_PREFIX, \
+        SLOTS_PER_EPOCH, SYNC_COMMITTEE_SUBNET_COUNT, ForkName
     from lodestar_tpu_torch.ssz import device_backend as DB
     from lodestar_tpu_torch.ssz import uint64
     from lodestar_tpu_torch.state_transition import StateRootEngine, accessors as AC, block as BK, \
-        genesis as GEN, signature_sets as SS
-    from lodestar_tpu_torch.state_transition.slot import process_slots
-    from lodestar_tpu_torch.types import AttestationData, BeaconBlockAltair
+        genesis as GEN, phase0 as PH0, signature_sets as SS
+    from lodestar_tpu_torch.types import AttestationData, BLSToExecutionChange
 
     t_phase = time.perf_counter()
     if len(table) != len(keys) or len(keys) != CHAIN_VALIDATORS:
         raise AssertionError(f"chain: a table of {len(table)} rows for {len(keys)} keys")
-    cfg = create_chain_config(MAINNET_CHAIN_CONFIG, fork_epochs={ForkName.altair: 0})
+    cfg = create_chain_config(MAINNET_CHAIN_CONFIG,
+                              fork_epochs={getattr(ForkName, k): v for k, v in CHAIN_FORKS.items()})
     sk_of = {keys[k]: sks[k] for k in range(N_KEYS)}
+    # the capella block's sweep moves the cursor one sweep on: the deneb block's starts at this row
+    withdrawer = ACTIVE_PRESET.MAX_VALIDATORS_PER_WITHDRAWALS_SWEEP % len(keys)
+    balances = np.full(len(keys), ACTIVE_PRESET.MAX_EFFECTIVE_BALANCE, np.uint64)
+    balances[withdrawer] += 10**9
     backend = DB.DeviceMerkleBackend(device=dev)
     DB.set_backend(backend)
     verifier = TorchBlsVerifier(table, device=dev)
@@ -2442,8 +2487,11 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     phases, views, n_sets = [], [], []
     timer = type("PhaseTimer", (), {"observe": lambda self, name, s: phases.append((name, s))})()
     real_from_state, real_sets = SS.BeaconStateView.from_state.__func__, SS.get_block_signature_sets
-    real_sync = GEN.get_next_sync_committee
-    sync_s = []
+    real_sync = {"gen": GEN.get_next_sync_committee, "acc": AC.get_next_sync_committee}
+    real_epoch0, real_upgrade, real_deltas = PH0.process_epoch_phase0, PH0.upgrade_to_altair, \
+        PH0.get_attestation_deltas
+    sync_s, epoch0_ms, epoch0_at, deltas_ms, upgrade_ms, upgraded_flags, upgraded_balances = \
+        [], [], [], [], [], [], []
 
     def from_state(cls, state):
         t = time.perf_counter()
@@ -2456,11 +2504,45 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
         n_sets.append(len(out))
         return out
 
-    def sync_committee(state):
+    def sync_committee(which):
+        def run(state):
+            t = time.perf_counter()
+            out = real_sync[which](state)
+            sync_s.append(time.perf_counter() - t)
+            return out
+        return run
+
+    def epoch0(state):
+        epoch0_at.append(int(state.slot) // SLOTS_PER_EPOCH)
         t = time.perf_counter()
-        out = real_sync(state)
-        sync_s.append(time.perf_counter() - t)
+        out = real_epoch0(state)
+        epoch0_ms.append((time.perf_counter() - t) * 1e3)
         return out
+
+    def deltas(state, *a, **kw):
+        t = time.perf_counter()
+        out = real_deltas(state, *a, **kw)
+        deltas_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def upgrade(state):
+        t = time.perf_counter()
+        real_upgrade(state)
+        upgrade_ms.append((time.perf_counter() - t) * 1e3)
+        upgraded_flags.append(state.previous_epoch_participation.copy())
+        upgraded_balances.append(np.asarray(state.balances, np.int64).copy())
+
+    # the engine's calls and their ms, by verb
+    el = ExecutionEngineMock()
+    engine_calls = {"notify_new_payload": [], "notify_forkchoice_update": [], "get_payload": []}
+    for verb in engine_calls:
+        def timed(*a, _f=getattr(el, verb), _verb=verb, **kw):
+            t = time.perf_counter()
+            try:
+                return _f(*a, **kw)
+            finally:
+                engine_calls[_verb].append((time.perf_counter() - t) * 1e3)
+        setattr(el, verb, timed)
 
     pool = mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
     db_dir = tempfile.TemporaryDirectory(prefix="chain_db_")
@@ -2471,26 +2553,39 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
         setattr(SK, name, recorder(name))
     SS.BeaconStateView.from_state = classmethod(from_state)
     SS.get_block_signature_sets = block_sets
-    GEN.get_next_sync_committee = sync_committee
+    GEN.get_next_sync_committee = sync_committee("gen")
+    AC.get_next_sync_committee = sync_committee("acc")
+    PH0.process_epoch_phase0, PH0.upgrade_to_altair, PH0.get_attestation_deltas = epoch0, upgrade, deltas
     try:
         torch.cuda.synchronize()
         KV.reset_launches()
         SK.reset_launches()
         t = time.perf_counter()
-        anchor = GEN.create_genesis_state(cfg, keys)
+        anchor = GEN.create_genesis_state(cfg, keys, balances=balances)
         genesis_s = time.perf_counter() - t
+        if anchor.fork_name != ForkName.phase0:
+            raise AssertionError(f"chain: the genesis is {anchor.fork_name.value}")
         t = time.perf_counter()
         anchor_root = anchor.hash_tree_root()
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t) * 1e3
-        db = BeaconDb(os.path.join(db_dir.name, "chain"))
+        db = BeaconDb(os.path.join(db_dir.name, "chain"), config=cfg)
         t = time.perf_counter()
-        chain = BeaconChain(cfg, anchor, db=db, bls_verifier=service)
+        chain = BeaconChain(cfg, anchor, db=db, bls_verifier=service, execution=el)
         chain.phase_timer = timer
         chain_s = time.perf_counter() - t
-        log(f"chain setup: genesis of {len(keys)} validators in {genesis_s:.1f} s (the sync committee's 512 keys "
-            f"aggregated on the host in {sum(sync_s):.1f} s), its cold root {cold_ms:.1f} ms on the card, "
-            f"BeaconChain in {chain_s:.1f} s")
+        # the payload leg of each import: _verify_execution_payload's ms
+        real_leg, leg_ms = chain._verify_execution_payload, []
+
+        def payload_leg(block):
+            t = time.perf_counter()
+            try:
+                return real_leg(block)
+            finally:
+                leg_ms.append((time.perf_counter() - t) * 1e3)
+        chain._verify_execution_payload = payload_leg
+        log(f"chain setup: phase0 genesis of {len(keys)} validators in {genesis_s:.1f} s, its cold root "
+            f"{cold_ms:.1f} ms on the card, BeaconChain in {chain_s:.1f} s")
 
         host_engine = StateRootEngine()
         blocks, rejected, per_block, host_ms = [], [], [], []
@@ -2499,94 +2594,121 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
             """True unless the import ran every named phase."""
             return set(seen["phases_ms"]) < {"validation", "signature_verify", "stf", "state_root", "fork_choice"}
 
-        def signed(block):
-            pre = chain.head_state
-            root = cfg.compute_signing_root(BeaconBlockAltair.hash_tree_root(block),
-                                            cfg.get_domain(block["slot"], DOMAIN_BEACON_PROPOSER, block["slot"]))
-            return {"message": block, "signature": GB.sign_bytes(sk_of[pre.pubkeys[block["proposer_index"]]], root)}
+        def signed(block, sk):
+            slot = block["slot"]
+            root = cfg.compute_signing_root(chain._block_type(slot).hash_tree_root(block),
+                                            cfg.get_domain(slot, DOMAIN_BEACON_PROPOSER, slot))
+            return {"message": block, "signature": GB.sign_bytes(sk, root)}
 
         def import_(signed_block, seen):
-            """process_block; `seen` gets the named phases it completed and its ms."""
-            first = len(phases)
+            """process_block; `seen` gets the named phases it completed, its ms and its payload leg's ms."""
+            first, first_leg = len(phases), len(leg_ms)
             t = time.perf_counter()
             try:
                 return chain.process_block(signed_block, timely=True)
             finally:
                 seen["ms"] = (time.perf_counter() - t) * 1e3
                 seen["phases_ms"] = {k: v * 1e3 for k, v in phases[first:]}
+                seen["payload_ms"] = sum(leg_ms[first_leg:])
 
         t_path = time.perf_counter()
-        sign_s = produce_s = 0.0
+        sign_s = produce_s = duties_s = 0.0
         for slot in CHAIN_SLOTS:
-            # the pools: the previous slot's committees and the sync committee's contributions
+            # the pools: the committees of CHAIN_ATT_SLOTS and, from altair on, the sync committee's
+            # contributions for the slot before the block
             t = time.perf_counter()
-            att_slot = slot - 1
             head = chain.head_state
             head_root = chain.get_head_root()
             chain.aggregated_attestation_pool = type(chain.aggregated_attestation_pool)()
-            cps = AC.get_committee_count_per_slot(head, att_slot // SLOTS_PER_EPOCH)
-            datas, roots, scalars = [], [], []
-            for index in range(cps):
-                data = chain.produce_attestation_data(index, att_slot)
-                committee = AC.get_beacon_committee(head, att_slot, index)
-                datas.append((data, len(committee)))
-                roots.append(cfg.compute_signing_root(AttestationData.hash_tree_root(data), cfg.get_domain(
-                    att_slot, DOMAIN_BEACON_ATTESTER, att_slot)))
-                scalars.append(sum(sks[int(v) % N_KEYS] for v in committee) % GT.R)
-            seats = head.current_sync_committee["pubkeys"]
-            size = len(seats) // SYNC_COMMITTEE_SUBNET_COUNT
-            roots.append(cfg.compute_signing_root(head_root, cfg.get_domain(att_slot, DOMAIN_SYNC_COMMITTEE,
-                                                                            att_slot)))
-            for sub in range(SYNC_COMMITTEE_SUBNET_COUNT):
-                scalars.append(sum(sk_of[pk] for pk in seats[sub * size:(sub + 1) * size]) % GT.R)
+            datas, roots, jobs = [], [], []  # jobs: (the signers' summed secret key, the index of its root)
+            for att_slot in CHAIN_ATT_SLOTS.get(slot, (slot - 1,)):
+                domain = cfg.get_domain(att_slot, DOMAIN_BEACON_ATTESTER, att_slot)
+                for index in range(AC.get_committee_count_per_slot(head, att_slot // SLOTS_PER_EPOCH)):
+                    data = chain.produce_attestation_data(index, att_slot)
+                    committee = AC.get_beacon_committee(head, att_slot, index)
+                    datas.append((data, len(committee)))
+                    jobs.append((sum(sks[int(v) % N_KEYS] for v in committee) % GT.R, len(roots)))
+                    roots.append(cfg.compute_signing_root(AttestationData.hash_tree_root(data), domain))
+            n_atts = len(datas)
+            synced = head.fork_name != ForkName.phase0
+            if synced:
+                seats = head.current_sync_committee["pubkeys"]
+                size = len(seats) // SYNC_COMMITTEE_SUBNET_COUNT
+                for sub in range(SYNC_COMMITTEE_SUBNET_COUNT):
+                    jobs.append((sum(sk_of[pk] for pk in seats[sub * size:(sub + 1) * size]) % GT.R, len(roots)))
+                roots.append(cfg.compute_signing_root(head_root, cfg.get_domain(slot - 1, DOMAIN_SYNC_COMMITTEE,
+                                                                                slot - 1)))
             hs = pool.map(_hash_to_g2, roots)
-            # the cps committees' scalars sign their roots, the four subnets' the one sync root (roots[cps])
-            wire = pool.map(_sign_wire, [(s, hs[min(i, cps)]) for i, s in enumerate(scalars)])
-            for (data, n), sig in zip(datas, wire[:cps]):
+            wire = pool.map(_sign_wire, [(s, hs[i]) for s, i in jobs])
+            for (data, n), sig in zip(datas, wire[:n_atts]):
                 chain.aggregated_attestation_pool.add({"aggregation_bits": [True] * n, "data": data,
                                                        "signature": sig})
-            for sub, sig in enumerate(wire[cps:]):
-                chain.sync_contribution_pool.add({"slot": att_slot, "beacon_block_root": head_root,
+            for sub, sig in enumerate(wire[n_atts:]):
+                chain.sync_contribution_pool.add({"slot": slot - 1, "beacon_block_root": head_root,
                                                   "subcommittee_index": sub, "aggregation_bits": [True] * size,
                                                   "signature": sig})
-            # the proposer's randao reveal, then the block from the pools; within the
-            # head's epoch the head state names the slot's proposer, across it the
-            # state is advanced
-            epoch = slot // SLOTS_PER_EPOCH
-            if head.slot // SLOTS_PER_EPOCH == epoch:
-                proposer = AC.get_proposer_indices_for_epoch(head, epoch)[slot % SLOTS_PER_EPOCH]
-            else:
-                pre = head.clone()
-                process_slots(pre, slot)
-                proposer = AC.get_beacon_proposer_index(pre)
-                del pre
-            reveal = GB.sign_bytes(sk_of[head.pubkeys[proposer]], cfg.compute_signing_root(
-                uint64.hash_tree_root(epoch), cfg.get_domain(slot, DOMAIN_RANDAO, slot)))
+            if slot == CHAIN_CHANGE_SLOT:
+                # the withdrawer's BLS-to-execution change, signed over the genesis fork's domain
+                change = {"validator_index": withdrawer, "from_bls_pubkey": keys[withdrawer],
+                          "to_execution_address": b"\xaa" * 20}
+                domain = cfg.compute_domain(DOMAIN_BLS_TO_EXECUTION_CHANGE, cfg.fork_versions[ForkName.phase0],
+                                            head.genesis_validators_root)
+                chain.op_pool.insert_bls_to_execution_change({"message": change, "signature": GB.sign_bytes(
+                    sk_of[keys[withdrawer]],
+                    cfg.compute_signing_root(BLSToExecutionChange.hash_tree_root(change), domain))})
             sign_s += time.perf_counter() - t
+            # the proposer from the chain's duties (the epoch's checkpoint state), its randao reveal
+            t = time.perf_counter()
+            epoch = slot // SLOTS_PER_EPOCH
+            duty = next(d for d in chain.get_proposer_duties(epoch) if d["slot"] == slot)
+            duties_s += time.perf_counter() - t
+            proposer, sk = duty["validator_index"], sk_of[duty["pubkey"]]
+            reveal = GB.sign_bytes(sk, cfg.compute_signing_root(uint64.hash_tree_root(epoch),
+                                                                cfg.get_domain(slot, DOMAIN_RANDAO, slot)))
+            if slot == CHAIN_UPGRADE_SLOT:
+                last_phase0 = head  # epoch 0's records, which the epoch rewards, and epoch 1's, which it translates
+            n_engine = {k: len(v) for k, v in engine_calls.items()}
             t = time.perf_counter()
             block = chain.produce_block(slot, reveal)
             produce_s += time.perf_counter() - t
             body = block["body"]
+            fork = cfg.get_fork_name(slot).value
+            if fork != CHAIN_FORK_OF[slot]:
+                raise AssertionError(f"chain: slot {slot} is {fork}, the walk schedules {CHAIN_FORK_OF[slot]}")
             if block["proposer_index"] != proposer:
                 raise AssertionError(f"chain: the block at {slot} names proposer {block['proposer_index']}, the "
-                                     f"reveal was signed by {proposer}")
-            if (len(body["attestations"]) != cps or not all(all(a["aggregation_bits"]) for a in body["attestations"])
-                    or not all(body["sync_aggregate"]["sync_committee_bits"])):
+                                     f"duties {proposer}")
+            sync_bits = sum(body["sync_aggregate"]["sync_committee_bits"]) if "sync_aggregate" in body else None
+            if (len(body["attestations"]) != n_atts
+                    or not all(all(a["aggregation_bits"]) for a in body["attestations"])
+                    or (synced and sync_bits != ACTIVE_PRESET.SYNC_COMMITTEE_SIZE)
+                    or (not synced and sync_bits not in (None, 0))):
                 raise AssertionError(f"chain: the block at {slot} carries {len(body['attestations'])} attestations "
-                                     f"of {cps} committees, sync bits {sum(body['sync_aggregate']['sync_committee_bits'])}")
+                                     f"of {n_atts} committees, sync bits {sync_bits}")
+            payload = body.get("execution_payload")
+            if (payload is None) != (slot < CHAIN_MERGE_SLOT) or (slot == CHAIN_CHANGE_SLOT) != bool(
+                    body.get("bls_to_execution_changes")):
+                raise AssertionError(f"chain: the block at {slot}: payload {payload is not None}, BLS changes "
+                                     f"{len(body.get('bls_to_execution_changes', []))}")
+            if fork == "deneb":
+                skim = [(int(w["validator_index"]), int(w["amount"])) for w in payload["withdrawals"]]
+                if len(skim) != 1 or skim[0][0] != withdrawer or skim[0][1] < 9 * 10**8:
+                    raise AssertionError(f"chain: the deneb payload's withdrawals {skim}, the withdrawer {withdrawer}")
             head_before, nodes_before = chain.head_root_hex, len(chain.fork_choice.proto.nodes)
             if slot == CHAIN_TAMPERED_SLOT:
                 a, b = CHAIN_SWAPPED
                 atts = list(body["attestations"])
                 atts[a] = dict(atts[a], signature=atts[b]["signature"])
-                for label, copy, want in (
+                for label, copy, want, outage in (
                         ("signature", dict(block, body=dict(body, attestations=atts)),
-                         (ValueError, "block signature verification failed")),
+                         (ValueError, "block signature verification failed"), False),
                         ("state_root", dict(block, state_root=b"\x01" * 32),
-                         (BK.BlockProcessError, "state root mismatch"))):
+                         (BK.BlockProcessError, "state root mismatch"), False),
+                        ("engine", block, (ExecutionEngineUnavailable, "EL outage"), True)):
                     sets_before, seen = len(n_sets), {}
+                    el.fail_with = ExecutePayloadStatus.UNAVAILABLE if outage else None
                     try:
-                        import_(signed(copy), seen)
+                        import_(signed(copy, sk), seen)
                         raise AssertionError(f"chain: the {label} copy of block {slot} imported")
                     except want[0] as e:
                         if not str(e).startswith(want[1]):
@@ -2596,14 +2718,44 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                         leg = next(x for x in legs if x not in seen["phases_ms"])
                         rejected.append({"copy": label, "leg": leg, "error": str(e)[:80],
                                          "sets": n_sets[sets_before] if len(n_sets) > sets_before else 0, **seen})
+                    finally:
+                        el.fail_with = None
                     if chain.head_root_hex != head_before or len(chain.fork_choice.proto.nodes) != nodes_before:
                         raise AssertionError(f"chain: the {label} copy moved the head or left a fork-choice node")
             seen = {}
-            root = import_(signed(block), seen)
+            root = import_(signed(block, sk), seen)
             if leg_check(seen) or chain.head_root_hex != root.hex():
                 raise AssertionError(f"chain: block {slot} imported but the head is {chain.head_root_hex}")
-            # the post-state's root on the host path, in step
             post = chain.head_state
+            if post.fork_name.value != CHAIN_FORK_OF[slot]:
+                raise AssertionError(f"chain: block {slot}'s post-state is {post.fork_name.value}")
+            if slot == CHAIN_UPGRADE_SLOT:
+                def attesters(state, records):
+                    mask = np.zeros(len(keys), bool)
+                    for rec in records:
+                        committee = AC.get_beacon_committee(state, int(rec["data"]["slot"]),
+                                                            int(rec["data"]["index"]))
+                        mask[np.asarray(committee, np.int64)[np.asarray(rec["aggregation_bits"], bool)]] = True
+                    return mask
+                # the phase0 epoch of epoch 1 rewarded epoch 0's records over the whole registry: each of their
+                # attesters and the proposer that included them gained, every other validator lost
+                gained = attesters(last_phase0, last_phase0.previous_epoch_attestations)
+                gained[[int(rec["proposer_index"]) for rec in last_phase0.previous_epoch_attestations]] = True
+                before = balances.astype(np.int64)
+                if (not upgraded_balances or not gained.any() or 1 not in epoch0_at or not deltas_ms
+                        or not all(np.array_equal(b > before, gained) and np.array_equal(b < before, ~gained)
+                                   for b in upgraded_balances)):
+                    raise AssertionError(f"chain: the balances after the phase0 epochs {epoch0_at} differ from epoch "
+                                         f"0's records ({int(gained.sum())} to gain)")
+                # every attester of epoch 1's records (the committees of slot 32, included at a delay of 1:
+                # source, target and head) carries all three flags after the upgrade; no one else any
+                want = np.where(attesters(last_phase0, last_phase0.current_epoch_attestations), 0b111, 0)
+                want = want.astype(np.uint8)
+                if not upgraded_flags or not want.any() or not all(np.array_equal(f, want) for f in upgraded_flags):
+                    raise AssertionError(f"chain: the altair flags after {len(upgraded_flags)} upgrades differ from "
+                                         f"epoch 1's records ({int((want != 0).sum())} attesters)")
+                del last_phase0
+            # the post-state's root on the host path, in step
             DB.set_backend(None)
             try:
                 t = time.perf_counter()
@@ -2615,8 +2767,10 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                 raise AssertionError(f"chain: block {slot}'s state root {block['state_root'].hex()} differs from "
                                      f"the host path's {host_root.hex()}")
             blocks.append(root)
-            per_block.append({"slot": slot, "phases_ms": seen["phases_ms"], "view_ms": views[-1] * 1e3,
-                              "sets": n_sets[-1], "import_ms": seen["ms"], "host_root_ms": host_ms[-1]})
+            per_block.append({"slot": slot, "fork": fork, "phases_ms": seen["phases_ms"],
+                              "payload_ms": seen["payload_ms"], "view_ms": views[-1] * 1e3, "sets": n_sets[-1],
+                              "import_ms": seen["ms"], "host_root_ms": host_ms[-1],
+                              "engine_calls": {k: len(v) - n_engine[k] for k, v in engine_calls.items()}})
             log(f"chain block {slot}: " + json.dumps(per_block[-1]))
         torch.cuda.synchronize()
         path_s = time.perf_counter() - t_path
@@ -2624,6 +2778,12 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
         counts.update(SK.LAUNCHES)
         host_checks = BK.host_signature_checks()
         governor = chain.memory_governor.status()
+        head_state = chain.head_state
+        payload_head = bytes(head_state.latest_execution_payload_header["block_hash"])
+        optimistic = sorted(chain.optimistic_roots)
+        head_status = chain.fork_choice.get_execution_status(chain.head_root_hex)
+        withdrawer_state = (bytes(head_state.withdrawal_credentials[withdrawer][:1]),
+                            int(head_state.balances[withdrawer]))
     finally:
         for name in NODE_HELD:
             setattr(KV, name, real[name])
@@ -2631,7 +2791,9 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
             setattr(SK, name, real[name])
         SS.BeaconStateView.from_state = classmethod(real_from_state)
         SS.get_block_signature_sets = real_sets
-        GEN.get_next_sync_committee = real_sync
+        GEN.get_next_sync_committee, AC.get_next_sync_committee = real_sync["gen"], real_sync["acc"]
+        PH0.process_epoch_phase0, PH0.upgrade_to_altair, PH0.get_attestation_deltas = real_epoch0, real_upgrade, \
+            real_deltas
         pool.close()
         pool.join()
         service.close()
@@ -2649,8 +2811,14 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     sup = backend.supervisor.status()
     if chain.head_root_hex != blocks[-1].hex() or len(blocks) != len(CHAIN_SLOTS):
         raise AssertionError(f"chain: head {chain.head_root_hex}, {len(blocks)} blocks imported")
-    if [r["leg"] for r in rejected] != ["signature_verify", "state_root"]:
+    if [r["leg"] for r in rejected] != ["signature_verify", "state_root", "validation"]:
         raise AssertionError(f"chain: rejections {rejected}")
+    if payload_head != el.head or payload_head == b"\x00" * 32 or optimistic or head_status != "Valid":
+        raise AssertionError(f"chain: the head's payload {payload_head.hex()}, the engine's head {el.head.hex()}, "
+                             f"optimistic {optimistic}, status {head_status}")
+    if withdrawer_state[0] != ETH1_ADDRESS_WITHDRAWAL_PREFIX \
+            or withdrawer_state[1] >= ACTIVE_PRESET.MAX_EFFECTIVE_BALANCE + 10**8:
+        raise AssertionError(f"chain: the withdrawer ends at {withdrawer_state}")
     if host_sets or host_checks or backend.m_host_levels.value or sup["state"] != "closed":
         raise AssertionError(f"chain: {host_sets} host-fallback sets, {host_checks} host signature checks in the "
                              f"transition, {backend.m_host_levels.value} host tree levels, breaker {sup['state']}")
@@ -2667,10 +2835,16 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     held_s = time.perf_counter() - t
     del calls
     line = {
-        "validators": len(keys), "slots": list(CHAIN_SLOTS), "fork": "altair", "card": card,
-        "anchor_root": anchor_root.hex(), "head": blocks[-1].hex(),
+        "validators": len(keys), "slots": list(CHAIN_SLOTS), "forks": [b["fork"] for b in per_block],
+        "fork_epochs": CHAIN_FORKS, "card": card, "anchor_root": anchor_root.hex(), "head": blocks[-1].hex(),
         "genesis_s": genesis_s, "sync_committee_host_s": sync_s, "cold_root_ms": cold_ms, "chain_init_s": chain_s,
+        "phase0_epoch_ms": epoch0_ms, "phase0_epochs": epoch0_at, "attestation_deltas_ms": deltas_ms,
+        "upgrade_to_altair_ms": upgrade_ms, "duties_s": duties_s,
         "blocks": per_block, "rejected": rejected, "pools_and_signing_s": sign_s, "produce_s": produce_s,
+        "engine": {"calls": {k: len(v) for k, v in engine_calls.items()},
+                   "ms": {k: sum(v) for k, v in engine_calls.items()}, "head": el.head.hex(),
+                   "payload_head": payload_head.hex(), "head_status": head_status, "optimistic": len(optimistic)},
+        "withdrawer": {"index": withdrawer, "balance": withdrawer_state[1]},
         "launches": {k: v for k, v in counts.items() if v}, "held": held, "held_s": held_s,
         "host_fallback_sets": host_sets, "host_signature_checks_in_stf": host_checks,
         "host_tree_levels": backend.m_host_levels.value, "breaker": sup["state"],

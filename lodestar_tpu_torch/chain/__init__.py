@@ -2,8 +2,9 @@
 the slot clock, the seen caches, the operation pools, the state caches,
 the memory governor, regen, block production, the block processor and
 `BeaconChain` (chain.py), which imports blocks through the port's state
-transition, verifier service and state-root engine.  The archiver, the
-light-client server, `prepare_next_slot`, `init_state`, the blobs and
+transition, verifier service and state-root engine, with its execution
+payload leg and deneb data availability (`blobs.py`).  The archiver, the
+light-client server, `prepare_next_slot`, `init_state`, the builder and
 the validation family are not ported yet.
 """
 

@@ -18,17 +18,15 @@ Two verification planes, as in the reference:
     port's state-root engine.
 
 Not ported yet, and raising NotImplementedError where reached (ROADMAP
-Queue A): the execution-payload leg with an engine wired (item 7.1b),
-deneb data availability and blob sidecars (item 7.1c), blinded
-production and the builder (item 7.1d).  With no engine wired a block
-that carries a payload is rejected, as in the JAX package.
+Queue A item 7.1d): blinded production and the builder.  With no engine
+wired a block that carries a payload is rejected, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import time as _time
 from contextlib import contextmanager
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from .. import params
 from ..observability import trace_span as _trace_span
@@ -63,14 +61,25 @@ from ..fork_choice import ExecutionStatus, ForkChoice, ProtoArray
 P = params.ACTIVE_PRESET
 
 
-_EXECUTION = (
-    "the execution-payload leg with an engine wired is not ported yet: "
-    "ROADMAP Queue A item 7.1b"
-)
-_BLOBS = (
-    "deneb data availability and blob sidecars are not ported yet: "
-    "ROADMAP Queue A item 7.1c"
-)
+class BlobsUnavailableError(Exception):
+    """A deneb block's blob sidecars are not (yet) available: the block
+    cannot be imported until every commitment has a validated sidecar.
+    Retryable — the gossip layer IGNOREs and the processor may park the
+    block (reference: the importBlock availability gate; p2p spec
+    IGNORE, not REJECT)."""
+
+
+class PayloadInvalidError(ValueError):
+    """The EL rejected the payload; carries the latestValidHash so the
+    caller can invalidate the bad ancestor chain (reference:
+    verifyBlocksExecutionPayloads.ts:304-314)."""
+
+    def __init__(self, msg: str, latest_valid_hash: Optional[str] = None):
+        super().__init__(msg)
+        # plain-hex (no 0x) EL hash, or None when the EL gave none
+        self.latest_valid_hash = latest_valid_hash
+
+
 _BUILDER = (
     "blinded production and the builder are not ported yet: "
     "ROADMAP Queue A item 7.1d"
@@ -94,15 +103,11 @@ class BeaconChain:
         state_budget_bytes: Optional[int] = None,
         registry=None,
     ):
-        if execution is not None:
-            raise NotImplementedError(_EXECUTION)
-        if kzg_setup is not None:
-            raise NotImplementedError(_BLOBS)
         self.config = config
         self.log = get_logger("chain")
         self.emitter = emitter or ChainEventEmitter()
-        # prepare_beacon_proposer registrations (a BeaconProposerCache),
-        # which only the payload leg reads
+        # prepare_beacon_proposer registrations consumed by production
+        # (a BeaconProposerCache; None = zero fee recipient)
         self.proposer_cache = proposer_cache
         self.db = db
         self.bls = bls_verifier  # optional batched signature service
@@ -119,6 +124,22 @@ class BeaconChain:
         # must fire exception-isolated and AFTER the head update — the
         # moment the imported block is actually usable downstream.
         self.on_import_complete = None
+        # beacon root -> execution block hash (payload-carrying blocks)
+        self._execution_block_hash: Dict[str, bytes] = {}
+        # roots imported optimistically (EL said SYNCING/ACCEPTED)
+        self.optimistic_roots: set = set()
+        # data availability (deneb): block root -> {index: commitment}
+        # of KZG-verified sidecars, fed by gossip validation / reqresp;
+        # import requires full coverage of the block's commitments
+        self._available_sidecars: Dict[str, Dict[int, bytes]] = {}
+        self._sidecar_bodies: Dict[str, Dict[int, dict]] = {}
+        self._sidecar_slots: Dict[str, int] = {}
+        # blocks waiting on sidecar availability (gossip ordering race:
+        # a block often beats its sidecars by ~100ms) — re-imported from
+        # on_blob_sidecar once coverage completes; bounded
+        self._da_pending: Dict[str, dict] = {}
+        self._da_pending_max = 16
+
         anchor_root = BeaconBlockHeader.hash_tree_root(
             dict(
                 anchor_state.latest_block_header,
@@ -282,12 +303,64 @@ class BeaconChain:
 
         # phase "validation": availability gate + pre-state regen +
         # execution-payload verdict — everything that must hold before
-        # the expensive signature/STF legs run.  Without an engine a
-        # payload-carrying block is rejected here; deneb blobs raise.
-        with self._phase("validation"):
-            self._check_data_availability(block, root)
-            pre_state = self.regen.get_pre_state(block)
-            self._verify_execution_payload(block)
+        # the expensive signature/STF legs run.
+        # availability first: cheap, and a data-less block must not cost
+        # an EL round-trip or a state transition; a not-yet-available
+        # block parks until its sidecars arrive (re-imported from
+        # on_blob_sidecar), so gossip ordering cannot lose it
+        try:
+            with self._phase("validation"):
+                self._check_data_availability(block, root)
+                pre_state = self.regen.get_pre_state(block)
+                # Execution-payload leg: runs alongside signatures + the
+                # state transition (reference:
+                # chain/blocks/verifyBlock.ts:87-104 Promise.all).
+                # Altair bodies carry no payload, so this leg is a no-op
+                # until the bellatrix types flow through.  Bookkeeping
+                # (_execution_block_hash / optimistic_roots) is recorded
+                # only AFTER the whole import lands, so invalid-block
+                # spam cannot grow the maps.
+                exec_result = self._verify_execution_payload(block)
+        except BlobsUnavailableError:
+            if len(self._da_pending) < self._da_pending_max:
+                self._da_pending[root.hex()] = signed_block
+            raise
+        except PayloadInvalidError as e:
+            # the bad payload's ancestors up to the LVH are also invalid:
+            # evict them from head candidacy before rejecting this block
+            # (reference: chain/blocks/index.ts:86 validateLatestHash on
+            # invalidSegmentLHV, from-root = the block's parent)
+            parent_hex = block["parent_root"].hex()
+            # Only act on a non-null LVH (reference:
+            # verifyBlocksExecutionPayloads.ts:375 skips a null LVH —
+            # the engine API allows INVALID with latestValidHash=null,
+            # and invalidating the innocent parent on that would let one
+            # cheap bad block evict the honest chain), and only when the
+            # LVH is NOT the parent's own payload (:396-399 — if it is,
+            # the parent chain is clean and only this never-imported
+            # block was bad).
+            parent_el = self._execution_block_hash.get(parent_hex)
+            lvh_is_parent = (
+                parent_el is not None and parent_el.hex() == e.latest_valid_hash
+            ) or (parent_el is None and e.latest_valid_hash == "00" * 32)
+            if (
+                e.latest_valid_hash is not None
+                and not lvh_is_parent
+                and self.fork_choice.has_block(parent_hex)
+            ):
+                try:
+                    self.fork_choice.validate_latest_hash(
+                        ExecutionStatus.Invalid,
+                        e.latest_valid_hash,
+                        invalidate_from_block_root=parent_hex,
+                    )
+                    self._after_invalidation(int(block["slot"]))
+                except Exception as fc_err:  # noqa: BLE001
+                    self.log.warn(
+                        "payload-invalidation fork-choice update failed",
+                        error=str(fc_err),
+                    )
+            raise
 
         with self._phase("signature_verify"):
             view = None
@@ -339,6 +412,15 @@ class BeaconChain:
         t_fc = _time.perf_counter()
         fc_seconds = 0.0
         unrealized = self._unrealized_checkpoints(block, post)
+        if exec_result is None:
+            exec_status, exec_hash = ExecutionStatus.PreMerge, None
+        else:
+            exec_status = (
+                ExecutionStatus.Syncing
+                if exec_result[1]
+                else ExecutionStatus.Valid
+            )
+            exec_hash = bytes(exec_result[0]).hex()
         self.fork_choice.on_block(
             block["slot"],
             root.hex(),
@@ -347,17 +429,29 @@ class BeaconChain:
             finalized_epoch=int(post.finalized_checkpoint["epoch"]),
             unrealized_justified_epoch=unrealized["justified_epoch"],
             unrealized_finalized_epoch=unrealized["finalized_epoch"],
-            execution_status=ExecutionStatus.PreMerge,
-            execution_block_hash=None,
+            execution_status=exec_status,
+            execution_block_hash=exec_hash,
         )
         # clock surrogate: a block at a later slot clears any stale boost
         self.fork_choice.set_current_slot(int(block["slot"]))
+        if exec_result is not None:
+            block_hash, optimistic = exec_result
+            self._execution_block_hash[root.hex()] = block_hash
+            if optimistic:
+                self.optimistic_roots.add(root.hex())
         if timely:
             self.fork_choice.on_timely_block(root.hex(), int(block["slot"]))
         fc_seconds += _time.perf_counter() - t_fc
         self.regen.on_imported_block(root, post)
         if self.db is not None:
             self.db.put_block(root, signed_block)
+            bodies = self._sidecar_bodies.get(root.hex())
+            if bodies and hasattr(self.db, "put_blob_sidecars"):
+                # imported deneb blocks persist their (validated) data so
+                # peers can fetch it over blob_sidecars_by_range/root
+                self.db.put_blob_sidecars(
+                    root, [bodies[i] for i in sorted(bodies)]
+                )
         self.imported_blocks += 1
         self.emitter.emit(ChainEvent.block, signed_block, root)
         if self.slasher is not None:
@@ -459,6 +553,12 @@ class BeaconChain:
                 # states) can never anchor a regen again — before this,
                 # block_state_roots grew for the process lifetime
                 self.regen.on_finalized(removed)
+                for node in removed:
+                    self._execution_block_hash.pop(node.root, None)
+                    self.optimistic_roots.discard(node.root)
+                    self._available_sidecars.pop(node.root, None)
+                    self._sidecar_bodies.pop(node.root, None)
+                    self._sidecar_slots.pop(node.root, None)
             self.emitter.emit(
                 ChainEvent.finalized, dict(post.finalized_checkpoint)
             )
@@ -556,26 +656,122 @@ class BeaconChain:
             if entered >= 2:
                 mon.on_epoch_close(entered - 2)
 
+    def _after_invalidation(self, slot: Optional[int] = None) -> None:
+        """Post-invalidation bookkeeping every eviction path shares:
+        known-Invalid roots leave optimistic_roots (the API must not
+        report them as merely optimistic), and a head change is a REAL
+        head change — event emitted, EL notified — not a silent
+        reassignment."""
+        self.optimistic_roots = {
+            r
+            for r in self.optimistic_roots
+            if self.fork_choice.get_execution_status(r)
+            not in (None, ExecutionStatus.Invalid)
+        }
+        old = self.head_root_hex
+        self.head_root_hex = self.fork_choice.update_head()
+        if self.head_root_hex != old:
+            node = self.fork_choice.get_node(self.head_root_hex)
+            self.emitter.emit(
+                ChainEvent.head,
+                bytes.fromhex(self.head_root_hex),
+                node.slot if node is not None else slot,
+            )
+            if not getattr(self, "_in_head_recovery", False):
+                self._in_head_recovery = True
+                try:
+                    self._notify_forkchoice()
+                finally:
+                    self._in_head_recovery = False
+
     # -- data availability (deneb) -----------------------------------------
 
-    def on_blob_sidecar(self, block_root: bytes, index: int, commitment: bytes,
-                        slot: Optional[int] = None, sidecar: Optional[dict] = None) -> None:
-        raise NotImplementedError(_BLOBS)
+    def on_blob_sidecar(
+        self,
+        block_root: bytes,
+        index: int,
+        commitment: bytes,
+        slot: Optional[int] = None,
+        sidecar: Optional[dict] = None,
+    ) -> None:
+        """Record a VALIDATED (inclusion-proof + KZG-verified) sidecar as
+        available for its block.  Gossip validation calls this on ACCEPT;
+        the import gate in _check_data_availability consumes it.  When
+        the full `sidecar` body rides along it is kept so the import can
+        persist it to the db (served over blob_sidecars_by_range/root)."""
+        root_hex = bytes(block_root).hex()
+        self._available_sidecars.setdefault(root_hex, {})[int(index)] = bytes(
+            commitment
+        )
+        if sidecar is not None:
+            self._sidecar_bodies.setdefault(root_hex, {})[int(index)] = sidecar
+        if slot is not None:
+            self._sidecar_slots[root_hex] = int(slot)
+        # a block parked on this root retries now that data arrived
+        pending = self._da_pending.get(root_hex)
+        if pending is not None:
+            try:
+                self._check_data_availability(
+                    pending["message"], bytes(block_root)
+                )
+            except BlobsUnavailableError:
+                return  # still short — keep waiting
+            except ValueError:
+                del self._da_pending[root_hex]  # mismatched data: drop
+                return
+            del self._da_pending[root_hex]
+            try:
+                self.process_block(pending)
+            except Exception as e:  # noqa: BLE001 - import errors are the
+                # block's own problem now; availability did its job
+                self.log.warn(
+                    "parked block import failed", error=str(e)
+                )
 
     def get_blob_sidecars(self, block_root: bytes) -> Optional[list]:
-        raise NotImplementedError(_BLOBS)
+        """Validated sidecar bodies held for a block (gossip-window
+        blocks not yet archived) — the public read path for reqresp
+        serving; db-backed lookups happen at the db layer."""
+        bodies = self._sidecar_bodies.get(bytes(block_root).hex())
+        if not bodies:
+            return None
+        return [bodies[i] for i in sorted(bodies)]
 
     def _check_data_availability(self, block: dict, root: bytes) -> None:
-        """A block with blob commitments needs its sidecars' availability,
-        which is not ported: it raises rather than importing unchecked."""
+        """Every blob commitment in the block must have an available,
+        KZG-verified sidecar with the SAME commitment at that index —
+        versioned hashes only bind commitments to EL transactions, they
+        do not prove the blobs themselves exist (reference: importBlock
+        gates on blob availability; ADVICE r4 medium)."""
         body = block.get("body", {})
         commitments = (
             body.get("blob_kzg_commitments")
             if isinstance(body, dict)
             else None
         )
-        if commitments:
-            raise NotImplementedError(_BLOBS)
+        if not commitments:
+            return
+        have = self._available_sidecars.get(bytes(root).hex(), {})
+        for i, c in enumerate(commitments):
+            got = have.get(i)
+            if got is None:
+                raise BlobsUnavailableError(
+                    f"blob {i}/{len(commitments)} not available for "
+                    f"block {bytes(root).hex()[:12]}"
+                )
+            if got != bytes(c):
+                # an available sidecar whose commitment diverges from the
+                # block's is a hard mismatch, not a wait-for-data case
+                raise ValueError(
+                    f"blob sidecar {i} commitment mismatch for block "
+                    f"{bytes(root).hex()[:12]}"
+                )
+
+    # NOTE on the broad except blocks around validate_latest_hash /
+    # update_head in the invalidation paths: LVHConsensusError latches
+    # proto.lvh_error, so even where a handler logs-and-continues, every
+    # subsequent update_head re-raises it — the perma-damage signal
+    # cannot be lost, only deferred one import.
 
     def _unrealized_checkpoints(self, block: dict, post) -> dict:
         """Pulled-up checkpoints for the fork-choice node (reference:
@@ -605,28 +801,127 @@ class BeaconChain:
             "finalized_epoch": int(cps["finalized"]["epoch"]),
         }
 
-    def _verify_execution_payload(self, block: dict) -> None:
+    def _verify_execution_payload(self, block: dict):
         """The third verification leg (reference: verifyBlock.ts
-        verifyBlocksExecutionPayload -> engine notifyNewPayload).  A
-        payload with no engine wired rejects the block, as in the JAX
-        package."""
+        verifyBlocksExecutionPayload -> engine notifyNewPayload).
+
+        Returns None for payload-less blocks, else
+        (block_hash, optimistic) — the CALLER records the bookkeeping
+        after the whole import succeeds, so failed imports leave no
+        residue.  VALID -> optimistic=False; SYNCING/ACCEPTED ->
+        optimistic=True; INVALID -> the block is invalid; an EL outage
+        (ELERROR/UNAVAILABLE or a transport failure) is RETRYABLE —
+        surfaced as ExecutionEngineUnavailable, never as block
+        invalidity (the gossip layer IGNOREs it)."""
         body = block.get("body", {})
         payload = (
             body.get("execution_payload") if isinstance(body, dict) else None
         )
         if payload is None:
-            return
+            return None
         if self.execution is None:
             raise ValueError("execution payload present but no engine wired")
-        raise NotImplementedError(_EXECUTION)
+        from ..execution import (
+            ExecutePayloadStatus,
+            ExecutionEngineUnavailable,
+        )
+
+        try:
+            if "blob_gas_used" in payload:
+                # deneb (engine V3): commitment versioned hashes + the
+                # parent beacon block root ride along for EL-side checks
+                import hashlib as _hl
+
+                hashes = [
+                    b"\x01" + _hl.sha256(bytes(c)).digest()[1:]
+                    for c in body.get("blob_kzg_commitments", ())
+                ]
+                st = self.execution.notify_new_payload(
+                    payload, hashes, bytes(block["parent_root"])
+                )
+            else:
+                st = self.execution.notify_new_payload(payload)
+        except ExecutionEngineUnavailable:
+            raise
+        except Exception as e:  # transport failure = outage, retryable
+            raise ExecutionEngineUnavailable(str(e))
+        if st.status == ExecutePayloadStatus.VALID:
+            return bytes(payload["block_hash"]), False
+        if st.status in (
+            ExecutePayloadStatus.SYNCING,
+            ExecutePayloadStatus.ACCEPTED,
+        ):
+            return bytes(payload["block_hash"]), True
+        if st.status in (
+            ExecutePayloadStatus.ELERROR,
+            ExecutePayloadStatus.UNAVAILABLE,
+        ):
+            raise ExecutionEngineUnavailable(
+                f"EL outage: {st.status.value} ({st.validation_error})"
+            )
+        lvh = st.latest_valid_hash
+        raise PayloadInvalidError(
+            f"execution payload rejected: {st.status.value} "
+            f"({st.validation_error})",
+            latest_valid_hash=(
+                lvh[2:] if isinstance(lvh, str) and lvh.startswith("0x") else lvh
+            ),
+        )
+
+    def execution_head_hashes(self):
+        """(head_el_hash | None, finalized_el_hash) — THE beacon-root ->
+        EL-hash mapping, shared by forkchoice pushes and the next-slot
+        payload preparation (None head = pre-merge)."""
+        head_hash = self._execution_block_hash.get(self.head_root_hex)
+        fin = self.head_state.finalized_checkpoint["root"].hex()
+        return head_hash, self._execution_block_hash.get(fin, b"\x00" * 32)
 
     def _notify_forkchoice(self) -> None:
         """Push the beacon head to the EL after head updates (reference:
-        importBlock.ts -> executionEngine.notifyForkchoiceUpdate); no
-        engine, nothing to push."""
+        importBlock.ts -> executionEngine.notifyForkchoiceUpdate)."""
         if self.execution is None:
             return
-        raise NotImplementedError(_EXECUTION)
+        head_hash, fin_hash = self.execution_head_hashes()
+        if head_hash is None:
+            return  # pre-merge head
+        from ..execution import ExecutePayloadStatus
+
+        try:
+            r = self.execution.notify_forkchoice_update(
+                head_hash, head_hash, fin_hash
+            )
+        except Exception as e:  # noqa: BLE001 - EL outage must not kill import
+            self.log.warn("engine forkchoiceUpdated failed", error=str(e))
+            return
+        # the EL confirming the head resolves optimistic statuses all
+        # the way down the branch (reference: importBlock.ts fcU response
+        # -> forkChoice.validateLatestHash)
+        if r.status == ExecutePayloadStatus.VALID:
+            try:
+                # the confirmed head's root is known: O(branch depth)
+                # propagation, not the O(n) exec-hash scan
+                self.fork_choice.propagate_valid_root(self.head_root_hex)
+            except Exception as e:  # noqa: BLE001
+                self.log.warn("valid-propagation failed", error=str(e))
+            self.optimistic_roots = {
+                rt
+                for rt in self.optimistic_roots
+                if self.fork_choice.get_execution_status(rt)
+                not in (None, ExecutionStatus.Valid)
+            }
+        elif r.status == ExecutePayloadStatus.INVALID:
+            # the current head's payload chain is bad: invalidate and
+            # move the head off it
+            lvh = r.latest_valid_hash
+            try:
+                self.fork_choice.validate_latest_hash(
+                    ExecutionStatus.Invalid,
+                    lvh[2:] if isinstance(lvh, str) and lvh.startswith("0x") else lvh,
+                    invalidate_from_block_root=self.head_root_hex,
+                )
+                self._after_invalidation()
+            except Exception as e:  # noqa: BLE001
+                self.log.warn("head invalidation failed", error=str(e))
 
     def _verify_signatures_batched(self, view, signed_block) -> bool:
         """One batched job through the injected verifier service using the
@@ -862,3 +1157,20 @@ class BeaconChain:
         self.aggregated_attestation_pool.prune(clock_slot)
         self.sync_committee_message_pool.prune(clock_slot)
         self.sync_contribution_pool.prune(clock_slot)
+        # availability entries outlive their usefulness one epoch after
+        # their slot (blocks import within the gossip window)
+        horizon = clock_slot - P.SLOTS_PER_EPOCH
+        for root in [
+            r for r, s in self._sidecar_slots.items() if s < horizon
+        ]:
+            self._sidecar_slots.pop(root, None)
+            self._available_sidecars.pop(root, None)
+            self._sidecar_bodies.pop(root, None)
+        # parked data-less blocks expire with the window too — stale
+        # entries must not pin the (bounded) parking slots shut
+        for root in [
+            r
+            for r, sb in self._da_pending.items()
+            if int(sb["message"]["slot"]) < horizon
+        ]:
+            del self._da_pending[root]

@@ -1,7 +1,8 @@
 """Block production — assemble, compute state root, (optionally) sign.
 
 The port's copy of `lodestar_tpu/chain/produce_block.py`; it imports nothing of the
-JAX package.
+JAX package.  Blinded production through a builder is not ported yet
+(ROADMAP Queue A item 7.1d) and raises.
 
 Reference: packages/beacon-node/src/chain/produceBlock/produceBlockBody.ts
 (body assembly from op pools + eth1 vote + randao reveal) and
@@ -150,6 +151,72 @@ def produce_block_from_pools(
     )
 
 
+def build_payload_attributes(advanced, slot: int, fee_recipient: bytes):
+    """THE payload attributes for proposing at `slot` on `advanced` (the
+    state already processed to `slot`)."""
+    from ..execution import PayloadAttributes
+    from ..state_transition.accessors import get_randao_mix
+    from ..state_transition.block import get_expected_withdrawals
+
+    withdrawals = (
+        get_expected_withdrawals(advanced)
+        if advanced.next_withdrawal_index is not None
+        else None
+    )
+    parent_beacon_root = None
+    if advanced.fork_at_least(params.ForkName.deneb):
+        # fcU V3 rejects attributes without the parent beacon root
+        parent_beacon_root = BeaconBlockHeader.hash_tree_root(
+            advanced.latest_block_header
+        )
+    return PayloadAttributes(
+        timestamp=int(advanced.genesis_time) + slot * params.SECONDS_PER_SLOT,
+        prev_randao=get_randao_mix(advanced, slot // P.SLOTS_PER_EPOCH),
+        suggested_fee_recipient=bytes(fee_recipient),
+        withdrawals=withdrawals,
+        parent_beacon_block_root=parent_beacon_root,
+    )
+
+
+def _fetch_payload(
+    execution,
+    pre,
+    fee_recipient: bytes = b"\x00" * 20,
+) -> Dict:
+    """engine_forkchoiceUpdated(attributes) + engine_getPayload against
+    the state's latest header (reference: produceBlockBody.ts
+    prepareExecutionPayload).  Pre-merge, the payload's parent is the
+    zero hash: the terminal PoW block's discovery (an eth1 merge
+    tracker) is not ported."""
+    from ..state_transition.block import is_merge_transition_complete
+
+    if is_merge_transition_complete(pre):
+        parent_hash = bytes(pre.latest_execution_payload_header["block_hash"])
+    else:
+        parent_hash = b"\x00" * 32
+    r = execution.notify_forkchoice_update(
+        parent_hash,
+        parent_hash,
+        b"\x00" * 32,
+        build_payload_attributes(pre, pre.slot, fee_recipient),
+    )
+    if r.payload_id is None:
+        raise ValueError(f"EL did not prepare a payload ({r.status})")
+    # engine API version follows the proposal fork (deneb requires
+    # getPayloadV3 on real ELs; V1 for pre-capella)
+    if pre.fork_at_least(params.ForkName.deneb):
+        version = 3
+    elif pre.fork_at_least(params.ForkName.capella):
+        version = 2
+    else:
+        version = 1
+    payload = execution.get_payload(r.payload_id, version)
+    if pre.fork_at_least(params.ForkName.deneb) and "blob_gas_used" not in payload:
+        # a mock/dev EL without blob support: default the blob gas fields
+        payload = {**payload, "blob_gas_used": 0, "excess_blob_gas": 0}
+    return payload
+
+
 def produce_block(
     state,
     slot: int,
@@ -163,9 +230,8 @@ def produce_block(
     Returns (block_value, post_state); block.state_root is the real
     post-state root, so signing it yields an importable block.  With a
     `builder`, the body is BLINDED: it carries the relay's payload
-    header instead of a payload (reference: produceBlindedBlock); the
-    payload leg and the builder are not ported yet (ROADMAP Queue A
-    items 7.1b, 7.1d)."""
+    header instead of a payload (reference: produceBlindedBlock); that
+    flow is not ported yet (ROADMAP Queue A item 7.1d)."""
     pre = state.clone()
     if pre.slot < slot:
         process_slots(pre, slot)
@@ -180,16 +246,13 @@ def produce_block(
                 "blinded production and the builder are not ported yet: "
                 "ROADMAP Queue A item 7.1d"
             )
-        # bellatrix proposal: the payload comes from the EL (reference:
-        # produceBlockBody.ts engine getPayload leg)
+        # bellatrix proposal: fetch the payload from the EL
+        # (reference: produceBlockBody.ts engine getPayload leg)
         if execution is None:
             raise ValueError(
                 "post-bellatrix proposal requires an execution engine"
             )
-        raise NotImplementedError(
-            "the execution-payload leg with an engine wired is not ported "
-            "yet: ROADMAP Queue A item 7.1b"
-        )
+        body_kwargs["execution_payload"] = _fetch_payload(execution, pre)
     body = produce_block_body(pre, randao_reveal, **body_kwargs)
     block = {
         "slot": slot,

@@ -1,5 +1,6 @@
 """SSZ type objects: serialization + merkleization, the port's copy of
-`lodestar_tpu/ssz/core.py` (of its proof helpers only `is_valid_merkle_branch`).
+`lodestar_tpu/ssz/core.py` (of its proof helpers only `_merkle_branch`, which
+`chain/blobs.py` needs, and `is_valid_merkle_branch`).
 
 Implements the consensus-spec SSZ rules the reference relies on through
 `@chainsafe/ssz` (reference: packages/types/src/sszTypes.ts):
@@ -423,6 +424,33 @@ def _elems_root(elem: SszType, value, limit: Optional[int]) -> bytes:
 
 def hash_tree_root(sztype: SszType, value) -> bytes:
     return sztype.hash_tree_root(value)
+
+
+def _merkle_branch(
+    chunks: Sequence[bytes], index: int, limit: Optional[int] = None
+) -> PyList[bytes]:
+    """Sibling path for leaf `index` in the padded binary tree of
+    `chunks` (bottom-up order, matching is_valid_merkle_branch).
+    `limit` fixes the padded leaf count (list-limit trees); default is
+    the live chunk count's next pow2."""
+    leaves = _next_pow2(limit if limit is not None else len(chunks))
+    depth = leaves.bit_length() - 1
+    level = list(chunks)
+    branch: PyList[bytes] = []
+    pos = index
+    for d in range(depth):
+        sibling = pos ^ 1
+        branch.append(
+            level[sibling] if sibling < len(level) else _ZERO_HASHES[d]
+        )
+        nxt = []
+        for i in range(0, len(level), 2):
+            left = level[i]
+            right = level[i + 1] if i + 1 < len(level) else _ZERO_HASHES[d]
+            nxt.append(digest(left + right))
+        level = nxt
+        pos //= 2
+    return branch
 
 
 def is_valid_merkle_branch(

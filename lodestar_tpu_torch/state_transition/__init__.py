@@ -5,7 +5,7 @@
     whole-registry batch shuffles instead of per-index loops),
   - `accessors`: spec get_* over the columnar state (seeds, committees,
     proposer/sync-committee rejection sampling),
-  - `state`: BeaconState — altair onward, struct-of-arrays columns + SSZ
+  - `state`: BeaconState — phase0 onward, struct-of-arrays columns + SSZ
     view over the port's own types, its root through `state_root`,
   - `slot` / `block` / `epoch` / `transition`: processSlots,
     processBlock (every fork's operations), the altair-onward epoch
@@ -15,10 +15,8 @@
   - `signature_sets`: BeaconStateView and the per-object extractors
     feeding the port's verifier as WireSignatureSets,
   - `state_root`: the state-root engine on the port's merkle tree and
-    device backend.
-
-The phase0 epoch and `upgrade_to_altair` (`phase0.py`) are not ported:
-`slot.py` raises on a phase0 state.
+    device backend,
+  - `phase0`: the PendingAttestation-era epoch and `upgrade_to_altair`.
 """
 
 from .epoch_cache import EpochCache  # noqa: F401

@@ -6,10 +6,9 @@ JAX package.
 Reference: packages/state-transition/src/slot/index.ts (processSlot),
 stateTransition.ts (stateTransition / processSlots; the
 eth2fastspec-style "cache roots then maybe epoch-transition" loop).
-The canonical working state is the altair family.  The phase0 epoch and
-`upgrade_to_altair` (the JAX package's `phase0.py`) are not ported yet
-(ROADMAP Queue A item 7.1a): a phase0 state raises here, it is never
-skipped.  The BELLATRIX fork upgrade runs at its
+The canonical working state is the altair family; a phase0 state runs
+the PendingAttestation epoch (`phase0.py`) and upgrades to altair at its
+scheduled epoch.  The BELLATRIX fork upgrade runs at its
 scheduled epoch boundary (reference: slot/upgradeStateToBellatrix.ts),
 attaching the execution-payload header that process_execution_payload
 maintains thereafter.
@@ -26,10 +25,6 @@ from .epoch import process_epoch
 
 P = params.ACTIVE_PRESET
 ZERO_ROOT = b"\x00" * 32
-_PHASE0 = (
-    "phase0 epoch processing and upgrade_to_altair (phase0.py) are not "
-    "ported yet: ROADMAP Queue A item 7.1a"
-)
 
 
 def process_slot(state) -> None:
@@ -59,8 +54,12 @@ def process_slots(state, slot: int, metrics: Optional[Dict] = None) -> None:
         process_slot(state)
         if (state.slot + 1) % P.SLOTS_PER_EPOCH == 0:
             if state.previous_epoch_attestations is not None:
-                raise NotImplementedError(_PHASE0)
-            process_epoch(state)
+                # PendingAttestation era (reference: phase0 processEpoch)
+                from .phase0 import process_epoch_phase0
+
+                process_epoch_phase0(state)
+            else:
+                process_epoch(state)
         state.slot += 1
         maybe_upgrade_state(state)
 
@@ -78,8 +77,11 @@ def maybe_upgrade_state(state) -> None:
         and epoch == altair_epoch
         and state.previous_epoch_attestations is not None
     ):
-        # reference: slot/upgradeStateToAltair.ts
-        raise NotImplementedError(_PHASE0)
+        # reference: slot/upgradeStateToAltair.ts (pending attestations
+        # translate into participation flags; sync committees start)
+        from .phase0 import upgrade_to_altair
+
+        upgrade_to_altair(state)
     bellatrix_epoch = state.config.fork_epochs.get(ForkName.bellatrix)
     if (
         bellatrix_epoch is not None

@@ -196,20 +196,42 @@ def test_chain_without_a_verifier_checks_in_the_transition(installed, tmp_path):
 
 
 def test_unported_legs_raise(installed):
+    """Only the builder (ROADMAP Queue A item 7.1d) is still unported;
+    a payload with no engine wired is rejected, as in the JAX package."""
     w = installed
     anchor = P.gen.create_genesis_state(config(P), w.pks[:8] * 4, genesis_time=1)
-    with pytest.raises(NotImplementedError, match="7.1b"):
-        P.chain.BeaconChain(config(P), anchor, execution=object())
-    with pytest.raises(NotImplementedError, match="7.1c"):
-        P.chain.BeaconChain(config(P), anchor, kzg_setup=object())
     chain = P.chain.BeaconChain(config(P), anchor)
     with pytest.raises(NotImplementedError, match="7.1d"):
         chain.produce_blinded_block(1, b"\x00" * 96)
-    with pytest.raises(NotImplementedError, match="7.1c"):
-        chain.on_blob_sidecar(b"\x00" * 32, 0, b"\x00" * 48)
-    # a payload with no engine wired is rejected, as in the JAX package
+    with pytest.raises(NotImplementedError, match="7.1d"):
+        chain.submit_blinded_block({"message": {"slot": 1}})
     with pytest.raises(ValueError, match="no engine wired"):
         chain._verify_execution_payload({"body": {"execution_payload": {}}})
+
+
+def test_engine_and_kzg_setup_are_accepted(installed):
+    """An engine and a KZG setup wire into the chain; a pre-merge head
+    pushes nothing to the engine."""
+    w = installed
+    anchor = P.gen.create_genesis_state(config(P), w.pks[:8] * 4, genesis_time=1)
+    el = P.execution.ExecutionEngineMock()
+    setup = P.kzg.insecure_dev_setup(4)
+    chain = P.chain.BeaconChain(config(P), anchor, execution=el, kzg_setup=setup)
+    assert chain.execution is el and chain.kzg_setup is setup
+    assert chain.execution_head_hashes() == (None, b"\x00" * 32)  # pre-merge head
+    chain._notify_forkchoice()  # a pre-merge head pushes nothing
+    assert el.head == b"\x00" * 32
+
+
+def test_blob_sidecars_are_accepted(installed):
+    w = installed
+    anchor = P.gen.create_genesis_state(config(P), w.pks[:8] * 4, genesis_time=1)
+    chain = P.chain.BeaconChain(config(P), anchor)
+    root, sidecar = b"\x07" * 32, {"index": 0}
+    chain.on_blob_sidecar(root, 0, b"\xaa" * 48, slot=1, sidecar=sidecar)
+    assert chain.get_blob_sidecars(root) == [sidecar]
+    assert chain.get_blob_sidecars(b"\x08" * 32) is None
+    chain._check_data_availability({"body": {"blob_kzg_commitments": [b"\xaa" * 48]}}, root)
 
 
 def test_op_pools_equal_jax(installed):

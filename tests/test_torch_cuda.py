@@ -1104,11 +1104,13 @@ def test_node_phase_on_card(dev, monkeypatch):
 
 
 def test_chain_phase_on_card(dev, monkeypatch):
-    """chip_smoke.chain_phase at 8,192 validators (2 committees of 128 a
-    slot), two blocks (32, crossing the epoch boundary, and 33) and the two
-    tampered copies of 33: every block imported, each post-state's root
-    equal to the host path's, the copies refused by their legs, no set on
-    the host, no host tree level, no signature checked inside the
+    """chip_smoke.chain_phase, the fork walk, at 8,192 validators (2
+    committees of 128 a slot): the blocks at 33 (phase0, two slots'
+    committees), 64 (the rewarded phase0 epoch and the altair upgrade), 96
+    (the merge), 128 (capella) and 160 (deneb), and the three refused
+    copies of 160: every block imported on its fork, each post-state's
+    root equal to the host path's, the copies refused by their legs, the
+    head's payload the engine's head, no set on the host, no host tree level, no signature checked inside the
     transition, every kernel of the chain's path launched and every call
     of it equal to its plain version."""
     import chip_smoke as CS
@@ -1116,7 +1118,6 @@ def test_chain_phase_on_card(dev, monkeypatch):
 
     n = 8192
     monkeypatch.setattr(CS, "CHAIN_VALIDATORS", n)
-    monkeypatch.setattr(CS, "CHAIN_SLOTS", (32, 33))
     monkeypatch.setattr(CS, "CHAIN_SWAPPED", (0, 1))
     sks = CS.make_keys(np.random.default_rng(CS.SEED))
     pks = [GB.sk_to_pk(sk) for sk in sks]
@@ -1124,8 +1125,10 @@ def test_chain_phase_on_card(dev, monkeypatch):
     table = PubkeyTable()
     table.register_points_unchecked(pks, tile_to=n)
     line, counts = CS.chain_phase(table, [comp[r % CS.N_KEYS] for r in range(n)], sks, "test")
-    assert [b["slot"] for b in line["blocks"]] == [32, 33]
-    assert [r["leg"] for r in line["rejected"]] == ["signature_verify", "state_root"]
+    assert [b["slot"] for b in line["blocks"]] == list(CS.CHAIN_SLOTS)
+    assert line["forks"] == ["phase0", "altair", "bellatrix", "capella", "deneb"]
+    assert [r["leg"] for r in line["rejected"]] == ["signature_verify", "state_root", "validation"]
+    assert line["engine"]["payload_head"] == line["engine"]["head"] and line["engine"]["optimistic"] == 0
     assert line["host_fallback_sets"] == 0 and line["host_tree_levels"] == 0
     assert line["host_signature_checks_in_stf"] == 0
     assert set(line["held"]) >= set(CS.CHAIN_KERNELS + CS.CHAIN_SHA)

@@ -197,7 +197,15 @@ Needs one CUDA device; exits non-zero without one.  In order:
      the phase0 epoch and upgrade_to_altair, regen, memory governor with
      its default budget, op pools, block production, the execution-payload
      leg with an ExecutionEngineMock, deneb data availability, fork
-     choice, a fork-aware BeaconDb) over a 1,048,576-validator phase0
+     choice, a fork-aware BeaconDb; a BeaconProposerCache that the walk's
+     validator client fills with every validator's fee recipient at the
+     start of each epoch with payloads, a PrepareNextSlotScheduler on the
+     head event, an
+     Eth1MergeBlockTracker over an in-process PoW chain crossing
+     mainnet's TTD, an ExecutionBuilderMock over the engine, a
+     ValidatorMonitor tracking each walk proposer and the 512 members of
+     one committee of each attested slot, a LightClientServer on the
+     db) over a 1,048,576-validator phase0
      genesis made by the port's create_genesis_state from the table's
      keys (MAINNET_CHAIN_CONFIG with altair at epoch 2, bellatrix 3,
      capella 4, deneb 5; the withdrawer row holding 1 ETH over the
@@ -206,9 +214,14 @@ Needs one CUDA device; exits non-zero without one.  In order:
      through the card's DeviceMerkleBackend; the blocks at slots 33
      (phase0, the committees of slots 31 and 32), 64 (the phase0 epoch
      that rewards epoch 0's records, then the upgrade), 96 (the merge
-     block, its payload from the engine), 128 (capella, the withdrawer's
-     BLS-to-execution change) and 160 (deneb, the payload's withdrawal
-     skimming the withdrawer's excess), made by the chain's own
+     block, its payload from the engine on the tracker's terminal PoW
+     block), 128 (capella, the withdrawer's BLS-to-execution change;
+     produced blinded through the builder, signed blinded, a substituted
+     reveal refused, then revealed and imported by submit_blinded_block)
+     and 160 (deneb, the payload's withdrawal skimming the withdrawer's
+     excess), 128 and 160 after scheduler.on_slot has precomputed their
+     epoch into the checkpoint cache and prepared the registered
+     proposer's payload, made by the chain's own
      produce_block from its pools (the previous slot's 64 committees of
      512 as full aggregates, two slots' at 33; a full sync aggregate
      from four subnet contributions where the head has a sync
@@ -219,6 +232,9 @@ Needs one CUDA device; exits non-zero without one.  In order:
      state root (refused by the state-root leg) and the block itself
      during an engine outage (refused as retryable by the payload leg,
      then imported), none moving the head or leaving a fork-choice node.
+     After the walk: the light-client bootstrap of the head, and a
+     checkpoint start (init_beacon_state from the head's SSZ bytes, its
+     root cold on the card).
      Checks: every block imported on its scheduled fork, the balances
      after the rewarded phase0 epoch up for epoch 0's attesters and
      their includer and down for every other validator, the altair
@@ -227,6 +243,15 @@ Needs one CUDA device; exits non-zero without one.  In order:
      post-state's root equal to a second StateRootEngine's on the host
      path (in step), no set on the host, no signature checked inside the
      state transition, no tree level on the host, the breakers closed,
+     the merge payload's parent the terminal block, one reveal, two
+     epochs precomputed and five payloads prepared (on_slot of 128 and
+     160, and the slot after each post-merge block), the payloads of 128
+     and 160 paid to their registered recipients, three light-client
+     updates from the planes (no host proof) whose committee branches
+     verify, the capella-attested one passing Lightclient.validate_update,
+     the bootstrap's branch off the planes, one proposal and one included
+     attestation for each tracked duty in the monitor, the checkpoint's
+     cold root the head's,
      every kernel of CHAIN_KERNELS and CHAIN_SHA launched (counted from
      0 just before the genesis) and every kernel call of the phase equal
      to its plain version (`hold_chain_calls`); its `chain block` lines
@@ -234,6 +259,9 @@ Needs one CUDA device; exits non-zero without one.  In order:
      committee caches, sets, import and host-root ms, engine calls) and
      its `chain` line (cold root, the phase0 epoch's and the upgrade's
      ms, sync committee on the host, rejections, the engine's calls,
+     the builder's bid, reveal and import ms, the precompute and duties
+     ms, the light-client counts and ms, the monitor's counts, the
+     checkpoint start's serialize, deserialize and cold-root ms,
      launches, calls held, the governor's resident bytes, evictions and
      demotions, wall time).
      `python3 chip_smoke.py --chain-only` registers its own table and runs
@@ -253,6 +281,7 @@ import ctypes
 import gc
 import itertools
 import json
+import logging
 import math
 import multiprocessing as mp
 import os
@@ -2277,6 +2306,14 @@ CHAIN_MERGE_SLOT = 96  # the first block with an execution payload
 CHAIN_CHANGE_SLOT = 128  # the capella block carries the withdrawer's BLS-to-execution change
 CHAIN_TAMPERED_SLOT = 160  # the three refused copies are made of this slot's block, the deneb one
 CHAIN_SWAPPED = (3, 7)  # the tampered copy's attestation 3 carries attestation 7's signature
+CHAIN_BUILDER_SLOT = 128  # the capella block goes through the builder: produced and signed blinded, then revealed
+CHAIN_PREPARED_SLOTS = (128, 160)  # scheduler.on_slot precomputes their epoch's state before the duties read it
+CHAIN_LC_SLOTS = (96, 128, 160)  # the blocks whose sync aggregate attests their parent: one light-client update each
+CHAIN_MONITORED_COMMITTEE = 0  # the committee of each attested slot whose members the validator monitor tracks
+# mainnet's terminal total difficulty, and the in-process PoW chain that crosses it at its third block
+CHAIN_TTD = 58_750_000_000_000_000_000_000
+CHAIN_GENESIS_TIME = 1_606_824_023  # mainnet's: a checkpoint start refuses a state without one
+CHAIN_POW_TDS = (CHAIN_TTD - 2 * 10**15, CHAIN_TTD - 10**15, CHAIN_TTD + 10**15, CHAIN_TTD + 2 * 10**15)
 # the kernels the phase must launch: the block's sets as one RLC batch of
 # wire sets (K = 512 aggregates through agg_pk), the bisection of the
 # tampered copy, the state roots' three SHA-256 kernels
@@ -2285,6 +2322,32 @@ CHAIN_KERNELS = ("g2_decompress", "hash_g2", "agg_pk", "g1_rpk", "g2_rsig_sub", 
 CHAIN_SHA = tuple(HTR_KERNELS)
 CHAIN_LANE_WISE = ("g2_decompress", "hash_g2", "g1_rpk", "g2_rsig_sub", "miller_loop", "affine_g2", "final_one",
                    "g2_subgroup_check", "each_final")  # a lane's result depends on that lane's inputs alone
+
+
+class _PowChain:
+    """An in-process eth1 provider over a linear PoW chain of the given
+    total difficulties (block i's hash is the byte i 32 times)."""
+
+    def __init__(self, tds):
+        from lodestar_tpu_torch.eth1 import PowMergeBlock
+
+        self.blocks, prev = {}, "00" * 32
+        for i, td in enumerate(tds, start=1):
+            h = ("%02x" % i) * 32
+            self.blocks[h] = PowMergeBlock(number=i, block_hash=h, parent_hash=prev, total_difficulty=td)
+            prev = h
+        self.head = prev
+
+    def get_pow_block_by_hash(self, block_hash):
+        return self.blocks.get(block_hash)
+
+    def get_pow_block_latest(self):
+        return self.blocks[self.head]
+
+
+def _fee_recipient(index: int) -> bytes:
+    """The fee recipient the walk's validator client registers for a proposer."""
+    return b"\xfe" + int(index).to_bytes(19, "big")
 
 
 def _merged_sweeps(calls):
@@ -2400,12 +2463,21 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     row whose turn in the withdrawal sweep the deneb block reaches, holds 1
     ETH over MAX_EFFECTIVE_BALANCE), its signatures through
     create_bls_service(TorchBlsVerifier(table)), its state roots through the
-    card's DeviceMerkleBackend, its default memory governor, a BeaconDb and
-    an ExecutionEngineMock.  The blocks at CHAIN_SLOTS (phase0 at 33 with
+    card's DeviceMerkleBackend, its default memory governor, a BeaconDb, an
+    ExecutionEngineMock, a BeaconProposerCache (every validator's fee
+    recipient, registered at the start of each walk slot from the merge on,
+    before the scheduler's tick), a
+    PrepareNextSlotScheduler on the head event, an Eth1MergeBlockTracker
+    over `_PowChain(CHAIN_POW_TDS)`, an ExecutionBuilderMock over the
+    engine, a ValidatorMonitor (each walk proposer, the members of committee
+    CHAIN_MONITORED_COMMITTEE of each attested slot) and a
+    LightClientServer.  The blocks at CHAIN_SLOTS (phase0 at 33 with
     the committees of slots 31 and 32; 64 runs the phase0 epoch of epoch 1,
     which rewards epoch 0's records, and upgrade_to_altair; the merge block
-    at 96; a BLS-to-execution change for the withdrawer at 128; deneb at
-    160, its payload's withdrawal skimming the withdrawer's excess) are made
+    at 96 on the tracker's terminal block; a BLS-to-execution change for the
+    withdrawer at 128, made blinded through the builder; deneb at 160, its
+    payload's withdrawal skimming the withdrawer's excess; scheduler.on_slot
+    before the duties of CHAIN_PREPARED_SLOTS) are made
     by the chain's own produce_block from its pools (the committees of
     CHAIN_ATT_SLOTS as full aggregates, 64 of 512 a slot; from altair on a
     full sync aggregate of four subnet contributions where the head has a sync
@@ -2425,16 +2497,27 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     state's flags are those epoch 1's records earn, the head is the last block with the engine's head as its
     payload's block hash and not optimistic, no set went to the host, the
     transition checked no signature itself, no tree level was hashed on the
-    host, the breakers stayed closed and every kernel of CHAIN_KERNELS and
+    host, the breakers stayed closed, the new services' gates hold (the merge
+    parent, one reveal and a refused substitution, two precomputed epochs
+    and two prepared payloads to the registered recipients, the
+    light-client updates and bootstrap off the planes with valid branches
+    and the capella-attested update valid, the monitor's counts, the
+    checkpoint start's cold root) and every kernel of CHAIN_KERNELS and
     CHAIN_SHA launched.  Returns (chain line, launches)."""
     from lodestar_tpu_torch.bls import create_bls_service
     from lodestar_tpu_torch.bls.verifier import TorchBlsVerifier
     from lodestar_tpu_torch.chain.chain import BeaconChain
+    from lodestar_tpu_torch.chain.emitter import ChainEvent
+    from lodestar_tpu_torch.chain.init_state import init_beacon_state
+    from lodestar_tpu_torch.chain.light_client_server import LightClientServer
+    from lodestar_tpu_torch.chain.prepare_next_slot import BeaconProposerCache, PrepareNextSlotScheduler
     from lodestar_tpu_torch.config import MAINNET_CHAIN_CONFIG, create_chain_config
     from lodestar_tpu_torch.crypto import bls as GB
     from lodestar_tpu_torch.crypto import fields as GT
     from lodestar_tpu_torch.db import BeaconDb
-    from lodestar_tpu_torch.execution import ExecutePayloadStatus, ExecutionEngineMock, ExecutionEngineUnavailable
+    from lodestar_tpu_torch.eth1 import Eth1MergeBlockTracker
+    from lodestar_tpu_torch.execution import BuilderError, ExecutePayloadStatus, ExecutionBuilderMock, \
+        ExecutionEngineMock, ExecutionEngineUnavailable
     from lodestar_tpu_torch.kernels import sha256 as SK
     from lodestar_tpu_torch.kernels import verify as KV
     from lodestar_tpu_torch.params import ACTIVE_PRESET, DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, \
@@ -2444,7 +2527,12 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     from lodestar_tpu_torch.ssz import uint64
     from lodestar_tpu_torch.state_transition import StateRootEngine, accessors as AC, block as BK, \
         genesis as GEN, phase0 as PH0, signature_sets as SS
-    from lodestar_tpu_torch.types import AttestationData, BLSToExecutionChange
+    from lodestar_tpu_torch.light_client.lightclient import NEXT_SYNC_COMMITTEE_DEPTH, NEXT_SYNC_COMMITTEE_INDEX, \
+        Lightclient
+    from lodestar_tpu_torch.ssz import is_valid_merkle_branch
+    from lodestar_tpu_torch.types import AttestationData, BLSToExecutionChange, BeaconBlockHeader, SyncCommittee
+    from lodestar_tpu_torch.utils.logger import Logger
+    from lodestar_tpu_torch.utils.validator_monitor import ValidatorMonitor
 
     t_phase = time.perf_counter()
     if len(table) != len(keys) or len(keys) != CHAIN_VALIDATORS:
@@ -2561,7 +2649,7 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
         KV.reset_launches()
         SK.reset_launches()
         t = time.perf_counter()
-        anchor = GEN.create_genesis_state(cfg, keys, balances=balances)
+        anchor = GEN.create_genesis_state(cfg, keys, genesis_time=CHAIN_GENESIS_TIME, balances=balances)
         genesis_s = time.perf_counter() - t
         if anchor.fork_name != ForkName.phase0:
             raise AssertionError(f"chain: the genesis is {anchor.fork_name.value}")
@@ -2570,10 +2658,57 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t) * 1e3
         db = BeaconDb(os.path.join(db_dir.name, "chain"), config=cfg)
+        # the chain's services: the proposer cache that production and the scheduler read, the validator monitor
+        # (its duty-miss warnings at epoch close kept to the error level: thousands of tracked rows miss epochs
+        # they had no duty in), the scheduler on the head event, the merge tracker over an in-process PoW chain the
+        # engine knows, the builder over the engine, the light-client server on the chain's db
+        proposer_cache = BeaconProposerCache()
+        monitor = ValidatorMonitor()
+        quiet = logging.getLogger("lodestar_tpu_torch.validator_monitor")
+        quiet.setLevel(logging.ERROR)
+        monitor.log = Logger("validator-monitor", _base=quiet)
         t = time.perf_counter()
-        chain = BeaconChain(cfg, anchor, db=db, bls_verifier=service, execution=el)
+        chain = BeaconChain(cfg, anchor, db=db, bls_verifier=service, execution=el, monitor=monitor,
+                            proposer_cache=proposer_cache)
         chain.phase_timer = timer
         chain_s = time.perf_counter() - t
+        scheduler = PrepareNextSlotScheduler(chain, proposer_cache)
+        head_prep_ms, precompute_ms, duties_ms, register_ms = [], [], [], []
+
+        def on_head(root, slot):
+            t = time.perf_counter()
+            try:
+                scheduler.on_head(root, slot)
+            finally:
+                head_prep_ms.append((int(slot), (time.perf_counter() - t) * 1e3))
+        chain.emitter.on(ChainEvent.head, on_head)
+        pow_chain = _PowChain(CHAIN_POW_TDS)
+        for h, pow_block in pow_chain.blocks.items():
+            el.valid_blocks[bytes.fromhex(h)] = bytes.fromhex(pow_block.parent_hash)
+        tracker = Eth1MergeBlockTracker(pow_chain, CHAIN_TTD)
+        chain.merge_block_tracker = tracker
+        builder = ExecutionBuilderMock(el)
+        chain.execution_builder = builder
+        real_reveal, reveal_ms = builder.submit_blinded_block, []
+
+        def timed_reveal(signed_blinded):
+            t = time.perf_counter()
+            try:
+                return real_reveal(signed_blinded)
+            finally:
+                reveal_ms.append((time.perf_counter() - t) * 1e3)
+        builder.submit_blinded_block = timed_reveal
+        lc_ms, lc_updates = [], []
+
+        class TimedLightClientServer(LightClientServer):
+            def on_imported_block(self, signed_block, root):
+                t = time.perf_counter()
+                try:
+                    return super().on_imported_block(signed_block, root)
+                finally:
+                    lc_ms.append((int(signed_block["message"]["slot"]), (time.perf_counter() - t) * 1e3))
+        lc_server = TimedLightClientServer(chain)
+        chain.emitter.on(ChainEvent.light_client_update, lc_updates.append)
         # the payload leg of each import: _verify_execution_payload's ms
         real_leg, leg_ms = chain._verify_execution_payload, []
 
@@ -2594,17 +2729,21 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
             """True unless the import ran every named phase."""
             return set(seen["phases_ms"]) < {"validation", "signature_verify", "stf", "state_root", "fork_choice"}
 
-        def signed(block, sk):
+        def signed(block, sk, blinded=False):
             slot = block["slot"]
-            root = cfg.compute_signing_root(chain._block_type(slot).hash_tree_root(block),
+            btype = cfg.get_blinded_fork_types(slot)[0] if blinded else chain._block_type(slot)
+            root = cfg.compute_signing_root(btype.hash_tree_root(block),
                                             cfg.get_domain(slot, DOMAIN_BEACON_PROPOSER, slot))
             return {"message": block, "signature": GB.sign_bytes(sk, root)}
 
-        def import_(signed_block, seen):
-            """process_block; `seen` gets the named phases it completed, its ms and its payload leg's ms."""
+        def import_(signed_block, seen, submit=None):
+            """process_block (or `submit`, the builder's reveal and import); `seen` gets the named phases it
+            completed, its ms and its payload leg's ms."""
             first, first_leg = len(phases), len(leg_ms)
             t = time.perf_counter()
             try:
+                if submit is not None:
+                    return submit(signed_block)
                 return chain.process_block(signed_block, timely=True)
             finally:
                 seen["ms"] = (time.perf_counter() - t) * 1e3
@@ -2613,6 +2752,7 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
 
         t_path = time.perf_counter()
         sign_s = produce_s = duties_s = 0.0
+        walk_proposers, tracked, fees, built = [], [], {}, {}
         for slot in CHAIN_SLOTS:
             # the pools: the committees of CHAIN_ATT_SLOTS and, from altair on, the sync committee's
             # contributions for the slot before the block
@@ -2626,6 +2766,11 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                 for index in range(AC.get_committee_count_per_slot(head, att_slot // SLOTS_PER_EPOCH)):
                     data = chain.produce_attestation_data(index, att_slot)
                     committee = AC.get_beacon_committee(head, att_slot, index)
+                    if index == CHAIN_MONITORED_COMMITTEE:
+                        members = [int(v) for v in committee]
+                        tracked.append((att_slot, members))
+                        for v in members:
+                            monitor.register_local_validator(v)
                     datas.append((data, len(committee)))
                     jobs.append((sum(sks[int(v) % N_KEYS] for v in committee) % GT.R, len(roots)))
                     roots.append(cfg.compute_signing_root(AttestationData.hash_tree_root(data), domain))
@@ -2657,19 +2802,42 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                     sk_of[keys[withdrawer]],
                     cfg.compute_signing_root(BLSToExecutionChange.hash_tree_root(change), domain))})
             sign_s += time.perf_counter() - t
+            epoch = slot // SLOTS_PER_EPOCH
+            if slot >= CHAIN_MERGE_SLOT:
+                # the validator client's prepare_beacon_proposer at the start of each epoch with payloads: the fee
+                # recipient of every validator it holds (all of them), before the scheduler's tick reads the cache
+                t = time.perf_counter()
+                for index in range(CHAIN_VALIDATORS):
+                    proposer_cache.add(epoch, index, _fee_recipient(index))
+                register_ms.append((time.perf_counter() - t) * 1e3)
+            if slot in CHAIN_PREPARED_SLOTS:
+                # next-slot preparation of the epoch's first slot: the epoch's state lands in the checkpoint
+                # cache, and the engine starts the registered proposer's payload
+                t = time.perf_counter()
+                scheduler.on_slot(slot)
+                precompute_ms.append((time.perf_counter() - t) * 1e3)
+                if chain.regen.checkpoint_cache.get({"epoch": epoch, "root": chain.get_head_root()}) is None:
+                    raise AssertionError(f"chain: the scheduler left no checkpoint state for epoch {epoch}")
             # the proposer from the chain's duties (the epoch's checkpoint state), its randao reveal
             t = time.perf_counter()
-            epoch = slot // SLOTS_PER_EPOCH
             duty = next(d for d in chain.get_proposer_duties(epoch) if d["slot"] == slot)
-            duties_s += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            duties_s += dt
+            duties_ms.append(dt * 1e3)
             proposer, sk = duty["validator_index"], sk_of[duty["pubkey"]]
+            monitor.register_local_validator(proposer)
+            walk_proposers.append((slot, proposer))
             reveal = GB.sign_bytes(sk, cfg.compute_signing_root(uint64.hash_tree_root(epoch),
                                                                 cfg.get_domain(slot, DOMAIN_RANDAO, slot)))
             if slot == CHAIN_UPGRADE_SLOT:
                 last_phase0 = head  # epoch 0's records, which the epoch rewards, and epoch 1's, which it translates
             n_engine = {k: len(v) for k, v in engine_calls.items()}
             t = time.perf_counter()
-            block = chain.produce_block(slot, reveal)
+            if slot == CHAIN_BUILDER_SLOT:
+                block = chain.produce_blinded_block(slot, reveal)
+                built["bid_ms"] = (time.perf_counter() - t) * 1e3
+            else:
+                block = chain.produce_block(slot, reveal)
             produce_s += time.perf_counter() - t
             body = block["body"]
             fork = cfg.get_fork_name(slot).value
@@ -2685,11 +2853,17 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                     or (not synced and sync_bits not in (None, 0))):
                 raise AssertionError(f"chain: the block at {slot} carries {len(body['attestations'])} attestations "
                                      f"of {n_atts} committees, sync bits {sync_bits}")
-            payload = body.get("execution_payload")
+            payload = body.get("execution_payload", body.get("execution_payload_header"))
             if (payload is None) != (slot < CHAIN_MERGE_SLOT) or (slot == CHAIN_CHANGE_SLOT) != bool(
-                    body.get("bls_to_execution_changes")):
+                    body.get("bls_to_execution_changes")) or (slot == CHAIN_BUILDER_SLOT) != (
+                    "execution_payload_header" in body):
                 raise AssertionError(f"chain: the block at {slot}: payload {payload is not None}, BLS changes "
-                                     f"{len(body.get('bls_to_execution_changes', []))}")
+                                     f"{len(body.get('bls_to_execution_changes', []))}, blinded "
+                                     f"{'execution_payload_header' in body}")
+            if slot == CHAIN_MERGE_SLOT:
+                merge_parent = bytes(payload["parent_hash"])
+            if slot in CHAIN_PREPARED_SLOTS:
+                fees[slot] = (bytes(payload["fee_recipient"]).hex(), _fee_recipient(proposer).hex())
             if fork == "deneb":
                 skim = [(int(w["validator_index"]), int(w["amount"])) for w in payload["withdrawals"]]
                 if len(skim) != 1 or skim[0][0] != withdrawer or skim[0][1] < 9 * 10**8:
@@ -2723,7 +2897,31 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                     if chain.head_root_hex != head_before or len(chain.fork_choice.proto.nodes) != nodes_before:
                         raise AssertionError(f"chain: the {label} copy moved the head or left a fork-choice node")
             seen = {}
-            root = import_(signed(block, sk), seen)
+            if slot == CHAIN_BUILDER_SLOT:
+                signed_blinded = signed(block, sk, blinded=True)
+                # a relay that reveals a payload whose transactions differ from the header the proposer signed:
+                # refused before any import
+                honest = dict(builder._payloads)
+                if len(honest) != 1:
+                    raise AssertionError(f"chain: the builder holds {len(honest)} bid payloads before the reveal, "
+                                         f"not the one of block {slot}")
+                ((key, payload_in),) = honest.items()
+                builder._payloads[key] = dict(payload_in, transactions=[b"\xde\xad"])
+                try:
+                    chain.submit_blinded_block(signed_blinded)
+                    raise AssertionError(f"chain: the substituted reveal of block {slot} imported")
+                except BuilderError as e:
+                    built["substituted_refused"] = str(e)
+                finally:
+                    builder._payloads.update(honest)
+                if chain.head_root_hex != head_before or len(chain.fork_choice.proto.nodes) != nodes_before \
+                        or builder.revealed:
+                    raise AssertionError("chain: the substituted reveal moved the head, left a fork-choice node or "
+                                         "was revealed")
+                root = import_(signed_blinded, seen, chain.submit_blinded_block)
+                built.update(import_ms=seen["ms"], sets=n_sets[-1], reveal_ms=list(reveal_ms))
+            else:
+                root = import_(signed(block, sk), seen)
             if leg_check(seen) or chain.head_root_hex != root.hex():
                 raise AssertionError(f"chain: block {slot} imported but the head is {chain.head_root_hex}")
             post = chain.head_state
@@ -2774,11 +2972,31 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
             log(f"chain block {slot}: " + json.dumps(per_block[-1]))
         torch.cuda.synchronize()
         path_s = time.perf_counter() - t_path
+        head_state = chain.head_state
+        head_state_root = head_state.hash_tree_root()
+        # the light-client bootstrap of the head, its branch read off the planes
+        t = time.perf_counter()
+        boot = lc_server.get_bootstrap(blocks[-1])
+        bootstrap_ms = (time.perf_counter() - t) * 1e3
+        # checkpoint start from the head's bytes: deserialized and checked, then its root cold on the card
+        t = time.perf_counter()
+        ckpt_bytes = head_state.serialize()
+        ckpt = {"bytes": len(ckpt_bytes), "serialize_ms": (time.perf_counter() - t) * 1e3}
+        t = time.perf_counter()
+        ckpt_state, ckpt["source"] = init_beacon_state(cfg, checkpoint_state_bytes=ckpt_bytes)
+        ckpt["deserialize_ms"] = (time.perf_counter() - t) * 1e3
+        del ckpt_bytes
+        ckpt["cold"] = getattr(ckpt_state, "_root_engine", None) is None
+        t = time.perf_counter()
+        ckpt_root = ckpt_state.hash_tree_root()
+        torch.cuda.synchronize()
+        ckpt["cold_root_ms"] = (time.perf_counter() - t) * 1e3
+        ckpt["validators"] = int(ckpt_state.num_validators)
+        del ckpt_state
         counts = {k: v for k, v in KV.LAUNCHES.items()}
         counts.update(SK.LAUNCHES)
         host_checks = BK.host_signature_checks()
         governor = chain.memory_governor.status()
-        head_state = chain.head_state
         payload_head = bytes(head_state.latest_execution_payload_header["block_hash"])
         optimistic = sorted(chain.optimistic_roots)
         head_status = chain.fork_choice.get_execution_status(chain.head_root_hex)
@@ -2828,6 +3046,56 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
     unrecorded = [k for k in NODE_HELD + CHAIN_SHA if counts.get(k, 0) and not calls[k]]
     if unrecorded:
         raise AssertionError(f"chain: launched outside the recorded wrappers: {unrecorded}")
+    # the merge block's payload extends the terminal PoW block the tracker found
+    terminal = tracker.merge_block
+    if terminal is None or merge_parent != bytes.fromhex(terminal.block_hash) or terminal.number != 3:
+        raise AssertionError(f"chain: the merge payload's parent {merge_parent.hex()}, the terminal block {terminal}")
+    # the capella block came through the builder, once; the substituted reveal was refused
+    if builder.revealed != 1 or not built.get("substituted_refused", "").startswith(
+            "revealed payload transactions_root mismatch"):
+        raise AssertionError(f"chain: the builder revealed {builder.revealed}, substitution {built}")
+    # two epochs precomputed; a payload prepared for each slot the scheduler readied on a post-merge head, every
+    # proposer being registered: each on_slot of CHAIN_PREPARED_SLOTS and the slot after each post-merge block's
+    # head event (97, 129, 161); each proposal's payload paid to its registered recipient
+    prepared_want = len(CHAIN_PREPARED_SLOTS) + sum(s >= CHAIN_MERGE_SLOT for s in CHAIN_SLOTS)
+    if (scheduler.prepared_epochs, scheduler.payloads_prepared) != (2, prepared_want) or sorted(fees) != list(
+            CHAIN_PREPARED_SLOTS) or any(got != want for got, want in fees.values()):
+        raise AssertionError(f"chain: {scheduler.prepared_epochs} epochs precomputed, {scheduler.payloads_prepared} "
+                             f"payloads prepared, fee recipients {fees}")
+    # one light-client update a block with a sync aggregate, every branch off the planes and valid
+    root_at = dict(zip(CHAIN_SLOTS, blocks))
+    parent_of = dict(zip(CHAIN_SLOTS[1:], CHAIN_SLOTS))
+    if (lc_server.produced != len(CHAIN_LC_SLOTS) or [u.signature_slot for u in lc_updates] != list(CHAIN_LC_SLOTS)
+            or lc_server.plane_proofs != len(CHAIN_LC_SLOTS) + 1 or lc_server.host_proofs):
+        raise AssertionError(f"chain: the light-client server made {lc_server.produced} updates "
+                             f"({[u.signature_slot for u in lc_updates]}), {lc_server.plane_proofs} plane and "
+                             f"{lc_server.host_proofs} host proofs")
+    for u in lc_updates:
+        if BeaconBlockHeader.hash_tree_root(u.attested_header) != root_at[parent_of[u.signature_slot]] \
+                or not is_valid_merkle_branch(SyncCommittee.hash_tree_root(u.next_sync_committee),
+                                              u.next_sync_committee_branch, NEXT_SYNC_COMMITTEE_DEPTH,
+                                              NEXT_SYNC_COMMITTEE_INDEX, u.attested_header["state_root"]):
+            raise AssertionError(f"chain: the light-client update signed at {u.signature_slot}: its attested header "
+                                 f"or its next sync committee branch is wrong")
+    if not is_valid_merkle_branch(SyncCommittee.hash_tree_root(boot["current_sync_committee"]),
+                                  boot["current_sync_committee_branch"], NEXT_SYNC_COMMITTEE_DEPTH,
+                                  NEXT_SYNC_COMMITTEE_INDEX - 1, head_state_root):
+        raise AssertionError("chain: the bootstrap's current sync committee branch is wrong")
+    # the update whose attested state is capella passes the client bootstrapped at the head
+    t = time.perf_counter()
+    Lightclient(cfg, boot["header"], boot["current_sync_committee"]["pubkeys"]).validate_update(lc_updates[-1])
+    validate_ms = (time.perf_counter() - t) * 1e3
+    # the monitor: one proposal for each walk proposer, one included attestation for each tracked member
+    proposals = [monitor.summary_dict(v, s // SLOTS_PER_EPOCH)["blocks_proposed"] for s, v in walk_proposers]
+    included = [monitor.summary_dict(v, s // SLOTS_PER_EPOCH)["attestations_included"]
+                for s, members in tracked for v in members]
+    if proposals != [1] * len(CHAIN_SLOTS) or included != [1] * sum(len(m) for _, m in tracked):
+        raise AssertionError(f"chain: the monitor counted proposals {proposals}, attestations "
+                             f"{sorted(set(included))} for {len(included)} tracked duties")
+    # checkpoint start: the head's bytes give the head's root, cold on the card
+    if ckpt["source"] != "checkpoint" or not ckpt["cold"] or ckpt_root != head_state_root:
+        raise AssertionError(f"chain: the checkpoint start {ckpt} gave {ckpt_root.hex()}, the head "
+                             f"{head_state_root.hex()}")
 
     t = time.perf_counter()
     held = hold_chain_calls(calls, KV, SK)
@@ -2845,6 +3113,20 @@ def chain_phase(table, keys, sks, card: str, dev=None) -> tuple:
                    "ms": {k: sum(v) for k, v in engine_calls.items()}, "head": el.head.hex(),
                    "payload_head": payload_head.hex(), "head_status": head_status, "optimistic": len(optimistic)},
         "withdrawer": {"index": withdrawer, "balance": withdrawer_state[1]},
+        "merge": {"terminal_block": terminal.number, "ttd_crossed_by": terminal.total_difficulty - CHAIN_TTD},
+        "builder": {k: built[k] for k in ("bid_ms", "reveal_ms", "import_ms", "sets")}
+        | {"revealed": builder.revealed, "substituted_refused": built["substituted_refused"][:60]},
+        "scheduler": {"precompute_ms": precompute_ms, "prepared_epochs": scheduler.prepared_epochs,
+                      "payloads_prepared": scheduler.payloads_prepared, "head_prep_ms": head_prep_ms,
+                      "fee_recipients": fees, "register_ms": register_ms},
+        "duties_ms": dict(zip(CHAIN_SLOTS, duties_ms)),
+        "light_client": {"produced": lc_server.produced, "plane_proofs": lc_server.plane_proofs,
+                         "host_proofs": lc_server.host_proofs, "update_ms": lc_ms, "bootstrap_ms": bootstrap_ms,
+                         "validate_ms": validate_ms, "signature_slots": [u.signature_slot for u in lc_updates]},
+        "monitor": {"tracked": len(monitor.tracked_indices), "proposals": sum(proposals),
+                    "attestations_included": sum(included), "committees": len(tracked),
+                    "missed_at_epoch_close": monitor.m_missed.value},
+        "checkpoint_start": ckpt,
         "launches": {k: v for k, v in counts.items() if v}, "held": held, "held_s": held_s,
         "host_fallback_sets": host_sets, "host_signature_checks_in_stf": host_checks,
         "host_tree_levels": backend.m_host_levels.value, "breaker": sup["state"],

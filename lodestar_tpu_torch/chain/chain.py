@@ -17,9 +17,8 @@ Two verification planes, as in the reference:
   - the state transition itself (always), its state root through the
     port's state-root engine.
 
-Not ported yet, and raising NotImplementedError where reached (ROADMAP
-Queue A item 7.1d): blinded production and the builder.  With no engine
-wired a block that carries a payload is rejected, as in the JAX package.
+With no engine wired a block that carries a payload is rejected, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -80,12 +79,6 @@ class PayloadInvalidError(ValueError):
         self.latest_valid_hash = latest_valid_hash
 
 
-_BUILDER = (
-    "blinded production and the builder are not ported yet: "
-    "ROADMAP Queue A item 7.1d"
-)
-
-
 class BeaconChain:
     def __init__(
         self,
@@ -113,6 +106,12 @@ class BeaconChain:
         self.bls = bls_verifier  # optional batched signature service
         self.eth1 = eth1  # optional Eth1DepositDataTracker
         self.execution = execution  # optional IExecutionEngine
+        # optional MEV builder (reference: chain.executionBuilder);
+        # wired post-construction by the node when configured
+        self.execution_builder = None
+        # optional Eth1MergeBlockTracker (terminal-PoW-block discovery
+        # for the merge-transition proposal)
+        self.merge_block_tracker = None
         self.monitor = monitor  # optional ValidatorMonitor
         self.kzg_setup = kzg_setup  # deneb blob verification/production
         # optional SlasherService (slasher/service.py): fed every
@@ -951,6 +950,10 @@ class BeaconChain:
         graffiti: bytes = b"\x00" * 32,
     ) -> dict:
         head = self.head_state
+        # the proposer's registered fee recipient (prepare_beacon_proposer)
+        # — matching the next-slot prep attributes lets the EL serve the
+        # pre-built payload instead of starting a fresh build
+        cache = self.proposer_cache
         block, _post = produce_block_from_pools(
             head,
             slot,
@@ -962,6 +965,8 @@ class BeaconChain:
             graffiti=graffiti,
             eth1=self.eth1,
             execution=self.execution,
+            merge_tracker=self.merge_block_tracker,
+            fee_recipient_fn=cache.get if cache is not None else None,
         )
         return block
 
@@ -971,10 +976,117 @@ class BeaconChain:
         randao_reveal: bytes,
         graffiti: bytes = b"\x00" * 32,
     ) -> dict:
-        raise NotImplementedError(_BUILDER)
+        """Builder-flow production: the body carries the relay's payload
+        HEADER (reference: api/impl/validator/index.ts:188-230
+        produceBlindedBlock -> chain.produceBlindedBlock).  Requires an
+        enabled builder."""
+        if self.execution_builder is None:
+            raise ValueError("execution builder not set")
+        if not self.execution_builder.status:
+            raise ValueError("execution builder disabled")
+        head = self.head_state
+        cache = self.proposer_cache
+        try:
+            block, _post = self._produce_blinded_inner(
+                head, slot, randao_reveal, graffiti, cache
+            )
+        except Exception:
+            # a relay fault counts against the circuit breaker
+            # (reference: builder/http.ts fault window)
+            fault = getattr(self.execution_builder, "on_slot_fault", None)
+            if fault is not None:
+                fault(int(slot))
+            raise
+        return block
+
+    def _produce_blinded_inner(
+        self, head, slot, randao_reveal, graffiti, cache
+    ):
+        return produce_block_from_pools(
+            head,
+            slot,
+            randao_reveal,
+            aggregated_attestation_pool=self.aggregated_attestation_pool,
+            op_pool=self.op_pool,
+            contribution_pool=self.sync_contribution_pool,
+            head_root=self.get_head_root(),
+            graffiti=graffiti,
+            eth1=self.eth1,
+            builder=self.execution_builder,
+            fee_recipient_fn=cache.get if cache is not None else None,
+        )
 
     def submit_blinded_block(self, signed_blinded: dict) -> bytes:
-        raise NotImplementedError(_BUILDER)
+        """Unblind via the builder (submitBlindedBlock reveals the
+        payload after the proposer's signature commits to the header)
+        and import the full block (reference: publishBlindedBlock ->
+        builder.submitBlindedBlock -> importBlock).  A deneb reveal
+        carries the blobs bundle: its sidecars register as available
+        BEFORE the import so the DA gate passes for the proposer's own
+        block."""
+        from ..execution.builder import unblind_signed_block
+
+        if self.execution_builder is None:
+            raise ValueError("execution builder not set")
+        slot = int(signed_blinded["message"]["slot"])
+        try:
+            payload, blobs_bundle = (
+                self.execution_builder.submit_blinded_block(signed_blinded)
+            )
+        except Exception:
+            fault = getattr(self.execution_builder, "on_slot_fault", None)
+            if fault is not None:
+                fault(slot)
+            raise
+        ok = getattr(self.execution_builder, "on_slot_success", None)
+        if ok is not None:
+            ok(slot)
+        signed = unblind_signed_block(signed_blinded, payload)
+        commitments = signed["message"]["body"].get(
+            "blob_kzg_commitments", []
+        )
+        if commitments:
+            self._register_builder_blobs(signed, commitments, blobs_bundle)
+        return self.process_block(signed)
+
+    def _register_builder_blobs(
+        self, signed: dict, commitments, blobs_bundle
+    ) -> None:
+        """Blobs bundle -> validated sidecars in the DA tracker.  The
+        bundle's blobs must commit to exactly the block's commitments
+        (the proposer signed those); sidecars are rebuilt locally so
+        the inclusion proofs bind to the actual body."""
+        if blobs_bundle is None:
+            raise ValueError(
+                "builder revealed a blob block without its blobs bundle"
+            )
+        if self.kzg_setup is None:
+            raise ValueError("no KZG setup loaded for builder blobs")
+        from ..crypto import kzg as K
+        from . import blobs as BL
+
+        blobs = blobs_bundle["blobs"]
+        if len(blobs) != len(commitments):
+            raise ValueError("blobs bundle size != block commitments")
+        for blob, c in zip(blobs, commitments):
+            if bytes(
+                K.blob_to_kzg_commitment(bytes(blob), self.kzg_setup)
+            ) != bytes(c):
+                raise ValueError("bundle blob does not match commitment")
+        slot = int(signed["message"]["slot"])
+        body_type = self.config.get_fork_types(slot)[2]
+        for sc in BL.make_blob_sidecars(
+            signed, body_type, [bytes(b) for b in blobs], self.kzg_setup
+        ):
+            self.on_blob_sidecar(
+                BeaconBlockHeader.hash_tree_root(
+                    sc["signed_block_header"]["message"]
+                ),
+                int(sc["index"]),
+                bytes(sc["kzg_commitment"]),
+                slot=slot,
+                sidecar=sc,
+            )
 
     # -- duties (reference api/impl/validator/duties) ----------------------
 

@@ -1,8 +1,7 @@
 """Block production — assemble, compute state root, (optionally) sign.
 
 The port's copy of `lodestar_tpu/chain/produce_block.py`; it imports nothing of the
-JAX package.  Blinded production through a builder is not ported yet
-(ROADMAP Queue A item 7.1d) and raises.
+JAX package.
 
 Reference: packages/beacon-node/src/chain/produceBlock/produceBlockBody.ts
 (body assembly from op pools + eth1 vote + randao reveal) and
@@ -96,6 +95,8 @@ def produce_block_from_pools(
     eth1=None,
     execution=None,
     builder=None,
+    merge_tracker=None,
+    fee_recipient_fn=None,
 ) -> Tuple[Dict, object]:
     """produceBlockBody from the op pools (reference
     produceBlockBody.ts:66-118): attestations ranked by participation,
@@ -139,6 +140,8 @@ def produce_block_from_pools(
         randao_reveal,
         execution=execution,
         builder=builder,
+        merge_tracker=merge_tracker,
+        fee_recipient_fn=fee_recipient_fn,
         graffiti=graffiti,
         eth1_data=eth1_data,
         deposits=deposits,
@@ -153,7 +156,9 @@ def produce_block_from_pools(
 
 def build_payload_attributes(advanced, slot: int, fee_recipient: bytes):
     """THE payload attributes for proposing at `slot` on `advanced` (the
-    state already processed to `slot`)."""
+    state already processed to `slot`).  Shared by the proposal-time
+    fetch and the next-slot preparation — the EL serves the pre-built
+    payload only when the two match byte-for-byte."""
     from ..execution import PayloadAttributes
     from ..state_transition.accessors import get_randao_mix
     from ..state_transition.block import get_expected_withdrawals
@@ -182,18 +187,30 @@ def _fetch_payload(
     execution,
     pre,
     fee_recipient: bytes = b"\x00" * 20,
+    merge_tracker=None,
 ) -> Dict:
     """engine_forkchoiceUpdated(attributes) + engine_getPayload against
     the state's latest header (reference: produceBlockBody.ts
-    prepareExecutionPayload).  Pre-merge, the payload's parent is the
-    zero hash: the terminal PoW block's discovery (an eth1 merge
-    tracker) is not ported."""
+    prepareExecutionPayload).  `fee_recipient` comes from the proposer's
+    prepare_beacon_proposer registration.  Pre-merge, the payload parent
+    is the TERMINAL PoW block discovered by the Eth1MergeBlockTracker
+    (produceBlockBody.ts prepareExecutionPayload's
+    getTerminalPowBlockHash leg) — producing the transition block."""
     from ..state_transition.block import is_merge_transition_complete
 
     if is_merge_transition_complete(pre):
         parent_hash = bytes(pre.latest_execution_payload_header["block_hash"])
     else:
         parent_hash = b"\x00" * 32
+        if merge_tracker is not None:
+            try:
+                terminal = merge_tracker.get_terminal_pow_block()
+            except Exception:  # noqa: BLE001 — an eth1 flake must not
+                # kill the proposal; pre-tracker behavior (zero parent)
+                # is the safe fallback
+                terminal = None
+            if terminal is not None:
+                parent_hash = bytes.fromhex(terminal.block_hash)
     r = execution.notify_forkchoice_update(
         parent_hash,
         parent_hash,
@@ -223,6 +240,8 @@ def produce_block(
     randao_reveal: bytes,
     execution=None,
     builder=None,  # IExecutionBuilder for the blinded flow
+    merge_tracker=None,  # Eth1MergeBlockTracker for the transition block
+    fee_recipient_fn=None,  # proposer_index -> bytes|None (the cache)
     **body_kwargs,
 ) -> Tuple[Dict, object]:
     """Build an unsigned block at `slot` on top of `state`.
@@ -230,29 +249,56 @@ def produce_block(
     Returns (block_value, post_state); block.state_root is the real
     post-state root, so signing it yields an importable block.  With a
     `builder`, the body is BLINDED: it carries the relay's payload
-    header instead of a payload (reference: produceBlindedBlock); that
-    flow is not ported yet (ROADMAP Queue A item 7.1d)."""
+    header instead of a payload (reference: produceBlindedBlock)."""
+    from ..state_transition.block import is_merge_transition_complete
+
     pre = state.clone()
     if pre.slot < slot:
         process_slots(pre, slot)
     proposer_index = get_beacon_proposer_index(pre)
     parent_root = BeaconBlockHeader.hash_tree_root(pre.latest_block_header)
+    fee_recipient = b"\x00" * 20
+    if fee_recipient_fn is not None:
+        # the proposer's prepare_beacon_proposer registration (looked up
+        # HERE where the advanced state already names the proposer)
+        registered = fee_recipient_fn(int(proposer_index))
+        if registered is not None:
+            fee_recipient = registered
     if (
         pre.latest_execution_payload_header is not None
         and body_kwargs.get("execution_payload") is None
     ):
         if builder is not None:
-            raise NotImplementedError(
-                "blinded production and the builder are not ported yet: "
-                "ROADMAP Queue A item 7.1d"
+            # builder flow requires a settled parent payload (the relay
+            # bids on top of a known EL block)
+            if not is_merge_transition_complete(pre):
+                raise ValueError("builder flow requires a post-merge head")
+            parent_hash = bytes(
+                pre.latest_execution_payload_header["block_hash"]
             )
-        # bellatrix proposal: fetch the payload from the EL
-        # (reference: produceBlockBody.ts engine getPayload leg)
-        if execution is None:
-            raise ValueError(
-                "post-bellatrix proposal requires an execution engine"
+            bid = builder.get_header(
+                slot,
+                parent_hash,
+                bytes(pre.pubkeys[int(proposer_index)]),
+                payload_attributes=build_payload_attributes(
+                    pre, slot, fee_recipient
+                ),
             )
-        body_kwargs["execution_payload"] = _fetch_payload(execution, pre)
+            body_kwargs["execution_payload"] = dict(bid.header)
+            if bid.blob_kzg_commitments is not None:
+                body_kwargs.setdefault(
+                    "blob_kzg_commitments", list(bid.blob_kzg_commitments)
+                )
+        else:
+            # bellatrix proposal: fetch the payload from the EL
+            # (reference: produceBlockBody.ts engine getPayload leg)
+            if execution is None:
+                raise ValueError(
+                    "post-bellatrix proposal requires an execution engine"
+                )
+            body_kwargs["execution_payload"] = _fetch_payload(
+                execution, pre, fee_recipient, merge_tracker=merge_tracker
+            )
     body = produce_block_body(pre, randao_reveal, **body_kwargs)
     block = {
         "slot": slot,

@@ -1,8 +1,7 @@
 """Execution layer — engine API interface, in-process mock, HTTP client.
 
 The port's copy of `lodestar_tpu/execution/__init__.py`; it imports
-nothing of the JAX package.  The builder (`builder.py`, blinded
-production) is not ported yet: ROADMAP Queue A item 7.1d.
+nothing of the JAX package.
 
 Mirror of the reference's execution package (reference:
 packages/beacon-node/src/execution/engine/{interface.ts,http.ts,
@@ -23,8 +22,22 @@ from .engine import (
 )
 from .engine_mock import ExecutionEngineMock
 from .engine_http import ExecutionEngineHttp, EngineApiServer
+from .builder import (
+    BuilderBidResult,
+    BuilderError,
+    ExecutionBuilderHttp,
+    ExecutionBuilderMock,
+    unblind_signed_block,
+    verify_revealed_payload,
+)
 
 __all__ = [
+    "BuilderBidResult",
+    "BuilderError",
+    "ExecutionBuilderHttp",
+    "ExecutionBuilderMock",
+    "unblind_signed_block",
+    "verify_revealed_payload",
     "ExecutePayloadStatus",
     "ExecutionEngineUnavailable",
     "ExecutionPayloadStatus",

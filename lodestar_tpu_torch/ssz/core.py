@@ -1,6 +1,7 @@
 """SSZ type objects: serialization + merkleization, the port's copy of
-`lodestar_tpu/ssz/core.py` (of its proof helpers only `_merkle_branch`, which
-`chain/blobs.py` needs, and `is_valid_merkle_branch`).
+`lodestar_tpu/ssz/core.py`, with its proof helpers (`container_branch`,
+`container_branches`, `leaf_chunk_branch`: the host side of the
+light-client proofs, beside `proofs/plane_reader.py`'s plane reads).
 
 Implements the consensus-spec SSZ rules the reference relies on through
 `@chainsafe/ssz` (reference: packages/types/src/sszTypes.ts):
@@ -453,12 +454,132 @@ def _merkle_branch(
     return branch
 
 
+def _is_leaf_index(p) -> bool:
+    """True for a path element addressing a chunk index inside a
+    List/Vector field (int, or an all-digits string from the API's
+    dotted-path syntax)."""
+    return isinstance(p, int) or (isinstance(p, str) and p.isdigit())
+
+
+def _field_chunks(ftype, value):
+    """(chunks, chunk_limit, length) replicating _elems_root's packing
+    for a List/Vector — the host oracle for in-field leaf proofs.
+    chunk_limit is None for Vectors (padded to the live count's next
+    pow2); `length` is the mix-in element count (None = no mix-in)."""
+    if isinstance(ftype, List):
+        elem, limit, length = ftype.elem, ftype.limit, len(value)
+    elif isinstance(ftype, Vector):
+        elem, limit, length = ftype.elem, None, None
+    else:
+        raise TypeError("leaf-chunk proofs index into List/Vector fields")
+    if isinstance(elem, _BASIC):
+        data = b"".join(elem.serialize(v) for v in value)
+        chunk_limit = (
+            None if limit is None else (limit * elem.fixed_size + 31) // 32
+        )
+        return _pack_bytes(data), chunk_limit, length
+    if isinstance(elem, ByteVector) and elem.length == 32:
+        chunks = [bytes(v) for v in value]
+    else:
+        chunks = [elem.hash_tree_root(v) for v in value]
+    return chunks, limit, length
+
+
+def leaf_chunk_branch(
+    ftype, value, chunk_index: int
+) -> Tuple[bytes, PyList[bytes], int, int]:
+    """(leaf, branch, depth, index) for chunk `chunk_index` inside a
+    List/Vector field's own subtree, anchored at
+    ftype.hash_tree_root(value) — the mix-in length chunk is part of
+    the branch for lists.  Valid anywhere in the padded leaf space
+    (zero leaves beyond the live count), matching ChunkTree.branch."""
+    chunks, chunk_limit, length = _field_chunks(ftype, value)
+    leaves = _next_pow2(
+        chunk_limit if chunk_limit is not None else len(chunks)
+    )
+    if not (0 <= chunk_index < leaves):
+        raise IndexError(
+            f"chunk index {chunk_index} outside padded leaf space {leaves}"
+        )
+    leaf = (
+        chunks[chunk_index] if chunk_index < len(chunks) else bytes(32)
+    )
+    branch = _merkle_branch(chunks, chunk_index, limit=chunk_limit)
+    depth = len(branch)
+    if length is not None:
+        branch = branch + [length.to_bytes(32, "little")]
+        depth += 1
+    return leaf, branch, depth, chunk_index
+
+
+def container_branch(
+    ctype: "Container", value, path: Sequence[str], _chunks=None
+) -> Tuple[bytes, PyList[bytes], int, int]:
+    """Merkle proof of a (possibly nested) container field.
+
+    Returns (leaf, branch, depth, index) such that
+    is_valid_merkle_branch(leaf, branch, depth, index, ctype.hash_tree_root
+    (value)) holds — the producer side of the light-client proofs
+    (reference: the @chainsafe/persistent-merkle-tree getSingleProof the
+    light-client server relies on).  `_chunks` lets container_branches
+    share one field-root pass across proofs.  A trailing numeric path
+    element addresses a chunk inside a List/Vector field (e.g.
+    ["balances", "5"] proves the 5th balance chunk)."""
+    if not isinstance(ctype, Container):
+        if (
+            isinstance(ctype, (List, Vector))
+            and len(path) == 1
+            and _is_leaf_index(path[0])
+        ):
+            return leaf_chunk_branch(ctype, value, int(path[0]))
+        raise TypeError("container_branch walks Container types")
+    if not path:
+        return ctype.hash_tree_root(value), [], 0, 0
+    name = path[0]
+    names = [fname for fname, _ in ctype.fields]
+    idx = names.index(name)
+    chunks = (
+        _chunks
+        if _chunks is not None
+        else [ftype.hash_tree_root(value[fname]) for fname, ftype in ctype.fields]
+    )
+    here_branch = _merkle_branch(chunks, idx)
+    here_depth = len(here_branch)
+    sub_type = ctype.fields[idx][1]
+    leaf, sub_branch, sub_depth, sub_index = (
+        container_branch(sub_type, value[name], path[1:])
+        if len(path) > 1
+        else (chunks[idx], [], 0, 0)
+    )
+    return (
+        leaf,
+        sub_branch + here_branch,
+        sub_depth + here_depth,
+        idx * (1 << sub_depth) + sub_index,
+    )
+
+
+def container_branches(
+    ctype: "Container", value, paths: Sequence[Sequence[str]]
+) -> PyList[Tuple[bytes, PyList[bytes], int, int]]:
+    """Several proofs over one value with ONE top-level field-root pass
+    (the expensive part: e.g. the validator registry merkleization)."""
+    chunks = [
+        ftype.hash_tree_root(value[fname]) for fname, ftype in ctype.fields
+    ]
+    return [
+        container_branch(ctype, value, path, _chunks=chunks)
+        for path in paths
+    ]
+
+
 def is_valid_merkle_branch(
     leaf: bytes, branch: Sequence[bytes], depth: int, index: int, root: bytes
 ) -> bool:
     """Spec is_valid_merkle_branch — proves `leaf` sits at generalized
     index (2**depth + index) under `root` (deposit proofs against the
-    eth1 deposit root)."""
+    eth1 deposit root; the light client's committee and finality
+    branches against the attested state root)."""
     if len(branch) != depth:
         return False
     node = leaf

@@ -1,2 +1,2 @@
-"""Host utilities: the metrics registry, the deadline runner and the job
-queue (copies of the JAX package's `utils/`)."""
+"""Host utilities: the metrics registry, the deadline runner, the job
+queue and the validator monitor (copies of the JAX package's `utils/`)."""

@@ -235,11 +235,9 @@ def test_htr_modes(installed, monkeypatch, mode):
     assert sp.hash_tree_root() == sj.hash_tree_root()
 
 
-def test_phase0_states_raise_in_slot_processing(host_path):
+def test_phase0_states_upgrade_in_slot_processing(host_path):
     """A phase0 state runs the phase0 epoch and the altair upgrade in slot
-    processing, as in the JAX package, byte for byte.  The test keeps the
-    name it had while the port's slot processing refused a phase0 state,
-    so that its id carries on across that change."""
+    processing, as in the JAX package, byte for byte."""
     w = host_path
     states = []
     for M in (J, P):

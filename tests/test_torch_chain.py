@@ -195,18 +195,24 @@ def test_chain_without_a_verifier_checks_in_the_transition(installed, tmp_path):
     assert P.blk.host_signature_checks() >= 2
 
 
-def test_unported_legs_raise(installed):
-    """Only the builder (ROADMAP Queue A item 7.1d) is still unported;
-    a payload with no engine wired is rejected, as in the JAX package."""
+def test_payload_without_engine_is_rejected(installed):
+    """A payload with no engine wired is rejected, as in the JAX package;
+    a builder and a merge tracker wire into the chain, and blinded
+    production without an enabled builder refuses as the JAX package's."""
     w = installed
     anchor = P.gen.create_genesis_state(config(P), w.pks[:8] * 4, genesis_time=1)
     chain = P.chain.BeaconChain(config(P), anchor)
-    with pytest.raises(NotImplementedError, match="7.1d"):
-        chain.produce_blinded_block(1, b"\x00" * 96)
-    with pytest.raises(NotImplementedError, match="7.1d"):
-        chain.submit_blinded_block({"message": {"slot": 1}})
     with pytest.raises(ValueError, match="no engine wired"):
         chain._verify_execution_payload({"body": {"execution_payload": {}}})
+    assert chain.execution_builder is None and chain.merge_block_tracker is None
+    with pytest.raises(ValueError, match="execution builder not set"):
+        chain.produce_blinded_block(1, b"\x00" * 96)
+    builder = P.execution.ExecutionBuilderMock(P.execution.ExecutionEngineMock())
+    chain.execution_builder = builder
+    assert chain.execution_builder is builder and builder.status
+    builder.update_status(False)
+    with pytest.raises(ValueError, match="execution builder disabled"):
+        chain.produce_blinded_block(1, b"\x00" * 96)
 
 
 def test_engine_and_kzg_setup_are_accepted(installed):

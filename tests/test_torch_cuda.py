@@ -1112,7 +1112,11 @@ def test_chain_phase_on_card(dev, monkeypatch):
     root equal to the host path's, the copies refused by their legs, the
     head's payload the engine's head, no set on the host, no host tree level, no signature checked inside the
     transition, every kernel of the chain's path launched and every call
-    of it equal to its plain version."""
+    of it equal to its plain version; the merge block on the tracker's
+    terminal block, the capella block through the builder, two epochs
+    precomputed and five payloads prepared, three light-client updates off
+    the planes, the monitor's counts and the checkpoint start's cold
+    root."""
     import chip_smoke as CS
     from lodestar_tpu_torch.crypto import bls as GB
 
@@ -1133,3 +1137,8 @@ def test_chain_phase_on_card(dev, monkeypatch):
     assert line["host_signature_checks_in_stf"] == 0
     assert set(line["held"]) >= set(CS.CHAIN_KERNELS + CS.CHAIN_SHA)
     assert all(counts[k] for k in CS.CHAIN_KERNELS + CS.CHAIN_SHA)
+    assert line["merge"]["terminal_block"] == 3 and line["builder"]["revealed"] == 1
+    prepared = len(CS.CHAIN_PREPARED_SLOTS) + sum(s >= CS.CHAIN_MERGE_SLOT for s in CS.CHAIN_SLOTS)
+    assert (line["scheduler"]["prepared_epochs"], line["scheduler"]["payloads_prepared"]) == (2, prepared)
+    assert line["light_client"]["signature_slots"] == list(CS.CHAIN_LC_SLOTS)
+    assert line["light_client"]["host_proofs"] == 0 and line["checkpoint_start"]["source"] == "checkpoint"
